@@ -26,3 +26,8 @@ def abi1(mesh1):
     import repro.core as C
 
     return C.pax_init(mesh1, impl="paxi")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skipped without one)")
