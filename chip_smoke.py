@@ -1,41 +1,72 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py               # every phase, one card
+    python3 chip_smoke.py --only check  # build + [check] only (a first run)
+    python3 chip_smoke.py --only ring4  # build + [ring4] only, four cards
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build the CUDA kernels of the training path from ``src/repro_torch``;
-2. hold each kernel bitwise against its plain PyTorch version at
-   (dp, buckets) in {(1,1), (1,2), (4,2), (8,4)}, f32 and bf16 wire, at the
-   full qwen2-0.5b flat-gradient size and at a small ragged row length
-   (plus one misaligned buffer for the scalar path);
-3. time each kernel, its plain version and one PyTorch call computing the
-   same function, with CUDA events, beside the least time the card's
-   memory bandwidth allows;
+1. build the CUDA kernels of the training paths from ``src/repro_torch``:
+   one ``nvcc`` per source (``ring_wire.cu``, ``ring_hops.cu``), started
+   together;
+2. [check] hold each kernel bitwise against its plain PyTorch version:
+   the zero1 pack/unpack and the error-feedback pack at (dp, buckets) in
+   {(1,1), (1,2), (4,2), (8,4)} at the full qwen2-0.5b flat-gradient size
+   and at a small ragged row length, and the five ring-hop kernels at the
+   hop shapes of the full-width ZeRO-1 int8 leg at dp 2, 4 and 8 with one
+   and two buckets (the flat vector padded to dp * buckets * 128, as
+   ``train_loop.init_state`` pads it on the int8 ring); plus
+   rounding ties (int8 rint, bf16 nearest even), an all-zero block, the
+   +-127 clip and a misaligned buffer;
+3. [time] time each kernel, its plain version and, where one exists, one
+   PyTorch call computing the same function, with CUDA events, beside the
+   least time the card's memory bandwidth allows;
 4. check the training path end to end at a small size: the reduced
    qwen2-0.5b config in float32 trains 3 steps on the card and on the CPU
    (a subprocess, the plain kernel versions) and the losses agree;
-5. drive the main path: ``repro_torch.launch.train.main`` for qwen2-0.5b at
-   full width (bf16, microbatch 4) for 5 ZeRO-1 steps, global batch 8,
+5. [main] the main path: ``repro_torch.launch.train.main`` for qwen2-0.5b
+   at full width (bf16, microbatch 4) for 5 ZeRO-1 steps, global batch 8,
    sequence 128, one bucket — every step must launch ``pack_transposed`` —
    then 2 steps with two buckets, which must launch ``unpack_transposed``;
-   launch counts are zeroed just before and read just after;
-6. print the kernels' record as one JSON line, the card's name and power
+6. [main-bf16] the same at ``--grad-compression bf16``: 5 steps at one
+   bucket, 2 at two; ``pack_transposed_ef`` launches once per step and
+   ``pack_transposed`` never;
+7. [main-int8] 2 steps at ``--grad-compression int8``: the wire rides
+   ``ring-int8`` on NCCL with ``allreduce`` composed from its recipe; at one
+   rank the ring is the identity, so no hop kernel launches and both
+   steps' losses and grad norms equal the uncompressed run's bitwise (same
+   seed, one bucket);
+8. print the kernels' record as one JSON line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
-Needs one CUDA device and the repository's ``src/`` beside this file.
+Each main path zeroes the launch counts just before it and reads them just
+after.  Needs one CUDA device and the repository's ``src/`` beside this
+file.
+
+``--only ring4`` runs the one path a single card cannot: [ring4] starts
+``launch.train`` as four ranks, one per card, on NCCL, for 2 ZeRO-1 steps
+of full-width qwen2-0.5b (global batch 32) on the f32 wire and then on the
+int8 ring (dp=4).  On the ring every rank must launch ``quant_i8`` and
+``hop_accum_i8`` once a step and ``hop_add_quant_i8`` twice (S - 2 middle
+hops); the step-1 loss must equal the f32 run's bitwise (no update yet),
+and the int8 run's grad norms stay within the battery's int8 bound (0.05
+relative) of the f32 run's.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
+import multiprocessing
 import os
+import socket
 import statistics
 import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -46,8 +77,14 @@ HBM_BYTES_PER_S = 3.35e12
 
 CASES = ((1, 1), (1, 2), (4, 2), (8, 4))
 SMALL_SEG = 1001          # ragged: not a multiple of the 4-wide vectors
+RINGS = (2, 4, 8)         # ring sizes whose hop shapes [check] covers
+HOP_BUCKETS = (1, 2)      # zero1 bucket counts whose hop shapes [check] covers
+TIME_RING = 4             # the hop shapes [time] measures (dp=4, one bucket)
+WIRE_BLOCK = 128
 TIMING_ITERS = 20
 ARCH = "qwen2-0.5b"
+HOPS = ("quant_i8", "hop_add_quant_i8", "hop_accum_i8", "hop_add_quant_bf16",
+        "hop_accum_bf16")
 
 
 def log(msg: str) -> None:
@@ -69,18 +106,24 @@ def flat_param_count(cfg) -> int:
 
 
 def phase_build():
+    """One nvcc per source, all started together, then load."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.ring_wire import ops
 
+    libs = (("ring_wire", ops.SOURCES), ("ring_hops", ops.HOP_SOURCES))
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        paths = list(pool.map(lambda lib: _build.build(*lib), libs))
     ops._lib()
-    lib = _build.library_path("ring_wire", ops.SOURCES)
-    log(f"[build] {lib.relative_to(HERE)} in {time.perf_counter() - t0:.1f} s")
-    log_file = lib.with_suffix(".log")
-    if log_file.exists():
-        for line in log_file.read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log(f"[build]   {line.strip()}")
+    ops._hop_lib()
+    log(f"[build] {', '.join(str(p.relative_to(HERE)) for p in paths)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for path in paths:
+        log_file = path.with_suffix(".log")
+        if log_file.exists():
+            for line in log_file.read_text().splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    log(f"[build]   {line.strip()}")
 
 
 def _max_err(a, b) -> float:
@@ -131,6 +174,124 @@ def phase_check(n_full: int) -> dict:
     if not torch.equal(k, ref.pack_transposed(x, 4, 2, torch.bfloat16)):
         raise AssertionError("pack_transposed disagrees on a misaligned buffer")
     log("[check] misaligned buffer: pack bitwise")
+    return worst
+
+
+def _same(name: str, case: str, k, r, worst: dict) -> None:
+    """Bitwise or fail; record the worst difference."""
+    ks, rs = (k, r) if isinstance(k, tuple) else ((k,), (r,))
+    torch_sync()
+    err = max(_max_err(a, b) for a, b in zip(ks, rs))
+    worst[name] = max(worst.get(name, 0.0), err)
+    if not all(a.dtype == b.dtype and a.shape == b.shape and bool((a == b).all())
+               for a, b in zip(ks, rs)):
+        raise AssertionError(f"{name} disagrees with its plain version ({case}): "
+                             f"max abs err {err}")
+
+
+def torch_sync() -> None:
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def hop_chunk(n_full: int, S: int, buckets: int = 1) -> int:
+    """Elements per hop of the full-width ZeRO-1 int8 leg on a ring of S:
+    the flat vector padded to S * buckets * WIRE_BLOCK (``zero1_granule``),
+    the buckets stacked on one wire, this rank's slice of each."""
+    from repro_torch.optim.adamw import zero1_padded_size
+
+    return zero1_padded_size(n_full, S, buckets, WIRE_BLOCK) // S
+
+
+def _edge_blocks(device):
+    """Blocks on the rounding edges (see tests/test_torch_ring_wire_hops.py):
+    exact int8 rint ties of both parities (absmax 127 gives scale 1.0), an
+    all-zero block, both clip ends, bf16 ties of both parities."""
+    import torch
+
+    ties = torch.zeros(WIRE_BLOCK)
+    ties[0] = 127.0
+    ties[1:21] = torch.arange(-10, 10) + 0.5
+    clip = torch.linspace(-127.0, 127.0, WIRE_BLOCK)
+    base = torch.tensor([1.0, 1.0078125, -3.0, 65504.0, 1e-30, 3e38, 2.5, -0.75])
+    bf_ties = (base.view(torch.int32) | 0x8000).view(torch.float32)
+    bf = torch.cat([base, bf_ties]).repeat(WIRE_BLOCK // 16)
+    return torch.stack([ties, torch.zeros(WIRE_BLOCK), clip, bf]).to(device)
+
+
+def _check_hops(x, a, label: str, worst: dict) -> None:
+    """The five hop kernels on one (nb, 128) chunk ``x`` and addend ``a``."""
+    import torch
+    from repro_torch.kernels.ring_wire import ops, ref
+
+    q, s = ops.quant_i8(x)
+    _same("quant_i8", label, (q, s), ref.quant_i8(x), worst)
+    _same("hop_add_quant_i8", label, ops.hop_add_quant_i8(q, s, a),
+          ref.hop_add_quant_i8(q, s, a), worst)
+    _same("hop_accum_i8", label, ops.hop_accum_i8(q, s, a), ref.hop_accum_i8(q, s, a), worst)
+    w = x.to(torch.bfloat16)
+    _same("hop_add_quant_bf16", label, ops.hop_add_quant_bf16(w, a),
+          ref.hop_add_quant_bf16(w, a), worst)
+    _same("hop_accum_bf16", label, ops.hop_accum_bf16(w, a), ref.hop_accum_bf16(w, a), worst)
+
+
+def phase_check_ring(n_full: int) -> dict:
+    """The six kernels of the compressed wire, bitwise against their plain
+    versions; returns the worst difference per kernel (0.0 when bitwise)."""
+    import torch
+    from repro_torch.kernels.ring_wire import ops, ref
+    from repro_torch.optim.adamw import zero1_padded_size
+
+    worst: dict = {}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    seen = set()
+    for S in RINGS:
+        for b in HOP_BUCKETS:
+            c = hop_chunk(n_full, S, b)
+            if c in seen:
+                log(f"[check] zero1 int8 dp={S} buckets={b}: hop chunk {c} elements, "
+                    "checked above")
+                continue
+            seen.add(c)
+            x = (3 * torch.randn(c, generator=gen, device="cuda")).view(-1, WIRE_BLOCK)
+            a = (3 * torch.randn(c, generator=gen, device="cuda")).view(-1, WIRE_BLOCK)
+            _check_hops(x, a, f"dp={S} buckets={b}, {c} elements per hop", worst)
+            log(f"[check] zero1 int8 dp={S} buckets={b}: hop chunk {c} elements "
+                f"({c // WIRE_BLOCK} wire blocks): {', '.join(HOPS)} bitwise")
+            del x, a
+            torch.cuda.empty_cache()
+    edge = _edge_blocks("cuda")
+    _check_hops(edge, edge.flip(0).contiguous(), "edge blocks", worst)
+    q, s = ops.quant_i8(edge)
+    torch_sync()
+    if not (q[0, 1:21].cpu().tolist() == torch.round(torch.arange(-10, 10) + 0.5).tolist()
+            and q[2].min() == -127 and q[2].max() == 127 and bool((q[1] == 0).all())):
+        raise AssertionError("the edge blocks did not hit ties, the clip and the floor")
+    log("[check] rint ties of both parities, an all-zero block (1e-30 floor), the +-127 "
+        "clip and bf16 ties: bitwise")
+    # misaligned: 4 bytes off 16-byte alignment, the scalar path
+    buf = torch.randn(2 * 64 * WIRE_BLOCK + 1, generator=gen, device="cuda")
+    xm, am = buf[1:1 + 64 * WIRE_BLOCK].view(-1, WIRE_BLOCK), buf[1 + 64 * WIRE_BLOCK:].view(
+        -1, WIRE_BLOCK)
+    _check_hops(xm, am, "misaligned", worst)
+    for dp, b in CASES:
+        padded = zero1_padded_size(n_full, dp, b)
+        seg = padded // (dp * b)
+        for label, rows_seg in (("full", seg), ("ragged", SMALL_SEG)):
+            g = torch.randn(dp * b * rows_seg, generator=gen, device="cuda").view(dp * b, -1)
+            e = 1e-3 * torch.randn(dp * b * rows_seg, generator=gen, device="cuda").view(
+                dp * b, -1)
+            _same("pack_transposed_ef", f"dp={dp} buckets={b} {label}",
+                  ops.pack_transposed_ef(g, e, dp, b), ref.pack_transposed_ef(g, e, dp, b),
+                  worst)
+            log(f"[check] pack_transposed_ef dp={dp} buckets={b} {label:6s} seg={rows_seg}: "
+                "bitwise")
+            del g, e
+    gm = buf[1:1 + 8 * 256].view(8, 256)
+    _same("pack_transposed_ef", "misaligned", ops.pack_transposed_ef(gm, gm, 4, 2),
+          ref.pack_transposed_ef(gm, gm, 4, 2), worst)
+    log("[check] misaligned buffer: the hop kernels and pack_transposed_ef bitwise")
     return worst
 
 
@@ -218,6 +379,66 @@ def phase_time(n_full: int) -> dict:
     return out
 
 
+def phase_time_ring(n_full: int) -> dict:
+    """The six compressed-wire kernels at the shapes they meet: the hop
+    kernels at the hop chunk of the full-width ZeRO-1 int8 leg at
+    dp=TIME_RING with one bucket, ``pack_transposed_ef`` at the main path's
+    dp=1 with one bucket.  Bytes bound: each input read once, each output
+    written once."""
+    import torch
+    from repro_torch.kernels.ring_wire import ops, ref
+    from repro_torch.optim.adamw import zero1_padded_size
+
+    out = {}
+    c = hop_chunk(n_full, TIME_RING)
+    nb = c // WIRE_BLOCK
+    x = (3 * torch.randn(c, device="cuda")).view(nb, WIRE_BLOCK)
+    a = (3 * torch.randn(c, device="cuda")).view(nb, WIRE_BLOCK)
+    q, s = ops.quant_i8(x)
+    w = x.to(torch.bfloat16)
+    w_out = torch.empty_like(w)
+    scales = 4 * nb
+    rows = {
+        # name: (bytes, kernel, plain, one library call or None)
+        "quant_i8": (4 * c + c + scales, lambda: ops.quant_i8(x), lambda: ref.quant_i8(x),
+                     None),
+        "hop_add_quant_i8": (c + scales + 4 * c + c + scales,
+                             lambda: ops.hop_add_quant_i8(q, s, a),
+                             lambda: ref.hop_add_quant_i8(q, s, a), None),
+        "hop_accum_i8": (c + scales + 4 * c + 4 * c, lambda: ops.hop_accum_i8(q, s, a),
+                         lambda: ref.hop_accum_i8(q, s, a), lambda: torch.addcmul(a, q, s)),
+        # bf16(f32(w) + a): the add runs in the common dtype, f32, and
+        # rounds once into the bf16 output
+        "hop_add_quant_bf16": (2 * c + 4 * c + 2 * c, lambda: ops.hop_add_quant_bf16(w, a),
+                               lambda: ref.hop_add_quant_bf16(w, a),
+                               lambda: torch.add(w, a, out=w_out)),
+        "hop_accum_bf16": (2 * c + 4 * c + 4 * c, lambda: ops.hop_accum_bf16(w, a),
+                           lambda: ref.hop_accum_bf16(w, a), lambda: torch.add(a, w)),
+    }
+    for name, (nbytes, k, p, lib) in rows.items():
+        out[name] = dict(shape=f"zero1 int8 dp={TIME_RING}: ({nb}, {WIRE_BLOCK}) per hop",
+                         ms=_time_ms(k), plain_ms=_time_ms(p),
+                         library_ms=_time_ms(lib) if lib is not None else None,
+                         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    del x, a, q, s, w, w_out
+    torch.cuda.empty_cache()
+    padded = zero1_padded_size(n_full, 1, 1)
+    g = torch.randn(padded, device="cuda").view(1, padded)
+    e = 1e-3 * torch.randn(padded, device="cuda").view(1, padded)
+    out["pack_transposed_ef"] = dict(
+        shape=f"(1*1, {padded}) f32 x2 -> bf16 wire + f32 residual",
+        ms=_time_ms(lambda: ops.pack_transposed_ef(g, e, 1, 1)),
+        plain_ms=_time_ms(lambda: ref.pack_transposed_ef(g, e, 1, 1)), library_ms=None,
+        bound_ms=(4 * padded * 2 + 2 * padded + 4 * padded) / HBM_BYTES_PER_S * 1e3)
+    del g, e
+    torch.cuda.empty_cache()
+    for name, t in out.items():
+        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.3f} ms"
+        log(f"[time] {name} {t['shape']}: kernel {t['ms']:.3f} ms, plain "
+            f"{t['plain_ms']:.3f} ms, library {lib}, bound {t['bound_ms']:.3f} ms (bytes)")
+    return out
+
+
 SMALL_ARGS = ["--arch", ARCH, "--smoke", "--steps", "3", "--global-batch", "8",
               "--seq-len", "32", "--log-every", "1", "--zero1-buckets", "2"]
 
@@ -245,46 +466,218 @@ def phase_small_reference():
             raise AssertionError(f"card loss {a} vs CPU loss {c}")
 
 
-def phase_main_path() -> dict:
-    from repro_torch.kernels.ring_wire import ops
-    from repro_torch.launch import train
+COMMON = ["--arch", ARCH, "--global-batch", "8", "--seq-len", "128", "--log-every", "1"]
 
-    common = ["--arch", ARCH, "--global-batch", "8", "--seq-len", "128",
-              "--log-every", "1"]
-    ops.pack_transposed.launches = 0
-    ops.unpack_transposed.launches = 0
-    rep = train.main(common + ["--steps", "5", "--zero1-buckets", "1"])
-    pack1, unpack1 = ops.pack_transposed.launches, ops.unpack_transposed.launches
-    log(f"[main] buckets=1: losses {rep.losses} grad norms {rep.grad_norms} "
+
+def _zero_counts() -> None:
+    from repro_torch.kernels.ring_wire import ops
+
+    for k in ops.KERNELS:
+        k.launches = 0
+
+
+def _counts() -> dict:
+    from repro_torch.kernels.ring_wire import ops
+
+    return {k.__name__: k.launches for k in ops.KERNELS}
+
+
+def _check_run(rep, steps: int, tag: str) -> None:
+    log(f"[{tag}] losses {rep.losses} grad norms {rep.grad_norms} "
         f"ms/step {[round(t, 1) for t in rep.step_ms]} wire_kernel={rep.wire_kernel} "
-        f"launches pack={pack1} unpack={unpack1}")
+        f"wire={rep.wire_impl} on {rep.dist_backend}")
     if rep.wire_kernel != "cuda":
         raise AssertionError(f"wire kernel {rep.wire_kernel!r}, expected 'cuda'")
-    if len(rep.losses) != 5 or not all(math.isfinite(v) for v in rep.losses + rep.grad_norms):
+    if len(rep.losses) != steps or not all(math.isfinite(v)
+                                           for v in rep.losses + rep.grad_norms):
         raise AssertionError(f"non-finite or missing losses: {rep.losses}")
-    if pack1 != 5:
-        raise AssertionError(f"pack_transposed launched {pack1} times in 5 steps")
-    rep2 = train.main(common + ["--steps", "2", "--zero1-buckets", "2"])
-    pack2 = ops.pack_transposed.launches - pack1
-    unpack2 = ops.unpack_transposed.launches - unpack1
-    log(f"[main] buckets=2: losses {rep2.losses} grad norms {rep2.grad_norms} "
-        f"ms/step {[round(t, 1) for t in rep2.step_ms]} launches pack={pack2} "
-        f"unpack={unpack2}")
-    if not all(math.isfinite(v) for v in rep2.losses + rep2.grad_norms):
-        raise AssertionError(f"non-finite losses at two buckets: {rep2.losses}")
+
+
+def phase_main_path() -> tuple:
+    """The uncompressed main path; returns (its launch counts, the report
+    of its one-bucket run)."""
+    from repro_torch.launch import train
+
+    _zero_counts()
+    rep = train.main(COMMON + ["--steps", "5", "--zero1-buckets", "1"])
+    c1 = _counts()
+    _check_run(rep, 5, "main")
+    log(f"[main] buckets=1 launches pack={c1['pack_transposed']} "
+        f"unpack={c1['unpack_transposed']}")
+    if c1["pack_transposed"] != 5:
+        raise AssertionError(f"pack_transposed launched {c1['pack_transposed']} times in 5 steps")
+    rep2 = train.main(COMMON + ["--steps", "2", "--zero1-buckets", "2"])
+    c2 = _counts()
+    pack2 = c2["pack_transposed"] - c1["pack_transposed"]
+    unpack2 = c2["unpack_transposed"] - c1["unpack_transposed"]
+    _check_run(rep2, 2, "main")
+    log(f"[main] buckets=2 launches pack={pack2} unpack={unpack2}")
     if pack2 != 2 or unpack2 != 2:
         raise AssertionError(f"two-bucket steps launched pack {pack2}, unpack {unpack2}")
-    return {"pack_transposed": ops.pack_transposed.launches,
-            "unpack_transposed": ops.unpack_transposed.launches}
+    return c2, rep
 
 
+def phase_main_bf16() -> dict:
+    """The bf16 wire: the error-feedback pack on every step, never the
+    plain pack."""
+    from repro_torch.launch import train
+
+    _zero_counts()
+    rep = train.main(COMMON + ["--steps", "5", "--zero1-buckets", "1",
+                               "--grad-compression", "bf16"])
+    c1 = _counts()
+    _check_run(rep, 5, "main-bf16")
+    rep2 = train.main(COMMON + ["--steps", "2", "--zero1-buckets", "2",
+                                "--grad-compression", "bf16"])
+    c2 = _counts()
+    _check_run(rep2, 2, "main-bf16")
+    ef1, ef2 = c1["pack_transposed_ef"], c2["pack_transposed_ef"] - c1["pack_transposed_ef"]
+    log(f"[main-bf16] launches: pack_transposed_ef {ef1} in 5 steps at buckets=1, {ef2} in "
+        f"2 steps at buckets=2; pack_transposed {c2['pack_transposed']}; unpack_transposed "
+        f"{c2['unpack_transposed']}")
+    if ef1 != 5 or ef2 != 2 or c2["pack_transposed"] != 0:
+        raise AssertionError("pack_transposed_ef must launch once per step and "
+                             f"pack_transposed never: {c2}")
+    if c2["unpack_transposed"] != 2:
+        raise AssertionError(f"two-bucket bf16 steps launched unpack {c2['unpack_transposed']}")
+    return c2
+
+
+def phase_main_int8(uncompressed) -> dict:
+    """The int8 ring: ring-int8 on NCCL, allreduce from its recipe; at one
+    rank the ring is the identity, so no hop kernel launches and the run
+    is the uncompressed one, bitwise, step for step."""
+    from repro_torch.launch import train
+
+    _zero_counts()
+    rep = train.main(COMMON + ["--steps", "2", "--zero1-buckets", "1",
+                               "--grad-compression", "int8"])
+    c = _counts()
+    _check_run(rep, 2, "main-int8")
+    if (rep.wire_impl, rep.dist_backend, rep.allreduce_source) != ("ring-int8", "nccl",
+                                                                   "emulated"):
+        raise AssertionError(f"int8 wire on {rep.wire_impl}/{rep.dist_backend}, allreduce "
+                             f"{rep.allreduce_source}")
+    log(f"[main-int8] ring-int8 negotiated on {rep.dist_backend}; allreduce "
+        f"{rep.allreduce_source} from the reduce_scatter + allgather recipe")
+    want = (uncompressed.losses[:2], uncompressed.grad_norms[:2])
+    same = (rep.losses, rep.grad_norms) == want
+    log(f"[main-int8] losses {rep.losses} grad norms {rep.grad_norms} vs uncompressed "
+        f"{want[0]} {want[1]}: {'bitwise equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("the int8 run at one rank differs from the uncompressed run")
+    hops = {k: c[k] for k in HOPS}
+    log(f"[main-int8] a ring of one rank is the identity: hop kernel launches {hops}; "
+        f"pack_transposed {c['pack_transposed']} (the f32 wire)")
+    if any(hops.values()) or c["pack_transposed"] != 2:
+        raise AssertionError(f"int8 launches at dp=1: {c}")
+    return c
+
+
+RING4 = 4
+RING4_ARGS = ["--arch", ARCH, "--global-batch", "32", "--seq-len", "128", "--log-every", "1",
+              "--steps", "2", "--zero1-buckets", "1"]
+INT8_BOUND = 0.05         # the battery's section 6 bound for the int8 wire
+
+
+def _ring4_rank(rank: int, world: int, init_method: str, device: str, argv: list,
+                out_dir: str) -> None:
+    """One rank of [ring4]: ``launch.train`` on its own card (or the CPU)."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch import train
+
+    _zero_counts()
+    dev = "cpu" if device == "cpu" else f"cuda:{rank}"
+    rep = train.main(argv + ["--device", dev, "--world-size", str(world), "--rank", str(rank),
+                             "--init-method", init_method])
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(dict(
+        losses=rep.losses, grad_norms=rep.grad_norms, step_ms=rep.step_ms,
+        wire=rep.wire_impl, backend=rep.dist_backend, counts=_counts())))
+
+
+def run_world(argv: list, world: int, device: str, out_dir: Path, timeout: float = 300) -> list:
+    """``launch.train`` as ``world`` spawned ranks meeting at a free local
+    TCP port; returns each rank's record.  Every rank is joined or killed."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_ring4_rank, args=(r, world, f"tcp://localhost:{port}",
+                                                   device, argv, str(out_dir)))
+             for r in range(world)]
+    for proc in procs:
+        proc.start()
+    deadline = time.monotonic() + timeout
+    for proc in procs:
+        proc.join(max(deadline - time.monotonic(), 1))
+    for proc in procs:
+        if proc.is_alive():
+            proc.kill()
+            proc.join(10)
+    codes = [proc.exitcode for proc in procs]
+    if codes != [0] * world:
+        raise RuntimeError(f"[ring4] rank exit codes {codes}")
+    return [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def phase_ring4(device: str = "cuda", argv=RING4_ARGS, out_dir: Path = HERE / "build") -> dict:
+    """The ZeRO-1 int8 leg on a ring of four ranks; returns rank 0's launch
+    counts.  On the CPU (gloo, the plain kernel versions) it counts none."""
+    f32 = run_world(argv, RING4, device, out_dir / "ring4-f32")
+    i8 = run_world(argv + ["--grad-compression", "int8"], RING4, device, out_dir / "ring4-int8")
+    steps = len(f32[0]["losses"])
+    for tag, ranks in (("f32", f32), ("int8", i8)):
+        log(f"[ring4] {tag}: losses {ranks[0]['losses']} grad norms {ranks[0]['grad_norms']} "
+            f"ms/step (rank 0) {[round(t, 1) for t in ranks[0]['step_ms']]} "
+            f"wire={ranks[0]['wire']} on {ranks[0]['backend']}")
+        if any((r["losses"], r["grad_norms"]) != (ranks[0]["losses"], ranks[0]["grad_norms"])
+               for r in ranks):
+            raise AssertionError(f"[ring4] {tag}: the ranks disagree")
+    want_backend = "gloo" if device == "cpu" else "nccl"
+    if (i8[0]["wire"], i8[0]["backend"]) != ("ring-int8", want_backend):
+        raise AssertionError(f"[ring4] int8 wire on {i8[0]['wire']}/{i8[0]['backend']}")
+    if i8[0]["losses"][0] != f32[0]["losses"][0]:
+        raise AssertionError("[ring4] the int8 run's step-1 loss differs from the f32 run's")
+    rel = [abs(a - b) / abs(b) for a, b in zip(i8[0]["grad_norms"], f32[0]["grad_norms"])]
+    log(f"[ring4] step-1 loss bitwise equal; int8 grad norms within {max(rel):.2e} relative "
+        f"of f32 (bound {INT8_BOUND}); step-2 loss {i8[0]['losses'][1]!r} vs "
+        f"{f32[0]['losses'][1]!r}")
+    if max(rel) >= INT8_BOUND or not all(math.isfinite(v) for v in i8[0]["losses"]):
+        raise AssertionError(f"[ring4] int8 grad norms off by {rel}")
+    on_card = device != "cpu"
+    want = {"quant_i8": steps, "hop_add_quant_i8": steps * (RING4 - 2), "hop_accum_i8": steps,
+            "hop_add_quant_bf16": 0, "hop_accum_bf16": 0, "pack_transposed": steps,
+            "pack_transposed_ef": 0, "unpack_transposed": 0}
+    for r, rank in enumerate(i8):
+        got = {k: rank["counts"][k] for k in want}
+        log(f"[ring4] int8 rank {r} launches {got}")
+        if got != (want if on_card else dict.fromkeys(want, 0)):
+            raise AssertionError(f"[ring4] rank {r} launched {got}, expected {want}")
+    return i8[0]["counts"]
+
+
+CU = "src/repro_torch/kernels/ring_wire/csrc/"
+TPU = "src/repro/kernels/ring_wire/kernel.py:"
+#: name -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
-    "pack_transposed": "src/repro/kernels/ring_wire/kernel.py:152",
-    "unpack_transposed": "src/repro/kernels/ring_wire/kernel.py:195",
+    "pack_transposed": (CU + "ring_wire.cu", TPU + "152"),
+    "unpack_transposed": (CU + "ring_wire.cu", TPU + "195"),
+    "pack_transposed_ef": (CU + "ring_wire.cu", TPU + "174"),
+    "quant_i8": (CU + "ring_hops.cu", TPU + "61"),
+    "hop_add_quant_i8": (CU + "ring_hops.cu", TPU + "82"),
+    "hop_accum_i8": (CU + "ring_hops.cu", TPU + "97"),
+    "hop_add_quant_bf16": (CU + "ring_hops.cu", TPU + "115"),
+    "hop_accum_bf16": (CU + "ring_hops.cu", TPU + "128"),
 }
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=("check", "ring4"), default=None,
+                    help="check: stop after building and checking the kernels; "
+                         "ring4: build, then only the four-card int8 ring")
+    args = ap.parse_args()
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
               file=sys.stderr)
@@ -309,20 +702,33 @@ def main() -> int:
         n_full = flat_param_count(configs.get_config(ARCH))
         log(f"[model] {ARCH} full width: {n_full} parameters")
         phase_build()
+        if args.only == "ring4":
+            if torch.cuda.device_count() < RING4:
+                raise RuntimeError(f"[ring4] needs {RING4} cards, found "
+                                   f"{torch.cuda.device_count()}")
+            phase_ring4()
+            log("[only] ring4: the int8 ring launched its hop kernels; no result line")
+            return 0
         worst = phase_check(n_full)
+        worst.update(phase_check_ring(n_full))
+        if args.only == "check":
+            log("[only] check: the kernels built and agree; no result line")
+            return 0
         timing = phase_time(n_full)
+        timing.update(phase_time_ring(n_full))
         torch.cuda.empty_cache()
         phase_small_reference()
-        launches = phase_main_path()
+        launches, uncompressed = phase_main_path()
+        launches["pack_transposed_ef"] = phase_main_bf16()["pack_transposed_ef"]
+        int8 = phase_main_int8(uncompressed)
+        launches.update({k: int8[k] for k in HOPS})
         record = {"kernels": [
-            {"name": name, "route": "cuda",
-             "source": "src/repro_torch/kernels/ring_wire/csrc/ring_wire.cu",
-             "replaces": KERNELS[name], "launches": launches[name],
-             "max_abs_err": worst[name], "ms": timing[name]["ms"],
-             "plain_ms": timing[name]["plain_ms"],
+            {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": launches[name], "max_abs_err": worst[name],
+             "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
              "bound_ms": timing[name]["bound_ms"], "bound_by": "bytes",
              "library_ms": timing[name]["library_ms"]}
-            for name in KERNELS]}
+            for name, (source, replaces) in KERNELS.items()]}
     except Exception:
         traceback.print_exc()
         print("chip_smoke.py: FAILED", file=sys.stderr)

@@ -813,6 +813,33 @@ class PaxABI:
             raise PaxError(PAX_ERR_REQUEST, f"{live} outstanding requests")
         self.finalized = True
 
+    def quiesce(self) -> None:
+        """Complete every live nonblocking request and every active plan or
+        plan group, then free all plans and groups: afterwards nothing is in
+        flight (``outstanding_requests == 0``) and no compiled closure holds
+        a process group."""
+        for req in list(self._req_pool):
+            if not req.done and (req.persistent or self._request_is_live(req.handle)):
+                self.wait(req)
+        for group in list(self._plan_groups):
+            group.free()
+        for plan in list(self._plans):
+            plan.free()
+
+    def release(self, abandon: bool = False) -> None:
+        """Finalize, then drop every process-group reference of this context
+        (its communicator table and the backend's caches), so the groups die
+        with ``destroy_process_group`` and not at interpreter exit.  The
+        context answers no further call on a communicator.  ``abandon`` (a
+        rank leaving on an error) skips finalize's outstanding-request
+        check."""
+        if abandon:
+            self.finalized = True
+        else:
+            self.finalize()
+        self.comms.release()
+        self.backend.release()
+
     # -- identity / registration (not per-collective dispatch) -------------
     def comm_from_axes(self, axes: Sequence[str], name: str = "") -> int:
         return self.comms.comm_from_axes(axes, name)

@@ -5,8 +5,12 @@
   conversions are the identity, every collective is one
   ``torch.distributed`` call on the communicator's process group.
 
-The reference's ``ring``, ``minimal`` and foreign ``ompix`` backends come
-with later port slices (see ``src/repro_torch/README.md``).
+* :mod:`ring` — a second native implementation: explicit ring schedules
+  of point-to-point hops, with the optional compressed wire (``ring-bf16``,
+  ``ring-int8``) on the ring-wire hop kernels.
+
+The reference's ``minimal`` and foreign ``ompix`` backends come with later
+port slices (see ``src/repro_torch/README.md``).
 """
-from . import paxi  # noqa: F401
+from . import paxi, ring  # noqa: F401
 from .base import Backend  # noqa: F401

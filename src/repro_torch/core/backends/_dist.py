@@ -21,7 +21,7 @@ Conventions kept from the reference:
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Any, Callable, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -262,3 +262,34 @@ def scatter_from_root(x: torch.Tensor, root: int, group, ranks: Sequence[int],
         return y.narrow(axis, r * chunk, chunk)
 
     return Pending(p.work, p.value, take, p.keep)
+
+
+class Ring(NamedTuple):
+    """One ring of an explicit ring schedule: its size, its process group
+    (``None`` for a ring of one), the member ranks in ring order and this
+    process's position among them."""
+
+    size: int
+    group: Any
+    ranks: tuple
+    index: int
+
+
+def ring_shift(xs: Sequence[torch.Tensor], ring: Ring) -> list:
+    """One hop of a ring schedule — the reference's ``lax.ppermute(x, axis,
+    [(s, (s + 1) % S) for s in range(S)])``: every tensor of ``xs`` goes to
+    the next rank of the ring and the previous rank's arrives.  All of them
+    travel in one ``batch_isend_irecv`` (one tag each) and the hop is
+    complete on return (gloo on the CPU, NCCL on the card)."""
+    S, me = ring.size, ring.index
+    nxt, prv = ring.ranks[(me + 1) % S], ring.ranks[(me - 1) % S]
+    ops, outs = [], []
+    for tag, x in enumerate(xs):
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        ops.append(dist.P2POp(dist.isend, x, nxt, ring.group, tag))
+        ops.append(dist.P2POp(dist.irecv, out, prv, ring.group, tag))
+        outs.append(out)
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return outs

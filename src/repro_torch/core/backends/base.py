@@ -106,6 +106,16 @@ class Backend(abc.ABC):
             info["group_hook"] = self.supports_persistent_group(entry)
         return info
 
+    def release(self) -> None:
+        """Drop whatever this backend caches beside the communicator table
+        (process groups, schedules) at the context's teardown."""
+
+    def wire_pad_multiple(self) -> int:
+        """The padding granule emulation recipes round invented padding up
+        to, so padded legs stay on this backend's fast wire (the ring's hop
+        kernels need WIRE_BLOCK-divisible chunks).  1: no preference."""
+        return 1
+
     # -- fault model (ULFM tier) -------------------------------------------
     def local_failed(self, comm: Any) -> tuple:
         """Ranks this backend knows to be dead on ``comm``.

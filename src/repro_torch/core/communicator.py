@@ -136,6 +136,14 @@ class CommTable:
                 mine = (g, ranks)
         return mine
 
+    def axis_group(self, axis: str):
+        """(group, member ranks) of this rank along one mesh axis: the
+        per-axis ring of a hierarchical schedule over a multi-axis
+        communicator.  New groups are created (and cached) at first use,
+        which is collective: every rank of the world asks in the same
+        order, as SPMD programs do."""
+        return self._group_for((axis,))
+
     def _register(self, handle: int, axes: tuple[str, ...], name: str) -> CommInfo:
         group, ranks = self._group_for(axes)
         sizes = tuple(self._mesh.shape[a] for a in axes)
@@ -185,6 +193,13 @@ class CommTable:
         self.info_by_handle.pop(handle, None)
         self.revoked.discard(handle)
         self.acked.pop(handle, None)
+
+    def release(self) -> None:
+        """Forget every communicator and process group (the context's
+        teardown): any later lookup raises ``PAX_ERR_COMM``."""
+        self._table.clear()
+        self.info_by_handle.clear()
+        self._groups.clear()
 
     # -- fault tier (ULFM) --------------------------------------------------
     def revoke(self, handle: int) -> None:

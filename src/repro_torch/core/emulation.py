@@ -5,10 +5,13 @@ partial backend lacks out of entries it does export.  This module carries:
 
 * the recipe *declarations* the function table names (``build_*``,
   ``plan_*``, ``plan_group_*``), so the port's ``ABI_TABLE`` equals the
-  reference row for row — their bodies raise
-  ``PAX_ERR_UNSUPPORTED_OPERATION`` until the partial (``minimal``)
-  backend arrives, because ``paxi`` resolves every entry natively and never
-  builds a recipe;
+  reference row for row.  The ``allreduce`` recipes have their bodies —
+  the ring backend drops its native ``allreduce`` and negotiation composes
+  it from the ring reduce-scatter and all-gather, with the padding rounded
+  up to the backend's wire granule (:meth:`PlanContext.wire_block`).  The
+  other bodies raise ``PAX_ERR_UNSUPPORTED_OPERATION`` until the partial
+  (``minimal``) backend arrives, because ``paxi`` and ``ring`` resolve every
+  other entry natively;
 * the shared kernels that native and emulated paths must not diverge on:
   :func:`prefix_fold` (scan/exscan), :func:`masked_agree_fold`,
   :func:`comm_failure_view` and :func:`agree_value` (the ULFM tier).
@@ -16,6 +19,8 @@ partial backend lacks out of entries it does export.  This module carries:
 from __future__ import annotations
 
 from typing import Callable
+
+import torch
 
 from .errors import PAX_ERR_PROC_FAILED, PAX_ERR_UNSUPPORTED_OPERATION, PaxError
 
@@ -31,6 +36,12 @@ class EmulationContext:
 
     def op_fn(self, op: int) -> Callable:
         return self._abi.backend.op_fn(op)
+
+    def lowering_width(self, comm: int) -> int:
+        """The width a recipe splits ``comm``'s payloads by: the full rank
+        space of its axes (a shrunk communicator keeps its parent's group,
+        so a split by the membership count would not match the wire)."""
+        return self._abi.comms.info(comm).full_size
 
     @property
     def datatypes(self):
@@ -49,6 +60,13 @@ class PlanContext(EmulationContext):
 
     def plan_group_dep(self, name: str, bounds) -> Callable:
         return self._abi._plan_group_run(name, bounds)
+
+    def wire_block(self) -> int:
+        """The backend's padding granule (``Backend.wire_pad_multiple``):
+        plans that invent padding round it up to a multiple of this, so the
+        padded legs stay on the backend's fast wire.  The extra zeros are
+        reduced and sliced off like any padding."""
+        return max(1, int(self._abi.backend.wire_pad_multiple()))
 
 
 def prefix_fold(g, r: int, fn: Callable, x, inclusive: bool):
@@ -105,6 +123,108 @@ def agree_value(comms, local_failed, flag, comm: int):
                              [r not in failed for r in range(full)])
 
 
+def _tag(fn: Callable, name: str, deps: tuple) -> Callable:
+    fn.__name__ = name
+    fn.__qualname__ = f"emulated.{name}"
+    fn.__emulated__ = True
+    fn.__emulated_deps__ = tuple(deps)
+    return fn
+
+
+def _pad_rows(x, pad: int):
+    if not pad:
+        return x
+    return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+
+
+def build_allreduce(ctx: EmulationContext) -> Callable:
+    """allreduce = allgather(reduce_scatter(x)), the leading axis padded to
+    a multiple of the communicator width and sliced back."""
+    rs, ag = ctx.dep("reduce_scatter"), ctx.dep("allgather")
+    width = ctx.lowering_width
+
+    def allreduce(x, op, comm):
+        S = width(comm)
+        if S <= 1:
+            return x
+        scalar = x.ndim == 0
+        if scalar:
+            x = x.reshape(1)
+        n = x.shape[0]
+        out = ag(rs(_pad_rows(x, (-n) % S), op, comm), comm)[:n]
+        return out[0] if scalar else out
+
+    return _tag(allreduce, "allreduce", ("reduce_scatter", "allgather", "comm_size"))
+
+
+def plan_allreduce(ctx: PlanContext, x, op, comm) -> Callable:
+    """The persistent recipe: the padding geometry and both legs' plans are
+    fixed here; the padding rounds up to ``S * wire_block`` so the
+    reduce-scatter leg's hop chunks stay kernel-eligible."""
+    from .abi import TensorSpec
+    from .backends._dist import complete
+
+    S = ctx.lowering_width(comm)
+    if S <= 1:
+        return lambda x: x
+    scalar = len(x.shape) == 0
+    shape = (1,) if scalar else tuple(x.shape)
+    n, rest, dtype = shape[0], shape[1:], x.dtype
+    pad = (-n) % (S * ctx.wire_block())
+    rs = ctx.plan_dep("reduce_scatter", TensorSpec((n + pad,) + rest, dtype), op, comm, 0)
+    ag = ctx.plan_dep("allgather", TensorSpec(((n + pad) // S,) + rest, dtype), comm, 0)
+    if not pad and not scalar:
+        return lambda x: ag(complete(rs(x)))
+
+    def run(x):
+        if scalar:
+            x = x.reshape(1)
+        out = complete(ag(complete(rs(_pad_rows(x, pad)))))[:n]
+        return out[0] if scalar else out
+
+    return run
+
+
+def plan_group_allreduce(ctx: PlanContext, bounds) -> Callable:
+    """The group recipe, fused per stage: every member's reduce-scatter leg
+    runs as one group stage before one all-gather stage, each through the
+    backend's own group hook where it has one."""
+    from .abi import TensorSpec
+    from .backends._dist import complete
+
+    op, comm = bounds[0][1], bounds[0][2]
+    S = ctx.lowering_width(comm)
+    if S <= 1:
+        return lambda xs: list(xs)
+    blk = ctx.wire_block()
+    members, rs_bounds, ag_bounds = [], [], []
+    for x, _, _ in bounds:
+        if not hasattr(x, "shape") or not hasattr(x, "dtype"):
+            return None  # structured payloads: per-member plans
+        scalar = len(tuple(x.shape)) == 0
+        shape = (1,) if scalar else tuple(x.shape)
+        n, rest = shape[0], shape[1:]
+        pad = (-n) % (S * blk)
+        members.append((scalar, n, pad))
+        rs_bounds.append((TensorSpec((n + pad,) + rest, x.dtype), op, comm, 0))
+        ag_bounds.append((TensorSpec(((n + pad) // S,) + rest, x.dtype), comm, 0))
+    rs_run = ctx.plan_group_dep("reduce_scatter", rs_bounds)
+    ag_run = ctx.plan_group_dep("allgather", ag_bounds)
+
+    def run(xs):
+        mids = [_pad_rows(x.reshape(1) if scalar else x, pad)
+                for (scalar, _, pad), x in zip(members, xs)]
+        outs = complete(ag_run(complete(rs_run(mids))))  # all rs, then all ag
+        final = []
+        for (scalar, n, pad), o in zip(members, outs):
+            if pad or scalar:
+                o = o[:n]
+            final.append(o[0] if scalar else o)
+        return final
+
+    return run
+
+
 def _deferred(kind: str, name: str) -> Callable:
     """A recipe declaration whose body arrives with the partial backend."""
 
@@ -120,14 +240,13 @@ def _deferred(kind: str, name: str) -> Callable:
     return recipe
 
 
-for _name in ("allreduce", "reduce", "bcast", "barrier", "scan", "exscan",
+for _name in ("reduce", "bcast", "barrier", "scan", "exscan",
               "alltoall", "alltoallv", "alltoallw", "gather", "scatter",
               "comm_revoke", "comm_failure_ack", "comm_get_failed",
               "comm_agree", "comm_shrink"):
     globals()[f"build_{_name}"] = _deferred("build", _name)
-for _name in ("allreduce", "reduce", "bcast", "barrier", "scan", "exscan",
-              "gather"):
+for _name in ("reduce", "bcast", "barrier", "scan", "exscan", "gather"):
     globals()[f"plan_{_name}"] = _deferred("plan", _name)
-for _name in ("allreduce", "reduce"):
+for _name in ("reduce",):
     globals()[f"plan_group_{_name}"] = _deferred("plan_group", _name)
 del _name

@@ -7,8 +7,8 @@ environment variable, else the native default ``paxi``.  ``pax_init`` is
 the ``dlopen`` half; ``PaxABI.__init__`` negotiates the function table
 against the resolved backend (the ``dlsym`` half).
 
-Names in this slice: ``paxi`` only.  Any other name raises ``ValueError``
-listing what exists.
+Names ported so far: ``paxi``, ``ring``, ``ring-bf16`` and ``ring-int8``.
+Any other name raises ``ValueError`` listing what exists.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from typing import Callable, Optional, Sequence
 from .abi import PaxABI
 from .backends.base import Backend
 from .backends.paxi import PaxiBackend
+from .backends.ring import RingBackend
 from .communicator import Mesh
 
 ENV_VAR = "PAX_ABI_IMPL"
@@ -35,6 +36,9 @@ def available_backends() -> tuple[str, ...]:
 
 
 register_backend("paxi", lambda mesh: PaxiBackend(mesh))
+register_backend("ring", lambda mesh: RingBackend(mesh))
+register_backend("ring-int8", lambda mesh: RingBackend(mesh, compress="int8"))
+register_backend("ring-bf16", lambda mesh: RingBackend(mesh, compress="bf16"))
 
 
 def get_backend(name: str, mesh: Optional[Mesh] = None) -> Backend:

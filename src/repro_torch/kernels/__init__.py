@@ -66,11 +66,11 @@ def resolve(name: str, device):
 # -- built-in kernels (lazy: nothing imports until first resolve) -----------
 # The wrappers in ring_wire/ops.py resolve through here by their tensor's
 # device: the CUDA launch for a CUDA tensor, the plain version for a CPU one.
-register("ring_wire.pack_transposed", "cuda",
-         "repro_torch.kernels.ring_wire.ops:launch_pack_transposed")
-register("ring_wire.pack_transposed", "torch",
-         "repro_torch.kernels.ring_wire.ref:pack_transposed")
-register("ring_wire.unpack_transposed", "cuda",
-         "repro_torch.kernels.ring_wire.ops:launch_unpack_transposed")
-register("ring_wire.unpack_transposed", "torch",
-         "repro_torch.kernels.ring_wire.ref:unpack_transposed")
+RING_WIRE_KERNELS = ("pack_transposed", "unpack_transposed", "pack_transposed_ef",
+                     "quant_i8", "hop_add_quant_i8", "hop_accum_i8",
+                     "hop_add_quant_bf16", "hop_accum_bf16")
+for _name in RING_WIRE_KERNELS:
+    register(f"ring_wire.{_name}", "cuda",
+             f"repro_torch.kernels.ring_wire.ops:launch_{_name}")
+    register(f"ring_wire.{_name}", "torch", f"repro_torch.kernels.ring_wire.ref:{_name}")
+del _name

@@ -1,8 +1,9 @@
-"""Zero1 wire-layout kernels: the transposed bucket pack (gradient ->
-bucket-major wire) and its inverse (gathered buckets -> flat vector).
+"""Ring-wire kernels: the zero1 transposed bucket pack (gradient ->
+bucket-major wire, with or without the bf16 error-feedback fold) and its
+inverse, and the compressed ring hops (int8 quantize, middle-hop
+dequantize-add-requantize, last-hop dequantize-add, and the bf16 twins).
 
 ``ops`` holds the wrappers (CUDA kernel for CUDA tensors, plain version
 for CPU tensors), ``ref`` the plain PyTorch versions, ``csrc`` the CUDA
-source.  The compressed-wire hop kernels of the reference package arrive
-with the ring slice.
+sources (``ring_wire.cu``: pack/unpack; ``ring_hops.cu``: the hops).
 """

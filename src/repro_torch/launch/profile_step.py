@@ -1,10 +1,11 @@
 """Where one ZeRO-1 training step spends its time on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step --arch qwen2-0.5b \\
-        --global-batch 8 --seq-len 128 --zero1-buckets 1
+        --global-batch 8 --seq-len 128 --zero1-buckets 1 [--grad-compression bf16]
 
 Builds the same state as :mod:`repro_torch.launch.train` (world of one,
-``paxi``), runs ``--warm`` steps, times ``--steps`` steps with no profiler
+``paxi``, and ``ring-<compression>`` for a compressed gradient wire), runs
+``--warm`` steps, times ``--steps`` steps with no profiler
 (host clock, device synced), then runs ``--steps`` more under
 ``torch.profiler`` with CPU and CUDA activity.  The device numbers are read
 from the exported trace, and only from the device's work: events of the
@@ -52,7 +53,8 @@ LAUNCH_CALLS = ("cuda_runtime", "cuda_driver")
 
 #: kernel classes by name fragment, first match wins
 KERNEL_CLASSES = (
-    ("wire pack/unpack (this repo)", ("permute_rows",)),
+    ("wire kernels (this repo)", ("permute_rows", "pack_ef_rows", "quant_i8_kernel",
+                                  "hop_add_quant", "hop_accum")),
     ("nccl", ("nccl",)),
     ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
     ("copy / memset", ("Memcpy", "Memset", "copy_", "CatArrayBatched")),
@@ -127,6 +129,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--zero1-buckets", type=int, default=1)
+    ap.add_argument("--grad-compression", choices=("bf16", "int8"), default=None)
     ap.add_argument("--warm", type=int, default=2)
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--top", type=int, default=15)
@@ -138,9 +141,15 @@ def main(argv=None) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     cfg = cfgs.smoke_config(args.arch) if args.smoke else cfgs.get_config(args.arch)
     cfg = dataclasses.replace(cfg, parallelism=dataclasses.replace(
-        cfg.parallelism, zero1_buckets=args.zero1_buckets))
+        cfg.parallelism, zero1_buckets=args.zero1_buckets,
+        grad_compression=args.grad_compression))
     api = build_model(cfg)
-    dist = make_dist(device=dev)
+    dist = make_dist(device=dev, compression=args.grad_compression)
+    with dist:  # shutdown on the way out, a failed one if the run raised
+        return _profile(args, cfg, api, dist)
+
+
+def _profile(args, cfg, api, dist) -> dict:
     state = train_loop.init_state(api, 0, dist)
     step_fn = train_loop.make_train_step(api, dist, AdamWConfig())
     pipe = DataPipeline(SyntheticSource(cfg.vocab_size, seed=0),
@@ -186,7 +195,8 @@ def main(argv=None) -> dict:
                    if e.device_type == DeviceType.CPU), key=lambda r: -r[1])
 
     lines = [f"[profile] {cfg.name} global batch {args.global_batch} seq {args.seq_len} "
-             f"buckets {args.zero1_buckets} on {torch.cuda.get_device_name(dist.device)}",
+             f"buckets {args.zero1_buckets} wire {args.grad_compression or 'f32'} on "
+             f"{torch.cuda.get_device_name(dist.device)}",
              f"[profile] {n} steps: wall {wall_ms:.1f} ms/step unprofiled, "
              f"{prof_wall_ms:.1f} profiled; device work {kernel_ms:.1f} ms/step summed, "
              f"{busy_ms:.1f} ms/step as the union over streams; device busy "
@@ -210,7 +220,6 @@ def main(argv=None) -> dict:
         "\n".join(lines) + "\n\n"
         + events.table(sort_by="self_cuda_time_total", row_limit=60) + "\n\n"
         + events.table(sort_by="self_cpu_time_total", row_limit=60) + "\n")
-    torch.distributed.destroy_process_group()
     return {"wall_ms_per_step": wall_ms, "kernel_ms_per_step": kernel_ms,
             "busy_ms_per_step": busy_ms, "busy": busy_ms / wall_ms,
             "peak_gb": peak_gb, "spans": spans, "classes": by_class}

@@ -5,12 +5,15 @@
 
 Runs on the card unless ``--device cpu``.  ``--smoke`` selects the reduced
 config.  The flags are the reference's; ``--zero1-buckets`` overrides the
-config's bucket count, and ``--world-size``/``--rank``/``--init-method``
+config's bucket count, ``--grad-compression {bf16,int8}`` sets the config's
+gradient wire (``parallelism.grad_compression``), and
+``--world-size``/``--rank``/``--init-method``
 place this process in a multi-rank world (one process per rank, each given
 the same rendezvous, e.g. ``tcp://localhost:<port>``; a world of one needs
 none of them).  The step loop runs directly: the reference's fault
 supervisor and checkpointer arrive with the fault slice, so
 ``--ckpt-dir``/``--ckpt-every`` raise ``PAX_ERR_UNSUPPORTED_OPERATION``.
+The run ends with ``DistContext.shutdown``, whether or not a step raised.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from ..core.errors import PAX_ERR_UNSUPPORTED_OPERATION, PaxError
 from ..data.pipeline import DataPipeline, SyntheticSource
 from ..models import build_model
 from ..optim.adamw import AdamWConfig, warmup_cosine
-from ..runtime.dist import make_dist
+from ..runtime.dist import dp_comm_of, make_dist
 from ..train import train_loop
 
 
@@ -36,6 +39,11 @@ class TrainReport:
     grad_norms: list
     step_ms: list
     wire_kernel: str
+    #: the gradient wire's backend, the process-group backend under it, and
+    #: how that context resolved ``allreduce`` (native or emulated)
+    wire_impl: str = ""
+    dist_backend: str = ""
+    allreduce_source: str = ""
 
 
 def _reference_numerics() -> None:
@@ -61,6 +69,8 @@ def main(argv=None) -> TrainReport:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--zero1-buckets", type=int, default=None)
+    ap.add_argument("--grad-compression", choices=("bf16", "int8"), default=None,
+                    help="compressed gradient wire (default: the config's)")
     ap.add_argument("--world-size", type=int, default=1)
     ap.add_argument("--rank", type=int, default=0)
     ap.add_argument("--init-method", default=None)
@@ -74,15 +84,33 @@ def main(argv=None) -> TrainReport:
     if args.zero1_buckets is not None:
         cfg = dataclasses.replace(cfg, parallelism=dataclasses.replace(
             cfg.parallelism, zero1_buckets=args.zero1_buckets))
+    if args.grad_compression is not None:
+        cfg = dataclasses.replace(cfg, parallelism=dataclasses.replace(
+            cfg.parallelism, grad_compression=args.grad_compression))
     api = build_model(cfg)
     dist = make_dist(model_axis=args.model_axis, impl=args.impl, device=args.device,
                      compression=cfg.parallelism.grad_compression,
                      world_size=args.world_size, rank=args.rank,
                      init_method=args.init_method)
+    with dist:  # shutdown on the way out, a failed one if a step raised
+        report = _train(args, cfg, api, dist)
+    print(f"done: {report.steps_completed} steps; "
+          f"loss {report.losses[0]:.3f} -> {report.losses[-1]:.3f}")
+    return report
+
+
+def _train(args, cfg, api, dist) -> TrainReport:
     dev = dist.device
+    # the context the reduce-scatter leg rides: ring-int8 for int8, the
+    # primary one otherwise (the bf16 wire is a cast)
+    compression = cfg.parallelism.grad_compression
+    wire_abi, _ = dp_comm_of(dist, compression == "int8")
+    wire_impl = (f"ring-{compression}" if wire_abi is dist.abi_compressed
+                 else wire_abi.backend.name)
     print(f"arch={cfg.name} params~{cfg.param_count()/1e6:.1f}M "
           f"mesh={dist.mesh.shape} impl={dist.abi.backend.name} "
-          f"mode={cfg.parallelism.grad_sync} device={dev}")
+          f"mode={cfg.parallelism.grad_sync} device={dev} "
+          f"grad_compression={compression} wire_impl={wire_impl}")
 
     state = train_loop.init_state(api, args.seed, dist)
     n_params = sum(p.numel() for p in state.params.parameters())
@@ -99,7 +127,9 @@ def main(argv=None) -> TrainReport:
                         global_batch=args.global_batch, seq_len=args.seq_len)
     dp, r = dist.dp_size, dist.abi.comm_rank(dist.dp_comm)
     rows = args.global_batch // dp
-    report = TrainReport(0, [], [], [], wire_kernel)
+    report = TrainReport(0, [], [], [], wire_kernel, wire_impl,
+                         torch.distributed.get_backend(),
+                         wire_abi.capabilities()["allreduce"]["source"])
     try:
         for _ in range(args.steps):
             b = next(pipe)
@@ -122,8 +152,6 @@ def main(argv=None) -> TrainReport:
                       f"{dt*1e3:.1f} ms/step ({toks:,.0f} tok/s)")
     finally:
         pipe.close()
-    print(f"done: {report.steps_completed} steps; "
-          f"loss {report.losses[0]:.3f} -> {report.losses[-1]:.3f}")
     return report
 
 

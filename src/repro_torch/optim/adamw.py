@@ -73,8 +73,8 @@ class FlatAdamState(NamedTuple):
     step: torch.Tensor
     m: torch.Tensor   # (padded / dp,) f32 — this rank's shard
     v: torch.Tensor
-    #: error-feedback residual of a compressed wire; a (1,) dummy until the
-    #: compressed wire is ported
+    #: error-feedback residual of the bf16 wire: this rank's full-length
+    #: (padded,) f32 residual with ``with_ef``, else a (1,) dummy
     ef: torch.Tensor
 
 
@@ -91,26 +91,32 @@ def unflatten_like(vec: torch.Tensor, tensors: Sequence[torch.Tensor]) -> list:
     return out
 
 
-def zero1_padded_size(n: int, dp_size: int, buckets: int = 1) -> int:
-    """Flat-vector length padded so ``dp_size * buckets`` divides it."""
-    m = dp_size * max(buckets, 1)
+def zero1_padded_size(n: int, dp_size: int, buckets: int = 1, granule: int = 1) -> int:
+    """Flat-vector length padded so ``dp_size * buckets * granule`` divides
+    it.  ``granule`` > 1 makes every per-rank bucket slice a whole number of
+    granules (the int8 ring's wire blocks, ``grad_sync.zero1_granule``)."""
+    m = dp_size * max(buckets, 1) * max(granule, 1)
     return -(-n // m) * m
 
 
 def init_flat_global(params: Sequence[torch.Tensor], dp_size: int, *,
-                     buckets: int = 1) -> FlatAdamState:
+                     buckets: int = 1, with_ef: bool = False,
+                     granule: int = 1) -> FlatAdamState:
     """This rank's part of the global flat state: the reference builds
     (padded,) moment vectors sharded over the data-parallel axes; one
-    process is one rank here, so it holds its (padded / dp,) shard only."""
+    process is one rank here, so it holds its (padded / dp,) shard only.
+    With ``with_ef`` the error-feedback residual is this rank's
+    full-length (padded,) f32 vector (the reference's (dp * padded,)
+    buffer sharded over dp).  ``granule``: see :func:`zero1_padded_size`."""
     n = sum(p.numel() for p in params)
-    padded = zero1_padded_size(n, dp_size, buckets)
+    padded = zero1_padded_size(n, dp_size, buckets, granule)
     dev = params[0].device
     shard = padded // dp_size
     return FlatAdamState(
         torch.zeros((), dtype=torch.int32, device=dev),
         torch.zeros((shard,), dtype=torch.float32, device=dev),
         torch.zeros((shard,), dtype=torch.float32, device=dev),
-        torch.zeros((1,), dtype=torch.float32, device=dev),
+        torch.zeros((padded if with_ef else 1,), dtype=torch.float32, device=dev),
     )
 
 

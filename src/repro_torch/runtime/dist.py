@@ -2,18 +2,30 @@
 
 Bundles the ABI context, the process mesh and the standard communicators
 (data-parallel group, tensor-parallel group).  Model and training code
-receive this object and never touch backend internals.
+receive this object and never touch backend internals.  With a compressed
+gradient wire it also carries a second context on ``ring-<compression>``,
+whose handles are allocated in the same order (:func:`dp_comm_of`).
 
 One process is one rank.  :func:`init_world` starts ``torch.distributed``
 (NCCL on the card, gloo on the CPU) from an explicit address — a world of
 one still gets a real process group, through a ``file://`` store in a
 fresh temporary directory (removed when the process exits), so every ABI
 call on the training path is a real collective call.
+
+:meth:`DistContext.shutdown` is the one teardown of every rank program, the
+launcher and ``chip_smoke.py`` (directly, or as the exit of a ``with``
+block): it completes and frees every request and plan, meets the other
+ranks at a barrier, drops the contexts' process-group references and
+destroys the world it started.  Left to the interpreter's exit, gloo
+process groups still referenced from the ABI's reference cycles were
+destroyed during finalization, where one rank of two now and then died of
+``terminate called without an active exception``.
 """
 from __future__ import annotations
 
 import atexit
 import dataclasses
+import gc
 import math
 import shutil
 import tempfile
@@ -24,7 +36,6 @@ import torch
 import torch.distributed as dist
 
 from ..core import PAX_COMM_WORLD, Mesh, PaxABI, pax_init
-from ..core.errors import PAX_ERR_UNSUPPORTED_OPERATION, PaxError
 from .device import resolve_device
 
 
@@ -40,6 +51,12 @@ class DistContext:
     # persistent zero1 collective plans + their Startall groups
     # (grad_sync.Zero1Plans), built once by train_loop.init_state
     zero1_plans: Optional[object] = None
+    #: the ring-<compression> context of a compressed gradient wire
+    abi_compressed: Optional[PaxABI] = None
+    #: whether building this context started the process group
+    owns_world: bool = False
+    #: further ABI contexts built on this world, torn down with it
+    extra_contexts: list = dataclasses.field(default_factory=list)
 
     @property
     def device(self) -> torch.device:
@@ -59,10 +76,52 @@ class DistContext:
             self.zero1_plans.free()
             self.zero1_plans = None
 
+    def shutdown(self, failed: bool = False) -> None:
+        """Tear the context down in an order every rank shares:
+
+        1. complete every live request and active plan or group of both ABI
+           contexts and of ``extra_contexts`` and free their plans
+           (``outstanding_requests == 0``);
+        2. barrier on the world, so no rank leaves while another still
+           talks to it;
+        3. drop the contexts' process-group references and, when this
+           context started the world, ``destroy_process_group`` — the
+           groups are destroyed here, not at interpreter exit.
+
+        A rank leaving on an error (``failed``) skips steps 1 and 2 — the
+        other ranks may be blocked in a collective it will never join — and
+        only drops and destroys its groups.  The context answers no further
+        collective."""
+        contexts = [a for a in (self.abi, self.abi_compressed, *self.extra_contexts)
+                    if a is not None]
+        if failed:
+            self.zero1_plans = None
+        else:
+            self.drop_zero1_plans()
+            for abi in contexts:
+                abi.quiesce()
+            if dist.is_initialized():
+                dist.barrier()
+        for abi in contexts:
+            abi.release(abandon=failed)
+        self.extra_contexts.clear()
+        gc.collect()
+        if self.owns_world and dist.is_initialized():
+            dist.destroy_process_group()
+
+    def __enter__(self) -> "DistContext":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        """``with make_dist(...) as d:`` ends in :meth:`shutdown`, a failed
+        one when the block raised."""
+        self.shutdown(failed=exc_type is not None)
+
 
 def init_world(device: torch.device, world_size: int = 1, rank: int = 0,
-               init_method: Optional[str] = None) -> None:
-    """Start the default process group unless one is running.
+               init_method: Optional[str] = None) -> bool:
+    """Start the default process group unless one is running; True when
+    this call started it.
 
     ``init_method`` is the rendezvous (``tcp://localhost:<port>`` or
     ``file://<path>``); a world of one may omit it.  A running group must
@@ -73,7 +132,7 @@ def init_world(device: torch.device, world_size: int = 1, rank: int = 0,
             raise RuntimeError(
                 f"a process group of size {dist.get_world_size()} is already "
                 f"running; asked for {world_size}")
-        return
+        return False
     if init_method is None:
         if world_size != 1:
             raise ValueError("a world of more than one rank needs init_method")
@@ -85,6 +144,7 @@ def init_world(device: torch.device, world_size: int = 1, rank: int = 0,
     dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
                             init_method=init_method, world_size=world_size,
                             rank=rank)
+    return True
 
 
 def make_dist(
@@ -101,23 +161,36 @@ def make_dist(
     """Build the distributed context: start the world (see
     :func:`init_world`), lay it out as a ``(data, model)`` mesh with
     ``model_axis`` ranks on the model axis, and register the data- and
-    tensor-parallel communicators.  ``device`` defaults to the card."""
-    if compression is not None:
-        raise PaxError(
-            PAX_ERR_UNSUPPORTED_OPERATION,
-            f"wire compression {compression!r} needs the ring backend, which "
-            "is not ported yet")
+    tensor-parallel communicators.  ``compression`` (``"bf16"`` or
+    ``"int8"``) adds the ``ring-<compression>`` context of the compressed
+    gradient wire.  ``device`` defaults to the card."""
+    if compression not in (None, "bf16", "int8"):
+        raise ValueError(f"unknown gradient compression {compression!r}")
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     if world_size % model_axis:
         raise ValueError(f"world size {world_size} is not a multiple of "
                          f"model_axis={model_axis}")
-    init_world(dev, world_size, rank, init_method)
+    started = init_world(dev, world_size, rank, init_method)
     mesh = Mesh(("data", "model"), (world_size // model_axis, model_axis), dev)
     abi = pax_init(mesh, impl=impl, tools=tools)
     tp_axis = "model"
     dp_axes = ("data",)
     dp_comm = abi.comm_from_axes(dp_axes, "dp")
     tp_comm = abi.comm_from_axes((tp_axis,), "tp")
-    return DistContext(abi, mesh, dp_axes, tp_axis, dp_comm, tp_comm)
+    abi_c = None
+    if compression is not None:
+        abi_c = pax_init(mesh, impl=f"ring-{compression}", tools=tools)
+        abi_c.comm_from_axes(dp_axes, "dp")  # mirror the handle allocation order
+    return DistContext(abi, mesh, dp_axes, tp_axis, dp_comm, tp_comm,
+                       abi_compressed=abi_c, owns_world=started)
+
+
+def dp_comm_of(dist_ctx: DistContext, compressed: bool) -> tuple[PaxABI, int]:
+    """The (abi, comm) pair gradient traffic uses: the ``ring-<compression>``
+    context when ``compressed`` and one exists (its handles are allocated in
+    the same order, so ``dp_comm`` names the same group there)."""
+    if compressed and dist_ctx.abi_compressed is not None:
+        return dist_ctx.abi_compressed, dist_ctx.dp_comm
+    return dist_ctx.abi, dist_ctx.dp_comm

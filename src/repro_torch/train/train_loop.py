@@ -11,6 +11,11 @@ Two gradient-sync layouts, as in the reference:
 * **per-leaf DDP** (``zero1=False``): one nonblocking ``iallreduce`` per
   gradient leaf, issued together and awaited together, moments per leaf.
 
+``parallelism.grad_compression`` picks the gradient wire as in the
+reference: ``"bf16"`` casts the wire to bf16 (ZeRO-1 folds the per-rank
+error-feedback residual ``opt.ef`` into each step's gradient and refreshes
+it), ``"int8"`` sends the gradient through the ``ring-int8`` context.
+
 Microbatches accumulate gradients in f32 (the reference's scan).  The
 ZeRO-1 step's four phases are ``record_function`` spans (``zero1.grads``,
 ``zero1.reduce_scatter``, ``zero1.adamw``, ``zero1.all_gather``), which
@@ -34,10 +39,10 @@ from ..core import PAX_SUM
 from ..models.model import ModelApi, param_leaves
 from ..optim import adamw
 from ..optim.adamw import AdamState, AdamWConfig, FlatAdamState
-from ..runtime.dist import DistContext
+from ..runtime.dist import DistContext, dp_comm_of
 from .grad_sync import (allgather_params, build_zero1_plans, pad_to,
                         reduce_scatter_grads_finish, reduce_scatter_grads_start,
-                        zero1_wire_dtype)
+                        zero1_granule, zero1_wire_dtype)
 
 
 class TrainState(NamedTuple):
@@ -55,8 +60,11 @@ def init_state(api: ModelApi, seed: int, dist: DistContext, model=None) -> Train
     """Build the initial train state on ``dist``'s device: random weights
     from ``seed`` (or the given ``model``), and the optimizer state — the
     ZeRO-1 flat shard with its persistent plans when ``parallelism.zero1``
-    is set, per-leaf moments otherwise.  Re-init with an unchanged layout
-    keeps the live plans; a layout change retires them and re-plans."""
+    is set (with the error-feedback residual on the bf16 wire, and padded
+    to whole wire blocks per rank on a compressed ring), per-leaf
+    moments otherwise.  Re-init with an unchanged layout — padded length,
+    dp, buckets, wire dtype and compression — keeps the live plans; a
+    layout change retires them and re-plans."""
     if model is None:
         model = api.init(seed, dist.device)
     params = [p for _, p in param_leaves(model)]
@@ -65,13 +73,16 @@ def init_state(api: ModelApi, seed: int, dist: DistContext, model=None) -> Train
         raise NotImplementedError(f"grad_sync={par.grad_sync!r} is not ported yet")
     if par.zero1:
         buckets = max(par.zero1_buckets, 1)
-        wire = zero1_wire_dtype(par.grad_compression)
-        opt = adamw.init_flat_global(params, dist.dp_size, buckets=buckets)
+        compression = par.grad_compression
+        wire = zero1_wire_dtype(compression)
+        opt = adamw.init_flat_global(params, dist.dp_size, buckets=buckets,
+                                     with_ef=compression == "bf16",
+                                     granule=zero1_granule(dist, compression))
         padded = opt.m.shape[0] * dist.dp_size
         old = dist.zero1_plans
-        if old is None or not old.matches(padded, dist.dp_size, buckets, wire):
+        if old is None or not old.matches(padded, dist.dp_size, buckets, wire, compression):
             dist.drop_zero1_plans()
-            dist.zero1_plans = build_zero1_plans(dist, padded, buckets)
+            dist.zero1_plans = build_zero1_plans(dist, padded, buckets, compression)
     else:
         opt = adamw.init_tree(params)
     return TrainState(model, opt, torch.zeros((), dtype=torch.int32, device=dist.device))
@@ -103,6 +114,19 @@ def _microbatched_grads(loss_fn: Callable, model, params: list, batch: dict,
     return loss_acc * inv, [g * inv for g in g_acc]
 
 
+def sync_grads_abi(dist: DistContext, grads: list, compression: Optional[str]) -> list:
+    """Per-leaf nonblocking all-reduce over the dp communicator (each leaf
+    is a bucket; the requests are issued together and awaited together):
+    bf16 leaves on the bf16 wire, the ``ring-int8`` context for int8 (its
+    nonblocking all-reduce is the recipe over the ring's nonblocking
+    reduce-scatter: the global-scale wire, as in the reference, where no
+    hop kernel runs either).  Returns the dp-mean f32 gradients."""
+    abi, comm = dp_comm_of(dist, compression == "int8")
+    wires = [g.to(torch.bfloat16) if compression == "bf16" else g for g in grads]
+    summed = abi.waitall([abi.iallreduce(w, PAX_SUM, comm) for w in wires])
+    return [s.float() / dist.dp_size for s in summed]
+
+
 @torch.no_grad()
 def _assign(params: list, values: list) -> None:
     for p, v in zip(params, values):
@@ -115,6 +139,8 @@ def make_train_step_abi(api: ModelApi, dist: DistContext, opt_cfg: AdamWConfig, 
     par = cfg.parallelism
     n_micro = max(par.microbatch, 1)
     buckets = max(par.zero1_buckets, 1)
+    compression = par.grad_compression
+    pad_multiple = dist.dp_size * buckets * zero1_granule(dist, compression)
     loss_fn = lambda m, b: api.loss_fn(m, b, dist)  # noqa: E731
 
     def lr_at(step):
@@ -127,20 +153,20 @@ def make_train_step_abi(api: ModelApi, dist: DistContext, opt_cfg: AdamWConfig, 
         dp = dist.dp_size
         params = [p for _, p in param_leaves(state.params)]
         loss, grads = _microbatched_grads(loss_fn, state.params, params, batch, n_micro)
-        abi, comm = dist.abi, dist.dp_comm
-        summed = abi.waitall([abi.iallreduce(g, PAX_SUM, comm) for g in grads])
-        grads = [s.float() / dp for s in summed]
+        grads = sync_grads_abi(dist, grads, compression)
         with torch.no_grad():
             new_p, new_opt, gnorm = adamw.update_tree(
                 opt_cfg, grads, state.opt, params, lr_at(state.step))
         _assign(params, new_p)
-        loss = abi.allreduce(loss, PAX_SUM, comm) / dp
+        loss = dist.abi.allreduce(loss, PAX_SUM, dist.dp_comm) / dp
         return TrainState(state.params, new_opt, state.step + 1), Metrics(loss, gnorm)
 
     def body_zero1(state: TrainState, batch: dict):
         """Explicit ZeRO-1 round trip: one reduce-scatter group start ->
         (param flatten + rank slice, overlapped) -> wait -> shard-local
-        AdamW -> one all-gather group start/wait."""
+        AdamW -> one all-gather group start/wait.  On the bf16 wire the
+        per-rank residual ``opt.ef`` is folded into the gradient and
+        refreshed from this step's rounding error."""
         dp = dist.dp_size
         plans = dist.zero1_plans
         params = [p for _, p in param_leaves(state.params)]
@@ -149,13 +175,17 @@ def make_train_step_abi(api: ModelApi, dist: DistContext, opt_cfg: AdamWConfig, 
                                               n_micro)
         n_flat = sum(p.numel() for p in params)
         with torch.no_grad(), record_function("zero1.reduce_scatter"):
-            flat_g = pad_to(adamw.flatten(grads), dp * buckets)
+            flat_g = pad_to(adamw.flatten(grads), pad_multiple)
             del grads
-            pending = reduce_scatter_grads_start(dist, flat_g, buckets=buckets,
-                                                 plans=plans)
+            # error feedback: opt.ef is this rank's full-length residual
+            # exactly when the bf16 wire is on (a (1,) dummy otherwise)
+            ef = state.opt.ef if state.opt.ef.shape[0] == flat_g.shape[0] else None
+            pending, new_ef = reduce_scatter_grads_start(
+                dist, flat_g, compression=compression, buckets=buckets, ef=ef,
+                plans=plans)
             # overlapped with the in-flight reduce-scatter: this rank's
             # contiguous param slice (the layout of g_shard and the moments)
-            flat_p = pad_to(adamw.flatten(params), dp * buckets)
+            flat_p = pad_to(adamw.flatten(params), pad_multiple)
             shard_len = flat_p.shape[0] // dp
             r = dist.abi.comm_rank(dist.dp_comm)
             p_shard = flat_p[r * shard_len:(r + 1) * shard_len]
@@ -167,7 +197,9 @@ def make_train_step_abi(api: ModelApi, dist: DistContext, opt_cfg: AdamWConfig, 
                 torch.sum(torch.square(g_shard)), PAX_SUM, dist.dp_comm))
             new_p_shard, new_opt = adamw.update_flat_shard(
                 opt_cfg, g_shard, state.opt, p_shard, gnorm, lr_at(state.step))
-            del flat_p, p_shard, g_shard
+            if ef is not None and new_ef is not None:
+                new_opt = new_opt._replace(ef=new_ef)
+            del flat_p, p_shard, g_shard, ef
         with torch.no_grad(), record_function("zero1.all_gather"):
             p_full = allgather_params(dist, new_p_shard, buckets=buckets, plans=plans)
             _assign(params, adamw.unflatten_like(p_full[:n_flat], params))

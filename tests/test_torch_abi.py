@@ -156,13 +156,47 @@ def test_entry_points_refuse_the_card_without_one():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_dist()
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_dist(compression="int8")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         build_model(smoke_config("qwen2-0.5b")).init(0)
 
 
-def test_compression_waits_for_the_ring_backend():
-    with pytest.raises(C.PaxError) as e:
-        make_dist(device="cpu", compression="bf16")
-    assert e.value.code == E.PAX_ERR_UNSUPPORTED_OPERATION
+@pytest.mark.parametrize("compression", ["bf16", "int8"])
+def test_compression_builds_the_ring_context(compression):
+    """``make_dist(compression=...)`` adds a ``ring-<compression>`` context
+    whose dp communicator has the primary context's handle (the reference's
+    allocation order); gradient traffic takes it only for int8."""
+    from repro_torch.runtime.dist import dp_comm_of
+
+    d = make_dist(device="cpu", compression=compression)
+    ring = d.abi_compressed
+    assert ring.backend.name == "ring" and ring.backend.compress == compression
+    assert ring.comms.info(d.dp_comm).axes == d.abi.comms.info(d.dp_comm).axes
+    assert ring.capabilities()["allreduce"]["source"] == "emulated"
+    assert dp_comm_of(d, True) == (ring, d.dp_comm)
+    assert dp_comm_of(d, False) == (d.abi, d.dp_comm)
+    with pytest.raises(ValueError, match="fp8"):
+        make_dist(device="cpu", compression="fp8")
+
+
+def test_with_block_shuts_down_and_a_raising_one_skips_the_barrier(tdist, monkeypatch):
+    """``with make_dist(...) as d:`` ends in ``d.shutdown()``.  When the block
+    raises, the shutdown is a failed one: a live request is abandoned, not
+    awaited, and no barrier runs (a peer blocked in another collective
+    would never meet it); the contexts are released all the same."""
+    barriers = []
+    monkeypatch.setattr(torch.distributed, "barrier", lambda *a, **k: barriers.append(1))
+    with pytest.raises(RuntimeError, match="step failed"):
+        with make_dist(device="cpu", compression="int8") as d:
+            req = d.abi.iallreduce(_x(), C.PAX_SUM, d.dp_comm)  # noqa: F841
+            raise RuntimeError("step failed")
+    assert d.abi.finalized and d.abi_compressed.finalized and not barriers
+    with pytest.raises(C.PaxError):
+        d.abi.comm_size(d.dp_comm)
+    with make_dist(device="cpu") as d:
+        d.abi.wait(d.abi.iallreduce(_x(), C.PAX_SUM, d.dp_comm))
+    assert d.abi.finalized and barriers == [1]
+    assert tdist.abi.comm_size(tdist.dp_comm) == 1  # another context's world lives on
 
 
 # ---------------------------------------------------------------------------

@@ -185,5 +185,5 @@ def test_negotiated_capabilities_equal_on_paxi(mesh1):
 
 def test_unknown_backend_names_what_exists():
     with pytest.raises(ValueError, match="paxi"):
-        T.pax_init(None, impl="ring")
-    assert T.available_backends() == ("paxi",)
+        T.pax_init(None, impl="ompix")
+    assert T.available_backends() == ("paxi", "ring", "ring-bf16", "ring-int8")

@@ -57,3 +57,14 @@ def test_span_owns_the_work_launched_inside_it_from_any_thread():
     spans = trace_summary(_trace(), n_steps=1)["spans"]
     assert spans["zero1.grads"] == pytest.approx([0.1, 0.8])
     assert spans["zero1.all_gather"] == pytest.approx([0.05, 0.1])
+
+
+@pytest.mark.parametrize("name", [
+    "void permute_rows<float, float, true, true>(float const*, float*, int, int, long long)",
+    "void pack_ef_rows<true>(float const*, float const*, __nv_bfloat16*, float*, int, int, long long)",
+    "void quant_i8_kernel<true>(float const*, signed char*, float*, long long)",
+    "void hop_add_quant_i8_kernel<false>(signed char const*, float const*, float const*, "
+    "signed char*, float*, long long)",
+    "void hop_accum_bf16_kernel<true>(__nv_bfloat16 const*, float const*, float*, long long)"])
+def test_the_ring_wire_kernels_are_one_class(name):
+    assert kernel_class(name) == "wire kernels (this repo)"

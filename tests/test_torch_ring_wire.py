@@ -99,8 +99,8 @@ def test_zero1_legs_build_buckets_through_the_wrappers(monkeypatch, use_plans):
     plans = T_gs.build_zero1_plans(dist, 48, buckets=2) if use_plans else None
     flat = torch.from_numpy(_vec(48, seed=9))
     try:
-        pending = T_gs.reduce_scatter_grads_start(dist, flat, buckets=2, plans=plans)
-        assert pending.mode == ("group" if use_plans else "pooled")
+        pending, ef = T_gs.reduce_scatter_grads_start(dist, flat, buckets=2, plans=plans)
+        assert pending.mode == ("group" if use_plans else "pooled") and ef is None
         shard = T_gs.reduce_scatter_grads_finish(pending)
         back = T_gs.allgather_params(dist, shard, buckets=2, plans=plans)
     finally:
