@@ -7,9 +7,9 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build the CUDA kernels of the training paths from ``src/repro_torch``:
-   one ``nvcc`` per source (``ring_wire.cu``, ``ring_hops.cu``), started
-   together;
+1. build the CUDA kernels of the port's paths from ``src/repro_torch``:
+   one ``nvcc`` per source (``ring_wire.cu``, ``ring_hops.cu``,
+   ``flash_attention.cu``), started together;
 2. [check] hold each kernel bitwise against its plain PyTorch version:
    the zero1 pack/unpack and the error-feedback pack at (dp, buckets) in
    {(1,1), (1,2), (4,2), (8,4)} at the full qwen2-0.5b flat-gradient size
@@ -18,10 +18,18 @@ Phases (any failure exits non-zero and prints no result line):
    and two buckets (the flat vector padded to dp * buckets * 128, as
    ``train_loop.init_state`` pads it on the int8 ring); plus
    rounding ties (int8 rint, bf16 nearest even), an all-zero block, the
-   +-127 clip and a misaligned buffer;
+   +-127 clip and a misaligned buffer; and the flash-attention kernel
+   against ``ref.attention_ref`` at every ``FA_SWEEP`` shape (allclose at
+   atol = rtol = 2e-5 in f32, 2e-2 in bf16: the reference's tolerances),
+   at the full-width qwen2-0.5b shape (B=4, S=2048, 14/2 heads, D=64) in
+   bf16 and f32 and at a ragged S=2000 in bf16 (f32 at 2e-5; bf16 within
+   two bf16 roundings, 2^-6 of |want|, plus 1e-5), and non-causally at
+   S=256 and at a ragged S=192;
 3. [time] time each kernel, its plain version and, where one exists, one
    PyTorch call computing the same function, with CUDA events, beside the
-   least time the card's memory bandwidth allows;
+   least time the card allows: bytes over its memory bandwidth for the
+   ring-wire kernels, the causal FLOPs over the bf16 tensor-core rate for
+   flash attention (library call: ``scaled_dot_product_attention``);
 4. check the training path end to end at a small size: the reduced
    qwen2-0.5b config in float32 trains 3 steps on the card and on the CPU
    (a subprocess, the plain kernel versions) and the losses agree;
@@ -37,7 +45,17 @@ Phases (any failure exits non-zero and prints no result line):
    rank the ring is the identity, so no hop kernel launches and both
    steps' losses and grad norms equal the uncompressed run's bitwise (same
    seed, one bucket);
-8. print the kernels' record as one JSON line, the card's name and power
+8. [forward] the dense transformer's full-sequence forward under
+   ``attention_impl="flash"``: full-width qwen2-0.5b (bf16, random weights
+   from seed 0), batch 4, sequence 2048, through ``build_model(cfg).forward``
+   — 24 flash launches a forward — then on the same weights under
+   ``"xla"``, under ``"blockwise"`` and with ``last_only=True``; ms per
+   forward for the three; the bf16 logits' max difference from ``"xla"`` and
+   top-1 agreement; at ``compute_dtype="float32"`` the flash and blockwise
+   forwards' logits within 1e-3 of xla's; the ``last_only`` row equal to the
+   last row of the full logits within one bf16 rounding (2^-7 relative, plus
+   1e-5);
+9. print the kernels' record as one JSON line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 Each main path zeroes the launch counts just before it and reads them just
@@ -74,6 +92,10 @@ SRC = HERE / "src"
 
 #: H100 SXM HBM3 bandwidth (NVIDIA data sheet), bytes per second
 HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM dense peaks (NVIDIA data sheet), FLOP per second: bf16 on the
+#: tensor cores, float32 outside them
+BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12
 
 CASES = ((1, 1), (1, 2), (4, 2), (8, 4))
 SMALL_SEG = 1001          # ragged: not a multiple of the 4-wide vectors
@@ -108,14 +130,17 @@ def flat_param_count(cfg) -> int:
 def phase_build():
     """One nvcc per source, all started together, then load."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ring_wire import ops
 
-    libs = (("ring_wire", ops.SOURCES), ("ring_hops", ops.HOP_SOURCES))
+    libs = (("ring_wire", ops.SOURCES), ("ring_hops", ops.HOP_SOURCES),
+            ("flash_attention", fa_ops.SOURCES))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         paths = list(pool.map(lambda lib: _build.build(*lib), libs))
     ops._lib()
     ops._hop_lib()
+    fa_ops._lib()
     log(f"[build] {', '.join(str(p.relative_to(HERE)) for p in paths)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for path in paths:
@@ -439,6 +464,99 @@ def phase_time_ring(n_full: int) -> dict:
     return out
 
 
+#: the full-width bf16 checks' bound: kernel and plain version both do f32
+#: math and round once to bf16, so they differ by at most one bf16 ulp of the
+#: larger result (<= 2^-7 of it), which is within 2^-6 of |want|, plus the
+#: f32 reassociation (about 1e-6 at this shape)
+BF16_ROUNDINGS = (1e-5, 2.0 ** -6)
+# B, S, H, Hkv, D, causal, dtype, (atol, rtol): the reference's FA_SWEEP
+# (tests/test_kernels.py) at its tolerances, then the main path's shapes
+FA_CHECKS = (
+    (2, 256, 4, 2, 64, True, "float32", (2e-5, 2e-5)),
+    (1, 128, 2, 2, 32, False, "float32", (2e-5, 2e-5)),
+    (2, 256, 8, 2, 64, True, "float32", (2e-5, 2e-5)),
+    (1, 256, 4, 1, 128, True, "float32", (2e-5, 2e-5)),
+    (2, 192, 4, 4, 64, True, "float32", (2e-5, 2e-5)),
+    (2, 256, 4, 2, 64, True, "bfloat16", (2e-2, 2e-2)),
+    (4, 2048, 14, 2, 64, True, "bfloat16", BF16_ROUNDINGS),   # FULL_ATTN, the main path's
+    (4, 2048, 14, 2, 64, True, "float32", (2e-5, 2e-5)),      # FULL_ATTN
+    (4, 2000, 14, 2, 64, True, "bfloat16", BF16_ROUNDINGS),   # ragged S
+    (2, 256, 4, 2, 64, False, "float32", (2e-5, 2e-5)),       # non-causal
+    (1, 192, 2, 1, 64, False, "float32", (2e-5, 2e-5)),       # non-causal, ragged S
+)
+FWD_BATCH, FWD_SEQ = 4, 2048                        # [forward]'s batch and sequence
+FULL_ATTN = (FWD_BATCH, FWD_SEQ, 14, 2, 64)         # qwen2-0.5b's heads at that batch
+
+
+def _qkv(B, S, H, Hkv, D, dtype, gen):
+    """q (B*H, S, D), k and v (B*Hkv, S, D) on the card, N(0, 1)."""
+    import torch
+
+    dt = getattr(torch, dtype)
+    return tuple(torch.randn((B * h, S, D), generator=gen, device="cuda").to(dt)
+                 for h in (H, Hkv, Hkv))
+
+
+def phase_check_flash() -> dict:
+    """The flash-attention kernel against ``ref.attention_ref``; returns the
+    worst difference at the full-width bf16 shape (the main path's)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = 0.0
+    for B, S, H, Hkv, D, causal, dtype, (atol, rtol) in FA_CHECKS:
+        q, k, v = _qkv(B, S, H, Hkv, D, dtype, gen)
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = ref.attention_ref(q, k, v, causal=causal)
+        torch_sync()
+        err = _max_err(got, want)
+        excess = float(((got.float() - want.float()).abs()
+                        - atol - rtol * want.float().abs()).max())
+        log(f"[check] flash_attention B={B} S={S} H={H}/{Hkv} D={D} "
+            f"{'causal' if causal else 'non-causal'} {dtype}: max abs err {err:.3e} "
+            f"(atol {atol}, rtol {rtol})")
+        if got.dtype != want.dtype or got.shape != want.shape or excess > 0:
+            raise AssertionError(f"flash_attention disagrees with attention_ref at B={B} "
+                                 f"S={S} H={H}/{Hkv} D={D} causal={causal} {dtype}: {err}")
+        if (B, S, H, Hkv, D) == FULL_ATTN and dtype == "bfloat16":
+            worst = err
+        del q, k, v, got, want
+    return {"flash_attention": worst}
+
+
+def phase_time_flash() -> dict:
+    """Kernel, plain version and ``scaled_dot_product_attention`` at the
+    main path's shape.  Bound: the causal FLOPs (QK^T and PV over the
+    S(S+1)/2 pairs) over the peak for the inputs' type, or q, k, v read
+    and o written once over the memory bandwidth, whichever is longer."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    B, S, H, Hkv, D = FULL_ATTN
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    flops = 4 * B * H * D * S * (S + 1) / 2
+    out = {}
+    for dtype, rate in (("float32", F32_FLOP_PER_S), ("bfloat16", BF16_FLOP_PER_S)):
+        q, k, v = _qkv(B, S, H, Hkv, D, dtype, gen)
+        nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+        q4, k4, v4 = q.view(B, H, S, D), k.view(B, Hkv, S, D), v.view(B, Hkv, S, D)
+        t = dict(ms=_time_ms(lambda: ops.flash_attention(q, k, v)),
+                 plain_ms=_time_ms(lambda: ref.attention_ref(q, k, v)),
+                 library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+                     q4, k4, v4, is_causal=True, enable_gqa=True)),
+                 bound_ms=max(flops / rate, nbytes / HBM_BYTES_PER_S) * 1e3,
+                 bound_by="operations" if flops / rate > nbytes / HBM_BYTES_PER_S else "bytes")
+        log(f"[time] flash_attention B={B} S={S} H={H}/{Hkv} D={D} causal {dtype}: kernel "
+            f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, library (sdpa) "
+            f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+            f"{flops:.3e} FLOP at {rate / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB)")
+        out[dtype] = t
+        del q, k, v, q4, k4, v4
+    return {"flash_attention": out["bfloat16"]}
+
+
 SMALL_ARGS = ["--arch", ARCH, "--smoke", "--steps", "3", "--global-batch", "8",
               "--seq-len", "32", "--log-every", "1", "--zero1-buckets", "2"]
 
@@ -469,17 +587,20 @@ def phase_small_reference():
 COMMON = ["--arch", ARCH, "--global-batch", "8", "--seq-len", "128", "--log-every", "1"]
 
 
-def _zero_counts() -> None:
+def _kernel_wrappers() -> tuple:
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ring_wire import ops
 
-    for k in ops.KERNELS:
+    return (*ops.KERNELS, fa_ops.flash_attention)
+
+
+def _zero_counts() -> None:
+    for k in _kernel_wrappers():
         k.launches = 0
 
 
 def _counts() -> dict:
-    from repro_torch.kernels.ring_wire import ops
-
-    return {k.__name__: k.launches for k in ops.KERNELS}
+    return {k.__name__: k.launches for k in _kernel_wrappers()}
 
 
 def _check_run(rep, steps: int, tag: str) -> None:
@@ -572,6 +693,102 @@ def phase_main_int8(uncompressed) -> dict:
     if any(hops.values()) or c["pack_transposed"] != 2:
         raise AssertionError(f"int8 launches at dp=1: {c}")
     return c
+
+
+FWD_ITERS = 3
+F32_LOGIT_TOL = 1e-3
+#: last_only against the full forward's last row: one bf16 rounding (2^-7
+#: relative) on top of the f32 reassociation of a d=896 dot product
+LAST_ONLY_ATOL = 1e-5
+
+
+def phase_forward(card: str) -> int:
+    """The full-sequence forward under ``attention_impl="flash"`` at full
+    width; returns the flash launches of one forward (counts zeroed just
+    before it, read just after)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import build_model
+
+    cfg = configs.get_config(ARCH)
+    impls = ("flash", "xla", "blockwise")
+    apis = {impl: build_model(dataclasses.replace(cfg, attention_impl=impl)) for impl in impls}
+    model = apis["flash"].init(0, device="cuda")
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (FWD_BATCH, FWD_SEQ),
+                                     generator=gen).cuda()}
+    shape = (FWD_BATCH, FWD_SEQ, cfg.vocab_size)
+    with torch.no_grad():
+        _zero_counts()
+        flash = apis["flash"].forward(model, batch)
+        torch_sync()
+        counts = _counts()
+        launches = counts.pop("flash_attention")
+        log(f"[forward] {ARCH} full width, B={FWD_BATCH} S={FWD_SEQ} bf16, flash: "
+            f"flash_attention launched {launches} times in one forward "
+            f"({cfg.num_layers} layers); other kernels {counts}")
+        if launches != cfg.num_layers or any(counts.values()):
+            raise AssertionError(f"one flash forward launched flash_attention {launches} "
+                                 f"times (want {cfg.num_layers}) and {counts}")
+        xla = apis["xla"].forward(model, batch)
+        blockwise = apis["blockwise"].forward(model, batch)
+        last = apis["flash"].forward(model, batch, last_only=True)
+        torch_sync()
+        for name, t in (("flash", flash), ("xla", xla), ("blockwise", blockwise)):
+            if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"[forward] {name} logits {tuple(t.shape)}, finite "
+                                     f"{bool(torch.isfinite(t).all())}")
+        for name, t in (("flash", flash), ("blockwise", blockwise)):
+            diff = _max_err(t, xla)
+            top1 = float((t.argmax(-1) == xla.argmax(-1)).float().mean())
+            log(f"[forward] bf16 logits {name} vs xla: max abs diff {diff:.4e} (logits' max "
+                f"abs {float(xla.float().abs().max()):.3f}), top-1 agreement {top1:.4f}")
+        del blockwise
+        # the last_only forward shares every layer's numbers; only the final
+        # norm and the unembed run on one row (another GEMM shape, so another
+        # f32 summation order), which may move a logit by one bf16 rounding
+        tail = flash[:, -1:]
+        gap = float(((last.float() - tail.float()).abs() - LAST_ONLY_ATOL
+                     - 2.0 ** -7 * torch.maximum(last.float().abs(), tail.float().abs())).max())
+        log(f"[forward] last_only {tuple(last.shape)}: "
+            f"{'bitwise equal to' if torch.equal(last, tail) else 'within one bf16 rounding of'}"
+            f" the full forward's last row (max abs diff {_max_err(last, tail):.3e})")
+        if tuple(last.shape) != (FWD_BATCH, 1, cfg.vocab_size) or gap > 0:
+            raise AssertionError(f"[forward] last_only row differs from the full forward's "
+                                 f"last row by {_max_err(last, tail)}")
+        del last, tail
+        ms = {}
+        turns = impls + impls[::-1]
+        for impl in turns:
+            ms.setdefault(impl, []).append(
+                _time_ms(lambda: apis[impl].forward(model, batch), FWD_ITERS))
+        log(f"[forward] ms per forward (median of {FWD_ITERS}, in turns {', '.join(turns)}, "
+            f"after 3 warm-ups each), B={FWD_BATCH} S={FWD_SEQ} bf16 on {card}: "
+            + "; ".join(f"{impl} {ms[impl][0]:.2f}, {ms[impl][1]:.2f}" for impl in impls))
+        del flash, xla
+        torch.cuda.empty_cache()
+        out32 = {}
+        for impl in impls:
+            api = build_model(dataclasses.replace(cfg, attention_impl=impl,
+                                                  compute_dtype="float32"))
+            out32[impl] = api.forward(model, batch)
+        torch_sync()
+        if not all(bool(torch.isfinite(t).all()) for t in out32.values()):
+            raise AssertionError("[forward] float32 logits are not all finite")
+        for impl in ("flash", "blockwise"):
+            diff32 = _max_err(out32[impl], out32["xla"])
+            top1_32 = float((out32[impl].argmax(-1) == out32["xla"].argmax(-1)).float().mean())
+            log(f"[forward] float32 compute: logits {impl} vs xla max abs diff {diff32:.4e} "
+                f"(bound {F32_LOGIT_TOL}), top-1 agreement {top1_32:.4f}")
+            if diff32 > F32_LOGIT_TOL:
+                raise AssertionError(f"[forward] float32 {impl} and xla logits differ by "
+                                     f"{diff32}")
+        del out32
+    del model
+    torch.cuda.empty_cache()
+    return launches
 
 
 RING4 = 4
@@ -669,6 +886,8 @@ KERNELS = {
     "hop_accum_i8": (CU + "ring_hops.cu", TPU + "97"),
     "hop_add_quant_bf16": (CU + "ring_hops.cu", TPU + "115"),
     "hop_accum_bf16": (CU + "ring_hops.cu", TPU + "128"),
+    "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:75"),
 }
 
 
@@ -711,22 +930,26 @@ def main() -> int:
             return 0
         worst = phase_check(n_full)
         worst.update(phase_check_ring(n_full))
+        worst.update(phase_check_flash())
         if args.only == "check":
             log("[only] check: the kernels built and agree; no result line")
             return 0
         timing = phase_time(n_full)
         timing.update(phase_time_ring(n_full))
+        timing.update(phase_time_flash())
         torch.cuda.empty_cache()
         phase_small_reference()
         launches, uncompressed = phase_main_path()
         launches["pack_transposed_ef"] = phase_main_bf16()["pack_transposed_ef"]
         int8 = phase_main_int8(uncompressed)
         launches.update({k: int8[k] for k in HOPS})
+        launches["flash_attention"] = phase_forward(card)
         record = {"kernels": [
             {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches[name], "max_abs_err": worst[name],
              "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
-             "bound_ms": timing[name]["bound_ms"], "bound_by": "bytes",
+             "bound_ms": timing[name]["bound_ms"],
+             "bound_by": timing[name].get("bound_by", "bytes"),
              "library_ms": timing[name]["library_ms"]}
             for name, (source, replaces) in KERNELS.items()]}
     except Exception:

@@ -100,7 +100,7 @@ class ModelConfig:
     max_seq_len: int = 32768
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
-    attention_impl: str = "xla"   # "xla" (the plain attention path; "flash" waits for its kernel)
+    attention_impl: str = "xla"   # "xla" | "blockwise" | "flash" (the CUDA kernel, forward only)
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None

@@ -64,8 +64,9 @@ def resolve(name: str, device):
 
 
 # -- built-in kernels (lazy: nothing imports until first resolve) -----------
-# The wrappers in ring_wire/ops.py resolve through here by their tensor's
-# device: the CUDA launch for a CUDA tensor, the plain version for a CPU one.
+# The wrappers in ring_wire/ops.py and flash_attention/ops.py resolve through
+# here by their tensor's device: the CUDA launch for a CUDA tensor, the plain
+# version for a CPU one.
 RING_WIRE_KERNELS = ("pack_transposed", "unpack_transposed", "pack_transposed_ef",
                      "quant_i8", "hop_add_quant_i8", "hop_accum_i8",
                      "hop_add_quant_bf16", "hop_accum_bf16")
@@ -74,3 +75,6 @@ for _name in RING_WIRE_KERNELS:
              f"repro_torch.kernels.ring_wire.ops:launch_{_name}")
     register(f"ring_wire.{_name}", "torch", f"repro_torch.kernels.ring_wire.ref:{_name}")
 del _name
+register("flash_attention", "cuda",
+         "repro_torch.kernels.flash_attention.ops:launch_flash_attention")
+register("flash_attention", "torch", "repro_torch.kernels.flash_attention.ref:attention_ref")

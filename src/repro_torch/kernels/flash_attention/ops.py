@@ -1,0 +1,129 @@
+"""Wrappers of the flash-attention kernel — what the model's
+``attention_impl="flash"`` path calls.
+
+:func:`flash_attention` takes the kernel's layout, q (BH, S, D) and k/v
+(BKV, S, D); :func:`flash_mha` takes the model's, q (B, S, H, D) and k/v
+(B, S, Hkv, D), with the reference's head order (``ops.py:22-24`` there:
+batch-major, then heads, so the query heads of one kv group are
+contiguous).  The wrapper checks what the kernel takes, then runs the
+variant the kernel registry (:mod:`repro_torch.kernels`) holds for the
+tensor's device: on a CUDA tensor :func:`launch_flash_attention`, which
+launches ``csrc/flash_attention.cu`` on the current stream (raising if the
+launch is refused) and adds one to ``flash_attention.launches``; on a CPU
+tensor :func:`.ref.attention_ref`.  Any other device raises, and nothing
+falls back from a CUDA tensor to the plain version.
+
+Unlike the reference's ``flash_mha``, nothing pads S to the block size:
+the kernel masks keys at or past S itself, so a non-causal call with a
+ragged S computes ``attention_ref``'s function (the reference lets its
+zero padding into the softmax there).  The reference's ``block_q`` /
+``block_k`` tiling arguments are not taken: the CUDA kernel's 64 x 64 tile
+is a constant of ``flash_attention.cu``.
+
+The reference defines no gradient for this kernel (``jax.grad`` of its
+``flash_mha`` fails), so both variants run inside an autograd function
+whose backward raises: the forward path is the only one.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from ... import kernels
+from .. import _build
+
+SOURCES = (Path(__file__).with_name("csrc") / "flash_attention.cu",)
+
+_DTYPES = (torch.float32, torch.bfloat16)
+#: head dims the kernel takes: multiples of 8 up to 256
+MAX_HEAD_DIM = 256
+#: query tiles of 64 rows sit on the grid's y axis, which CUDA caps at 65535
+MAX_SEQ = 64 * 65535
+
+_P, _N = ctypes.c_void_p, ctypes.c_longlong
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention", SOURCES)
+    lib.pax_flash_attention.argtypes = [_P, _P, _P, _P, _N, _N, _N, _N, ctypes.c_int,
+                                        ctypes.c_int, _P]
+    lib.pax_flash_attention.restype = ctypes.c_int
+    return lib
+
+
+def launch_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                           causal: bool = True) -> torch.Tensor:
+    """The ``cuda`` variant of :func:`flash_attention`: one kernel launch."""
+    tensors = (q, k, v)
+    if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
+        raise ValueError("pax_flash_attention takes CUDA tensors on one device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    q, k, v = (t.contiguous() for t in tensors)
+    BH, S, D = q.shape
+    out = torch.empty_like(q)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.pax_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                     BH, k.shape[0], S, D, int(causal),
+                                     int(q.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"pax_flash_attention launch failed: CUDA error {rc}")
+    flash_attention.launches += 1
+    return out
+
+
+class _Forward(torch.autograd.Function):
+    """One variant's forward; the backward refuses, as the reference has no
+    gradient for this kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, fn, causal):
+        return fn(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise RuntimeError(
+            "flash_attention has no backward: the reference defines no gradient for "
+            "this kernel (jax.grad of its flash_mha fails); train with "
+            "attention_impl='xla' or 'blockwise'")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q: (BH, S, D); k/v: (BKV, S, D), BH % BKV == 0 -> (BH, S, D) in q's
+    dtype.  f32 or bf16 (all three alike), D a multiple of 8 up to 256."""
+    shapes_ok = (q.ndim == k.ndim == v.ndim == 3 and k.shape == v.shape
+                 and k.shape[0] > 0 and q.shape[0] % k.shape[0] == 0
+                 and q.shape[1:] == k.shape[1:] and 1 <= q.shape[1] <= MAX_SEQ)
+    if not shapes_ok or not q.dtype == k.dtype == v.dtype or q.dtype not in _DTYPES:
+        raise ValueError(
+            "flash_attention takes q (BH, S, D) and k, v (BKV, S, D) with BH % BKV == 0, "
+            f"1 <= S <= {MAX_SEQ}, all float32 or all bfloat16; got {tuple(q.shape)} "
+            f"{q.dtype}, {tuple(k.shape)} {k.dtype}, {tuple(v.shape)} {v.dtype}")
+    D = q.shape[2]
+    if D % 8 or not 8 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention takes a head dim that is a multiple of 8 up to "
+                         f"{MAX_HEAD_DIM}, got {D}")
+    if not q.device == k.device == v.device:
+        raise ValueError(f"flash_attention takes q, k, v on one device, got {q.device}, "
+                         f"{k.device}, {v.device}")
+    _, fn = kernels.resolve("flash_attention", q.device)
+    return _Forward.apply(q, k, v, fn, causal)
+
+
+flash_attention.launches = 0  # counted by the ``cuda`` variant only
+
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True) -> torch.Tensor:
+    """q: (B, S, H, D); k/v: (B, S, Hkv, D) -> (B, S, H, D)."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    qf = q.transpose(1, 2).reshape(B * H, S, D)
+    kf = k.transpose(1, 2).reshape(B * Hkv, S, D)
+    vf = v.transpose(1, 2).reshape(B * Hkv, S, D)
+    out = flash_attention(qf, kf, vf, causal=causal)
+    return out.reshape(B, H, S, D).transpose(1, 2)

@@ -2,7 +2,8 @@
 
 ``build_model(cfg)`` returns a :class:`ModelApi` with ``init(seed, device)``
 (-> the parameter module), ``loss_fn(model, batch)`` and
-``forward(model, batch)``.  This slice ports the dense family.
+``forward(model, batch, last_only=False)`` (-> logits).  The port holds
+the dense family.
 
 :func:`param_leaves` is the reference's ``jax.tree.leaves`` order — sorted
 keys at every level of the parameter tree, each leaf holding all ``L``
@@ -41,7 +42,8 @@ def build_model(cfg: ModelConfig) -> ModelApi:
         init=lambda seed=0, device=None: transformer.init_lm(
             cfg, seed, resolve_device(device)),
         loss_fn=lambda m, b, dist=None: transformer.loss_fn(m, b, cfg),
-        forward=lambda m, b, dist=None: transformer.forward(m, b["tokens"], cfg),
+        forward=lambda m, b, dist=None, last_only=False: transformer.forward(
+            m, b["tokens"], cfg, last_only=last_only),
     )
 
 

@@ -116,8 +116,11 @@ def _norm(block: ParamBlock, x, kind: str, l=None):
     return apply_norm(scale, x, kind, bias=bias)
 
 
-def forward(model: TransformerLM, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    """Full-sequence forward -> logits (B, S, vocab)."""
+def forward(model: TransformerLM, tokens: torch.Tensor, cfg,
+            last_only: bool = False) -> torch.Tensor:
+    """Full-sequence forward -> logits (B, S, vocab), or (B, 1, vocab) with
+    ``last_only``, which slices the residual to the final position before
+    the final norm and the unembed (prefill needs one position)."""
     cdt = dtype_of(cfg.compute_dtype)
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None, :].expand(B, S)
@@ -128,6 +131,8 @@ def forward(model: TransformerLM, tokens: torch.Tensor, cfg) -> torch.Tensor:
         x = x + attention(lay.attn.layer(l), h, cfg, positions=positions, causal=True)
         h2 = _norm(lay.ln2, x, cfg.norm, l)
         x = x + mlp(lay.mlp.layer(l), h2, cfg.activation)
+    if last_only:
+        x = x[:, -1:]
     x = _norm(model.final_norm, x, cfg.norm)
     if cfg.tie_embeddings:
         return unembed(model.embed.tok, x)
