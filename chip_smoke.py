@@ -9,26 +9,31 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. build the CUDA kernels of the port's paths from ``src/repro_torch``:
    one ``nvcc`` per source (``ring_wire.cu``, ``ring_hops.cu``,
-   ``flash_attention.cu``), started together;
-2. [check] hold each kernel bitwise against its plain PyTorch version:
-   the zero1 pack/unpack and the error-feedback pack at (dp, buckets) in
-   {(1,1), (1,2), (4,2), (8,4)} at the full qwen2-0.5b flat-gradient size
-   and at a small ragged row length, and the five ring-hop kernels at the
-   hop shapes of the full-width ZeRO-1 int8 leg at dp 2, 4 and 8 with one
-   and two buckets (the flat vector padded to dp * buckets * 128, as
-   ``train_loop.init_state`` pads it on the int8 ring); plus
-   rounding ties (int8 rint, bf16 nearest even), an all-zero block, the
-   +-127 clip and a misaligned buffer; and the flash-attention kernel
-   against ``ref.attention_ref`` at every ``FA_SWEEP`` shape (allclose at
-   atol = rtol = 2e-5 in f32, 2e-2 in bf16: the reference's tolerances),
-   at the full-width qwen2-0.5b shape (B=4, S=2048, 14/2 heads, D=64) in
-   bf16 and f32 and at a ragged S=2000 in bf16 (f32 at 2e-5; bf16 within
-   two bf16 roundings, 2^-6 of |want|, plus 1e-5), and non-causally at
-   S=256 and at a ragged S=192;
+   ``flash_attention.cu``, ``wkv6.cu``, ``ssd.cu``), started together;
+2. [check] hold each kernel against its plain PyTorch version: bitwise
+   for the wire kernels — the zero1 pack/unpack and the error-feedback
+   pack at (dp, buckets) in {(1,1), (1,2), (4,2), (8,4)} at the full
+   qwen2-0.5b flat-gradient size and at a small ragged row length, and the
+   five ring-hop kernels at the hop shapes of the full-width ZeRO-1 int8
+   leg at dp 2, 4 and 8 with one and two buckets (the flat vector padded to
+   dp * buckets * 128, as ``train_loop.init_state`` pads it on the int8
+   ring); plus rounding ties (int8 rint, bf16 nearest even), an all-zero
+   block, the +-127 clip and a misaligned buffer; the flash-attention
+   kernel against ``ref.attention_ref`` at every ``FA_SWEEP`` shape
+   (allclose at atol = rtol = 2e-5 in f32, 2e-2 in bf16: the reference's
+   tolerances), at the full-width qwen2-0.5b shape (B=4, S=2048, 14/2
+   heads, D=64) in bf16 and f32 and at a ragged S=2000 in bf16 (f32 at
+   2e-5; bf16 within two bf16 roundings, 2^-6 of |want|, plus 1e-5), and
+   non-causally at S=256 and at a ragged S=192; the ``wkv6`` and ``ssd``
+   scans against their plain chunked versions (3e-4) and the sequential
+   oracles (5e-4) at every ``WKV_SWEEP``/``SSD_SWEEP`` shape on the
+   sweep's and the models' input distributions, and at the full-width
+   shapes of rwkv6-7b and zamba2-2.7b (the oracle's error there a record);
 3. [time] time each kernel, its plain version and, where one exists, one
    PyTorch call computing the same function, with CUDA events, beside the
    least time the card allows: bytes over its memory bandwidth for the
-   ring-wire kernels, the causal FLOPs over the bf16 tensor-core rate for
+   ring-wire kernels and the scans (whose operations over the TF32 rate
+   are less), the causal FLOPs over the bf16 tensor-core rate for
    flash attention (library call: ``scaled_dot_product_attention``);
 4. check the training path end to end at a small size: the reduced
    qwen2-0.5b config in float32 trains 3 steps on the card and on the CPU
@@ -55,7 +60,19 @@ Phases (any failure exits non-zero and prints no result line):
    forwards' logits within 1e-3 of xla's; the ``last_only`` row equal to the
    last row of the full logits within one bf16 rounding (2^-7 relative, plus
    1e-5);
-9. print the kernels' record as one JSON line, the card's name and power
+9. [forward-ssm] rwkv6-7b at full width (bf16, random weights from seed 0
+   drawn on the CPU generator, the time ``init`` took reported), batch 4,
+   sequence 2048: 32 ``wkv6`` launches a forward and no other kernel,
+   finite logits, ``last_only`` against the last row; ms per forward;
+10. [forward-hybrid] zamba2-2.7b the same way under ``"flash"`` (54 ``ssd``
+   and 9 ``flash_attention`` launches) and ``"xla"`` (54 and 0) on the same
+   weights: ms per forward for both, the bf16 logits' max difference and
+   top-1 agreement, ``last_only``;
+11. [card-vs-cpu] both families at full width and reduced depth (rwkv6 2
+   layers, zamba2 6 so that the shared block fires once), float32, B=1,
+   S=256, the same CPU-drawn weights: the card runs the kernels, the CPU
+   their plain versions, and the logits agree within 1e-3;
+12. print the kernels' record as one JSON line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 Each main path zeroes the launch counts just before it and reads them just
@@ -128,22 +145,32 @@ def flat_param_count(cfg) -> int:
 
 
 def phase_build():
-    """One nvcc per source, all started together, then load."""
+    """One nvcc per source, all started together, then load; logs each
+    library's compile time and its kernels' registers, shared memory and
+    spills (``-Xptxas -v``)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
     from repro_torch.kernels.ring_wire import ops
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
 
     libs = (("ring_wire", ops.SOURCES), ("ring_hops", ops.HOP_SOURCES),
-            ("flash_attention", fa_ops.SOURCES))
+            ("flash_attention", fa_ops.SOURCES), ("wkv6", wkv_ops.SOURCES),
+            ("ssd", ssd_ops.SOURCES))
+
+    def build(lib):
+        t = time.perf_counter()
+        path = _build.build(*lib)
+        return path, time.perf_counter() - t
+
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
-        paths = list(pool.map(lambda lib: _build.build(*lib), libs))
-    ops._lib()
-    ops._hop_lib()
-    fa_ops._lib()
-    log(f"[build] {', '.join(str(p.relative_to(HERE)) for p in paths)} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for path in paths:
+        built = list(pool.map(build, libs))
+    for load in (ops._lib, ops._hop_lib, fa_ops._lib, wkv_ops._lib, ssd_ops._lib):
+        load()
+    log(f"[build] {len(libs)} libraries in parallel in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{p.relative_to(HERE)} ({dt:.1f} s)" for p, dt in built))
+    for path, _ in built:
         log_file = path.with_suffix(".log")
         if log_file.exists():
             for line in log_file.read_text().splitlines():
@@ -481,11 +508,14 @@ FA_CHECKS = (
     (4, 2048, 14, 2, 64, True, "bfloat16", BF16_ROUNDINGS),   # FULL_ATTN, the main path's
     (4, 2048, 14, 2, 64, True, "float32", (2e-5, 2e-5)),      # FULL_ATTN
     (4, 2000, 14, 2, 64, True, "bfloat16", BF16_ROUNDINGS),   # ragged S
+    (4, 2048, 32, 32, 80, True, "bfloat16", BF16_ROUNDINGS),  # HYBRID_ATTN, [forward-hybrid]'s
+    (4, 2048, 32, 32, 80, True, "float32", (2e-5, 2e-5)),     # HYBRID_ATTN
     (2, 256, 4, 2, 64, False, "float32", (2e-5, 2e-5)),       # non-causal
     (1, 192, 2, 1, 64, False, "float32", (2e-5, 2e-5)),       # non-causal, ragged S
 )
 FWD_BATCH, FWD_SEQ = 4, 2048                        # [forward]'s batch and sequence
 FULL_ATTN = (FWD_BATCH, FWD_SEQ, 14, 2, 64)         # qwen2-0.5b's heads at that batch
+HYBRID_ATTN = (FWD_BATCH, FWD_SEQ, 32, 32, 80)      # zamba2-2.7b's shared block
 
 
 def _qkv(B, S, H, Hkv, D, dtype, gen):
@@ -554,6 +584,14 @@ def phase_time_flash() -> dict:
             f"{flops:.3e} FLOP at {rate / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB)")
         out[dtype] = t
         del q, k, v, q4, k4, v4
+    B, S, H, Hkv, D = HYBRID_ATTN
+    q, k, v = _qkv(B, S, H, Hkv, D, "bfloat16", gen)
+    q4, k4, v4 = q.view(B, H, S, D), k.view(B, Hkv, S, D), v.view(B, Hkv, S, D)
+    ms = _time_ms(lambda: ops.flash_attention(q, k, v))
+    lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
+    log(f"[time] flash_attention B={B} S={S} H={H}/{Hkv} D={D} causal bfloat16 (a record, "
+        f"[forward-hybrid]'s shape): kernel {ms:.3f} ms, library (sdpa) {lib_ms:.3f} ms")
+    del q, k, v, q4, k4, v4
     return {"flash_attention": out["bfloat16"]}
 
 
@@ -587,20 +625,25 @@ def phase_small_reference():
 COMMON = ["--arch", ARCH, "--global-batch", "8", "--seq-len", "128", "--log-every", "1"]
 
 
-def _kernel_wrappers() -> tuple:
+def _kernel_wrappers() -> dict:
+    """Record name -> the wrapper whose ``launches`` counts that kernel."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
     from repro_torch.kernels.ring_wire import ops
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
 
-    return (*ops.KERNELS, fa_ops.flash_attention)
+    out = {k.__name__: k for k in (*ops.KERNELS, fa_ops.flash_attention)}
+    out.update(wkv6=wkv_ops.wkv6_apply, ssd=ssd_ops.ssd_apply)
+    return out
 
 
 def _zero_counts() -> None:
-    for k in _kernel_wrappers():
+    for k in _kernel_wrappers().values():
         k.launches = 0
 
 
 def _counts() -> dict:
-    return {k.__name__: k.launches for k in _kernel_wrappers()}
+    return {name: k.launches for name, k in _kernel_wrappers().items()}
 
 
 def _check_run(rep, steps: int, tag: str) -> None:
@@ -698,7 +741,8 @@ def phase_main_int8(uncompressed) -> dict:
 FWD_ITERS = 3
 F32_LOGIT_TOL = 1e-3
 #: last_only against the full forward's last row: one bf16 rounding (2^-7
-#: relative) on top of the f32 reassociation of a d=896 dot product
+#: relative) on top of the f32 reassociation of the unembed's dot product
+#: (d = 896 to 4096)
 LAST_ONLY_ATOL = 1e-5
 
 
@@ -789,6 +833,364 @@ def phase_forward(card: str) -> int:
     del model
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the scan kernels (wkv6, ssd) and the ssm and hybrid forwards
+# ---------------------------------------------------------------------------
+#: H100 SXM dense TF32 tensor-core peak (NVIDIA data sheet): the scans' inputs
+#: are float32, so their operations bound is taken at this rate
+TF32_FLOP_PER_S = 495e12
+SSM_ARCH, HYBRID_ARCH = "rwkv6-7b", "zamba2-2.7b"
+# B, T, H, N, chunk: the reference's WKV_SWEEP (tests/test_kernels.py), then
+# the main path's shape (rwkv6-7b at [forward-ssm]'s batch and sequence)
+WKV_SHAPES = ((2, 64, 3, 8, 16), (1, 128, 2, 16, 32), (2, 96, 1, 32, 32), (1, 64, 4, 64, 16))
+WKV_FULL = (FWD_BATCH, FWD_SEQ, 64, 64, 32)
+# B, T, H, P, N, chunk: the reference's SSD_SWEEP, then zamba2-2.7b's shape
+SSD_SHAPES = ((2, 64, 3, 4, 8, 16), (1, 128, 2, 16, 16, 32), (2, 128, 1, 32, 64, 64),
+              (1, 64, 4, 64, 16, 16))
+SSD_FULL = (FWD_BATCH, FWD_SEQ, 80, 64, 64, 64)
+#: the reference's tolerances (atol = rtol): against the chunked form, and
+#: against the sequential oracle
+CHUNKED_TOL, ORACLE_TOL = 3e-4, 5e-4
+
+
+def _excess(got, want, tol: float) -> float:
+    """> 0 where ``got`` leaves ``allclose(atol=rtol=tol)`` of ``want``."""
+    return float(((got - want).abs() - tol - tol * want.abs()).max())
+
+
+def _wkv_inputs(B, T, H, N, dist: str, gen):
+    """r, k, v N(0, 1) and u N(0, 0.1) on the card; wlog on the reference
+    sweep's distribution (-exp(N(0, 0.5))) or the models' at init
+    (-exp(-2 + N(0, 0.1)): w0 = -2 plus a small adapter term), clamped to
+    [-5, -1e-4] as the model clamps."""
+    import torch
+
+    r, k, v, z = (torch.randn((B, T, H, N), generator=gen, device="cuda") for _ in range(4))
+    wlog = -torch.exp(0.5 * z) if dist == "sweep" else -torch.exp(-2.0 + 0.1 * z)
+    u = 0.1 * torch.randn((H, N), generator=gen, device="cuda")
+    return r, k, v, wlog.clamp(-5.0, -1e-4), u
+
+
+def _ssd_inputs(B, T, H, P, N, dist: str, gen):
+    """x, B, C N(0, 1) on the card.  The sweep's distribution: dt =
+    softplus(N(0, 1)), A = -exp(linspace(0, 1, H)), D = 0.5; the models' at
+    init: dt = softplus(N(0, 0.5) + log(e - 1)), A = -linspace(1, 16, H),
+    D = 1."""
+    import torch
+    import torch.nn.functional as F
+
+    x = torch.randn((B, T, H, P), generator=gen, device="cuda")
+    z = torch.randn((B, T, H), generator=gen, device="cuda")
+    Bm, Cm = (torch.randn((B, T, N), generator=gen, device="cuda") for _ in range(2))
+    if dist == "sweep":
+        dt = F.softplus(z)
+        A = -torch.exp(torch.linspace(0.0, 1.0, H, device="cuda"))
+        D = torch.full((H,), 0.5, device="cuda")
+    else:
+        dt = F.softplus(0.5 * z + math.log(math.e - 1))
+        A = -torch.linspace(1.0, 16.0, H, device="cuda")
+        D = torch.ones(H, device="cuda")
+    return x, dt, A, Bm, Cm, D
+
+
+def _wkv_oracle(r, k, v, wlog, u):
+    """The sequential oracle in model layout (it takes (B*H, T, N))."""
+    from repro_torch.kernels.rwkv6_scan import ref
+
+    B, T, H, N = r.shape
+    flat = [a.permute(0, 2, 1, 3).reshape(B * H, T, N) for a in (r, k, v, wlog)]
+    out = ref.wkv6_ref(*flat, u.repeat(B, 1))
+    return out.reshape(B, H, T, N).permute(0, 2, 1, 3)
+
+
+def _ssd_oracle(x, dt, A, Bm, Cm, D):
+    """The sequential oracle in model layout, B and C broadcast to every
+    head as the reference's wrapper broadcasts them."""
+    from repro_torch.kernels.mamba2_ssd import ref
+
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    bc = [a[:, None].expand(B, H, T, N).reshape(B * H, T, N) for a in (Bm, Cm)]
+    out = ref.ssd_ref(x.permute(0, 2, 1, 3).reshape(B * H, T, P),
+                      dt.permute(0, 2, 1).reshape(B * H, T), *bc, A.repeat(B), D.repeat(B))
+    return out.reshape(B, H, T, P).permute(0, 2, 1, 3)
+
+
+def phase_check_scans() -> dict:
+    """Both scan kernels against their plain chunked versions (gate 3e-4)
+    and the sequential oracles (gate 5e-4) at every reference sweep shape,
+    on the sweep's and the models' input distributions, and at the main
+    path's full-width shapes, where the oracle's error is a record: T=2048
+    is 16x longer than any shape the reference holds to it.  Returns the
+    worst kernel-vs-plain difference at the full-width shapes."""
+    import torch
+    from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
+    from repro_torch.kernels.mamba2_ssd import ref as ssd_ref
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+    from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst = {"wkv6": 0.0, "ssd": 0.0}
+    cases = ([("wkv6", shape, dist) for shape in (*WKV_SHAPES, WKV_FULL)
+              for dist in ("sweep", "model")]
+             + [("ssd", shape, dist) for shape in (*SSD_SHAPES, SSD_FULL)
+                for dist in ("sweep", "model")])
+    for name, shape, dist in cases:
+        if name == "wkv6":
+            *dims, chunk = shape
+            args = _wkv_inputs(*dims, dist, gen)
+            got = wkv_ops.wkv6_apply(*args, chunk=chunk)
+            plain = wkv_ref.wkv6(*args, chunk=chunk)
+            oracle = _wkv_oracle(*args)
+            full = shape == WKV_FULL
+        else:
+            *dims, chunk = shape
+            args = _ssd_inputs(*dims, dist, gen)
+            got = ssd_ops.ssd_apply(*args, chunk=chunk)
+            plain = ssd_ref.ssd(*args, chunk=chunk)
+            oracle = _ssd_oracle(*args)
+            full = shape == SSD_FULL
+        torch_sync()
+        finite = bool(torch.isfinite(got).all())
+        err, err_o = _max_err(got, plain), _max_err(got, oracle)
+        over, over_o = _excess(got, plain, CHUNKED_TOL), _excess(got, oracle, ORACLE_TOL)
+        log(f"[check] {name} {shape} {dist}: max abs err vs plain {err:.3e} (gate "
+            f"{CHUNKED_TOL}), vs oracle {err_o:.3e} ({'record' if full else 'gate'} "
+            f"{ORACLE_TOL}{', inside' if over_o <= 0 else ', OUTSIDE'}); |y| max "
+            f"{float(oracle.abs().max()):.3e}")
+        if not finite or got.shape != plain.shape or over > 0 or (over_o > 0 and not full):
+            raise AssertionError(f"{name} disagrees at {shape} {dist}: finite {finite}, "
+                                 f"vs plain {err}, vs oracle {err_o}")
+        if full:
+            worst[name] = max(worst[name], err)
+        del args, got, plain, oracle
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _scan_work(name: str, args, chunk: int) -> tuple:
+    """(bytes, FLOP) of one launch on these inputs: each input read once and
+    the output written once (float32); the four products of every chunk at
+    full size, as the reference's kernel computes them."""
+    x = args[0]
+    nbytes = 4 * (sum(a.numel() for a in args) + x.numel())
+    if name == "wkv6":
+        B, T, H, N = x.shape
+        flops = (T // chunk) * B * H * (2 * chunk * chunk * N * 2 + 2 * chunk * N * N * 2)
+    else:
+        B, T, H, P = x.shape
+        N = args[3].shape[-1]
+        flops = (T // chunk) * B * H * 2 * chunk * (chunk * N + chunk * P + 2 * N * P)
+    return nbytes, flops
+
+
+def phase_time_scans(card: str) -> dict:
+    """Kernel and plain version at the main paths' shapes (the models'
+    input distribution); no single PyTorch call computes either scan, so
+    there is no library time."""
+    import torch
+    from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
+    from repro_torch.kernels.mamba2_ssd import ref as ssd_ref
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+    from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for name, shape, make, kernel, plain in (
+            ("wkv6", WKV_FULL, _wkv_inputs, wkv_ops.wkv6_apply, wkv_ref.wkv6),
+            ("ssd", SSD_FULL, _ssd_inputs, ssd_ops.ssd_apply, ssd_ref.ssd)):
+        *dims, chunk = shape
+        args = make(*dims, "model", gen)
+        nbytes, flops = _scan_work(name, args, chunk)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / TF32_FLOP_PER_S
+        t = dict(ms=_time_ms(lambda: kernel(*args, chunk=chunk)),
+                 plain_ms=_time_ms(lambda: plain(*args, chunk=chunk)), library_ms=None,
+                 bound_ms=max(t_bytes, t_ops) * 1e3,
+                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log(f"[time] {name} {shape} f32 on {card}: kernel {t['ms']:.3f} ms, plain "
+            f"{t['plain_ms']:.3f} ms, library none, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}: {nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+            f"{flops:.3e} FLOP at {TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s TF32 = {t_ops * 1e3:.4f}"
+            f" ms, at the {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s CUDA-core f32 rate "
+            f"{flops / F32_FLOP_PER_S * 1e3:.3f} ms)")
+        out[name] = t
+        del args
+    torch.cuda.empty_cache()
+    return out
+
+
+def _forward_check(api, model, batch, cfg, tag: str, want: dict):
+    """One full-width forward with the counts zeroed just before it and read
+    just after; fails unless the launches are ``want`` (every other kernel
+    0) and the logits are finite.  Returns the logits and the counts."""
+    import torch
+
+    _zero_counts()
+    logits = api.forward(model, batch)
+    torch_sync()
+    counts = _counts()
+    expected = {name: want.get(name, 0) for name in counts}
+    log(f"[{tag}] launches in one forward: "
+        + ", ".join(f"{k} {v}" for k, v in counts.items() if v or k in want))
+    if counts != expected:
+        raise AssertionError(f"[{tag}] launched {counts}, expected {expected}")
+    shape = (FWD_BATCH, FWD_SEQ, cfg.vocab_size)
+    if tuple(logits.shape) != shape or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"[{tag}] logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    return logits, counts
+
+
+def _last_only_check(api, model, batch, full, tag: str) -> None:
+    import torch
+
+    last = api.forward(model, batch, last_only=True)
+    tail = full[:, -1:]
+    gap = float(((last.float() - tail.float()).abs() - LAST_ONLY_ATOL
+                 - 2.0 ** -7 * torch.maximum(last.float().abs(), tail.float().abs())).max())
+    log(f"[{tag}] last_only {tuple(last.shape)}: "
+        f"{'bitwise equal to' if torch.equal(last, tail) else 'within one bf16 rounding of'}"
+        f" the full forward's last row (max abs diff {_max_err(last, tail):.3e})")
+    if gap > 0:
+        raise AssertionError(f"[{tag}] last_only row differs from the full forward's last "
+                             f"row by {_max_err(last, tail)}")
+
+
+def _init_timed(api, tag: str):
+    import torch
+
+    t0 = time.perf_counter()
+    model = api.init(0, device="cuda")
+    torch_sync()
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"[{tag}] init: {n} parameters ({nbytes / 1e9:.2f} GB) drawn from the CPU "
+        f"generator (seed 0) in {time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def _tokens(cfg):
+    import torch
+
+    gen = torch.Generator().manual_seed(1)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (FWD_BATCH, FWD_SEQ),
+                                    generator=gen).cuda()}
+
+
+def phase_forward_ssm(card: str) -> int:
+    """rwkv6-7b at full width (bf16, random weights from seed 0), B=4,
+    S=2048, through ``build_model(cfg).forward``: one ``wkv6`` launch per
+    layer and nothing else.  Returns the ``wkv6`` launches counted in one
+    forward."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import build_model
+
+    cfg = configs.get_config(SSM_ARCH)
+    api = build_model(cfg)
+    model = _init_timed(api, "forward-ssm")
+    batch = _tokens(cfg)
+    with torch.no_grad():
+        logits, counts = _forward_check(api, model, batch, cfg, "forward-ssm",
+                                        {"wkv6": cfg.num_layers})
+        _last_only_check(api, model, batch, logits, "forward-ssm")
+        del logits
+        ms = [_time_ms(lambda: api.forward(model, batch), FWD_ITERS) for _ in range(2)]
+    log(f"[forward-ssm] {SSM_ARCH} full width ({cfg.num_layers} layers), B={FWD_BATCH} "
+        f"S={FWD_SEQ} bf16 on {card}: {ms[0]:.2f}, {ms[1]:.2f} ms per forward (median of "
+        f"{FWD_ITERS} after 3 warm-ups, twice)")
+    del model
+    torch.cuda.empty_cache()
+    return counts["wkv6"]
+
+
+def phase_forward_hybrid(card: str) -> dict:
+    """zamba2-2.7b at full width (bf16, seed 0), B=4, S=2048, under
+    ``attention_impl="flash"`` (one ``ssd`` launch per layer, one flash
+    launch per firing of the shared block) and then ``"xla"`` on the same
+    weights (the ``ssd`` launches alone).  Returns the flash run's counts."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import build_model
+
+    cfg = configs.get_config(HYBRID_ARCH)
+    apis = {impl: build_model(dataclasses.replace(cfg, attention_impl=impl))
+            for impl in ("flash", "xla")}
+    model = _init_timed(apis["flash"], "forward-hybrid")
+    batch = _tokens(cfg)
+    firings = cfg.num_layers // cfg.hybrid.shared_attn_every
+    with torch.no_grad():
+        flash, counts = _forward_check(apis["flash"], model, batch, cfg, "forward-hybrid",
+                                       {"ssd": cfg.num_layers, "flash_attention": firings})
+        xla, _ = _forward_check(apis["xla"], model, batch, cfg, "forward-hybrid",
+                                {"ssd": cfg.num_layers})
+        top1 = float((flash.argmax(-1) == xla.argmax(-1)).float().mean())
+        log(f"[forward-hybrid] bf16 logits flash vs xla: max abs diff "
+            f"{_max_err(flash, xla):.4e} (logits' max abs {float(xla.float().abs().max()):.3f}), "
+            f"top-1 agreement {top1:.4f}")
+        del xla
+        _last_only_check(apis["flash"], model, batch, flash, "forward-hybrid")
+        del flash
+        turns = ("flash", "xla", "xla", "flash")
+        ms = {}
+        for impl in turns:
+            ms.setdefault(impl, []).append(
+                _time_ms(lambda: apis[impl].forward(model, batch), FWD_ITERS))
+    log(f"[forward-hybrid] {HYBRID_ARCH} full width ({cfg.num_layers} layers, {firings} "
+        f"shared-block firings), B={FWD_BATCH} S={FWD_SEQ} bf16 on {card}, ms per forward "
+        f"(median of {FWD_ITERS}, in turns {', '.join(turns)}): "
+        + "; ".join(f"{impl} {t[0]:.2f}, {t[1]:.2f}" for impl, t in ms.items()))
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+#: [card-vs-cpu]: both families at full width and reduced depth (the hybrid's
+#: shared block fires once), float32, B=1, S=256
+CPU_DEPTH = {SSM_ARCH: 2, HYBRID_ARCH: 6}
+CPU_SEQ = 256
+
+
+def phase_card_vs_cpu() -> None:
+    """The same CPU-drawn weights forward on the CPU (the kernels' plain
+    versions) and on the card (the kernels): f32 logits within 1e-3."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import build_model
+
+    for arch, depth in CPU_DEPTH.items():
+        cfg = dataclasses.replace(configs.get_config(arch), num_layers=depth,
+                                  param_dtype="float32", compute_dtype="float32",
+                                  attention_impl="flash")
+        api = build_model(cfg)
+        model = api.init(0, device="cpu")
+        gen = torch.Generator().manual_seed(2)
+        tokens = torch.randint(0, cfg.vocab_size, (1, CPU_SEQ), generator=gen)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            cpu = api.forward(model, {"tokens": tokens})
+            cpu_s = time.perf_counter() - t0
+            model = model.to("cuda")
+            before = _counts()
+            card = api.forward(model, {"tokens": tokens.cuda()}).cpu()
+        launched = {k: v - before[k] for k, v in _counts().items() if v != before[k]}
+        want = ({"wkv6": depth} if arch == SSM_ARCH else
+                {"flash_attention": depth // cfg.hybrid.shared_attn_every, "ssd": depth})
+        diff = _max_err(card, cpu)
+        log(f"[card-vs-cpu] {arch} full width, {depth} layers, f32, B=1 S={CPU_SEQ}: card "
+            f"(kernels {launched}) vs CPU (plain versions, {cpu_s:.1f} s) logits max abs diff "
+            f"{diff:.3e} (bound {F32_LOGIT_TOL}; logits' max abs {float(cpu.abs().max()):.3f})")
+        if diff > F32_LOGIT_TOL or launched != want or not bool(torch.isfinite(card).all()):
+            raise AssertionError(f"[card-vs-cpu] {arch}: card and CPU logits differ by {diff}, "
+                                 f"kernels launched {launched}")
+        del model, cpu, card
+        torch.cuda.empty_cache()
 
 
 RING4 = 4
@@ -888,6 +1290,10 @@ KERNELS = {
     "hop_accum_bf16": (CU + "ring_hops.cu", TPU + "128"),
     "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:75"),
+    "ssd": ("src/repro_torch/kernels/mamba2_ssd/csrc/ssd.cu",
+            "src/repro/kernels/mamba2_ssd/kernel.py:62"),
+    "wkv6": ("src/repro_torch/kernels/rwkv6_scan/csrc/wkv6.cu",
+             "src/repro/kernels/rwkv6_scan/kernel.py:60"),
 }
 
 
@@ -931,12 +1337,14 @@ def main() -> int:
         worst = phase_check(n_full)
         worst.update(phase_check_ring(n_full))
         worst.update(phase_check_flash())
+        worst.update(phase_check_scans())
         if args.only == "check":
             log("[only] check: the kernels built and agree; no result line")
             return 0
         timing = phase_time(n_full)
         timing.update(phase_time_ring(n_full))
         timing.update(phase_time_flash())
+        timing.update(phase_time_scans(card))
         torch.cuda.empty_cache()
         phase_small_reference()
         launches, uncompressed = phase_main_path()
@@ -944,6 +1352,9 @@ def main() -> int:
         int8 = phase_main_int8(uncompressed)
         launches.update({k: int8[k] for k in HOPS})
         launches["flash_attention"] = phase_forward(card)
+        launches["wkv6"] = phase_forward_ssm(card)
+        launches["ssd"] = phase_forward_hybrid(card)["ssd"]
+        phase_card_vs_cpu()
         record = {"kernels": [
             {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches[name], "max_abs_err": worst[name],

@@ -1,7 +1,8 @@
 """Config registry: ``get_config("<arch>")`` + reduced smoke variants.
 
-This slice ports one architecture, the dense ``qwen2-0.5b``; the other nine
-of the reference arrive with their model families.  ``smoke_config`` makes
+The port holds three architectures of the reference's ten: the dense
+``qwen2-0.5b``, the ssm ``rwkv6-7b`` and the hybrid ``zamba2-2.7b``; the
+others arrive with their model families.  ``smoke_config`` makes
 the same reduction the reference makes, so both packages build identical
 small models.
 """
@@ -22,9 +23,10 @@ from .base import (  # noqa: F401
     shapes_for,
 )
 
-from . import qwen2_0_5b
+from . import qwen2_0_5b, rwkv6_7b, zamba2_2_7b
 
-_REGISTRY: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in (qwen2_0_5b,)}
+_REGISTRY: dict[str, ModelConfig] = {
+    m.CONFIG.name: m.CONFIG for m in (qwen2_0_5b, rwkv6_7b, zamba2_2_7b)}
 
 ARCH_NAMES = tuple(_REGISTRY)
 
@@ -38,7 +40,8 @@ def get_config(name: str) -> ModelConfig:
 
 def smoke_config(name: str) -> ModelConfig:
     """A reduced same-family config for CPU tests: two layers, width 64,
-    vocabulary 512, float32 — the reference's reduction."""
+    vocabulary 512, float32 — the reference's reduction (ssm: head_dim 16,
+    state 8, chunk 8; hybrid: four layers, the shared block every two)."""
     cfg = get_config(name)
     changes: dict = dict(
         num_layers=2,
@@ -54,4 +57,10 @@ def smoke_config(name: str) -> ModelConfig:
     if cfg.num_heads:
         changes.update(num_heads=4, num_kv_heads=2 if cfg.num_kv_heads < cfg.num_heads else 4,
                        head_dim=16)
+    if cfg.ssm is not None:
+        changes["ssm"] = dataclasses.replace(
+            cfg.ssm, head_dim=16, state_size=8, chunk_size=8)
+    if cfg.hybrid is not None:
+        changes["num_layers"] = 4
+        changes["hybrid"] = dataclasses.replace(cfg.hybrid, shared_attn_every=2)
     return dataclasses.replace(cfg, **changes)

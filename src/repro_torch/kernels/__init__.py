@@ -63,10 +63,29 @@ def resolve(name: str, device):
     return variant, fn
 
 
+class _ForwardOnly(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, why, fn, kwargs, *tensors):
+        ctx.why = why
+        return fn(*tensors, **kwargs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(ctx.why)
+
+
+def forward_only(why: str, fn, *tensors, **kwargs):
+    """``fn(*tensors, **kwargs)`` under autograd with a backward that raises
+    ``why``.  The kernels are forward only: without this, the output of a
+    CUDA launch would carry no ``grad_fn`` and a gradient through it would
+    be silently zero."""
+    return _ForwardOnly.apply(why, fn, kwargs, *tensors)
+
+
 # -- built-in kernels (lazy: nothing imports until first resolve) -----------
-# The wrappers in ring_wire/ops.py and flash_attention/ops.py resolve through
-# here by their tensor's device: the CUDA launch for a CUDA tensor, the plain
-# version for a CPU one.
+# The wrappers in ring_wire/ops.py, flash_attention/ops.py, rwkv6_scan/ops.py
+# and mamba2_ssd/ops.py resolve through here by their tensor's device: the
+# CUDA launch for a CUDA tensor, the plain version for a CPU one.
 RING_WIRE_KERNELS = ("pack_transposed", "unpack_transposed", "pack_transposed_ef",
                      "quant_i8", "hop_add_quant_i8", "hop_accum_i8",
                      "hop_add_quant_bf16", "hop_accum_bf16")
@@ -78,3 +97,7 @@ del _name
 register("flash_attention", "cuda",
          "repro_torch.kernels.flash_attention.ops:launch_flash_attention")
 register("flash_attention", "torch", "repro_torch.kernels.flash_attention.ref:attention_ref")
+register("rwkv6_scan", "cuda", "repro_torch.kernels.rwkv6_scan.ops:launch_wkv6")
+register("rwkv6_scan", "torch", "repro_torch.kernels.rwkv6_scan.ref:wkv6")
+register("mamba2_ssd", "cuda", "repro_torch.kernels.mamba2_ssd.ops:launch_ssd")
+register("mamba2_ssd", "torch", "repro_torch.kernels.mamba2_ssd.ref:ssd")

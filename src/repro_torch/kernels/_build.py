@@ -5,7 +5,8 @@ Each library is compiled at first use for ``sm_90a`` into ``build/kernels/``
 at the repository root, named by a digest of its sources, so an edited
 source never loads a stale library.  The compile goes to a temporary file
 that is renamed into place, so concurrent ranks never load a half-written
-library.  Nothing here runs at import.
+library.  Nothing here runs at import.  :func:`launch` is the one place a
+kernel wrapper calls into a library.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
@@ -71,3 +74,20 @@ def load(name: str, sources) -> ctypes.CDLL:
     if lib is None:
         lib = _LOADED[name] = ctypes.CDLL(str(build(name, sources)))
     return lib
+
+
+def launch(load, fn_name: str, tensors, *args) -> None:
+    """Call ``fn_name`` of the library ``load()`` returns with the tensors'
+    device pointers, then ``args``, then the current stream of their card.
+    Raises unless every tensor is on one CUDA device (before anything is
+    built), and when the library reports a failed launch."""
+    dev = tensors[0].device
+    if any(t.device.type != "cuda" or t.device != dev for t in tensors):
+        raise ValueError(f"{fn_name} takes CUDA tensors on one device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    lib = load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, fn_name)(*(t.data_ptr() for t in tensors), *args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc}")

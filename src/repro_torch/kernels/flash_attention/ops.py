@@ -56,39 +56,18 @@ def _lib() -> ctypes.CDLL:
 def launch_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            causal: bool = True) -> torch.Tensor:
     """The ``cuda`` variant of :func:`flash_attention`: one kernel launch."""
-    tensors = (q, k, v)
-    if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
-        raise ValueError("pax_flash_attention takes CUDA tensors on one device, got "
-                         f"{[str(t.device) for t in tensors]}")
-    q, k, v = (t.contiguous() for t in tensors)
+    q, k, v = (t.contiguous() for t in (q, k, v))
     BH, S, D = q.shape
     out = torch.empty_like(q)
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.pax_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                     BH, k.shape[0], S, D, int(causal),
-                                     int(q.dtype == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(f"pax_flash_attention launch failed: CUDA error {rc}")
+    _build.launch(_lib, "pax_flash_attention", (q, k, v, out), BH, k.shape[0], S, D,
+                  int(causal), int(q.dtype == torch.bfloat16))
     flash_attention.launches += 1
     return out
 
 
-class _Forward(torch.autograd.Function):
-    """One variant's forward; the backward refuses, as the reference has no
-    gradient for this kernel."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, fn, causal):
-        return fn(q, k, v, causal=causal)
-
-    @staticmethod
-    def backward(ctx, grad):
-        raise RuntimeError(
-            "flash_attention has no backward: the reference defines no gradient for "
-            "this kernel (jax.grad of its flash_mha fails); train with "
-            "attention_impl='xla' or 'blockwise'")
+_NO_BACKWARD = ("flash_attention has no backward: the reference defines no gradient for "
+                "this kernel (jax.grad of its flash_mha fails); train with "
+                "attention_impl='xla' or 'blockwise'")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -111,7 +90,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention takes q, k, v on one device, got {q.device}, "
                          f"{k.device}, {v.device}")
     _, fn = kernels.resolve("flash_attention", q.device)
-    return _Forward.apply(q, k, v, fn, causal)
+    return kernels.forward_only(_NO_BACKWARD, fn, q, k, v, causal=causal)
 
 
 flash_attention.launches = 0  # counted by the ``cuda`` variant only

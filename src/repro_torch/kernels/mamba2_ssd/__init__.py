@@ -1,0 +1,7 @@
+"""Mamba2 SSD: the chunked state-space scan from a zero state, forward
+only.
+
+``ops`` holds the wrapper (CUDA kernel for CUDA tensors, plain version for
+CPU tensors), ``ref`` the plain PyTorch versions and the sequential
+oracle, ``csrc`` the CUDA source (``ssd.cu``).
+"""

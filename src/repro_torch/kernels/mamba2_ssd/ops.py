@@ -1,0 +1,91 @@
+"""Wrapper of the Mamba2 SSD kernel — what the Mamba2 block calls on the
+full sequence (``models/mamba.py:mamba_block`` with no state).
+
+:func:`ssd_apply` takes the model layout, as the reference's ``ssd_apply``
+does: x (Bb, T, H, P), dt (Bb, T, H), A and D (H,), B and C (Bb, T, N)
+shared by the heads (Mamba2 with one group), and returns y (Bb, T, H, P) in
+float32.  It casts to float32, checks what the kernel takes, then runs the
+variant the kernel registry (:mod:`repro_torch.kernels`) holds for the
+tensors' device: on a CUDA tensor :func:`launch_ssd`, which launches
+``csrc/ssd.cu`` on the current stream (raising if the launch is refused)
+and adds one to ``ssd_apply.launches``; on a CPU tensor :func:`.ref.ssd`.
+Any other device raises, and nothing falls back from a CUDA tensor to the
+plain version.
+
+Unlike the reference's wrapper, nothing is transposed and B, C are not
+broadcast to every head: the kernel reads the model layout in place and
+head ``bh`` reads batch row ``bh // H`` of B and C (at full zamba2 width the
+broadcast copies would be 2 x 168 MB a layer).
+
+Forward only.  The reference trains through its lax ``ssd_chunked``, not
+through this kernel; both variants here run inside an autograd function
+whose backward raises until the training slice gives the kernel a backward.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from ... import kernels
+from .. import _build
+
+SOURCES = (Path(__file__).with_name("csrc") / "ssd.cu",)
+
+#: head widths P, state widths N and chunk lengths the kernel takes: its
+#: shared memory holds the (P, N) state and the chunk's tiles
+MAX_HEAD_DIM = 64
+MAX_STATE = 64
+MAX_CHUNK = 64
+
+_P, _N = ctypes.c_void_p, ctypes.c_longlong
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("ssd", SOURCES)
+    lib.pax_ssd.argtypes = [_P] * 7 + [_N] * 6 + [_P]
+    lib.pax_ssd.restype = ctypes.c_int
+    return lib
+
+
+def launch_ssd(x, dt, A, B, C, D, *, chunk: int) -> torch.Tensor:
+    """The ``cuda`` variant of :func:`ssd_apply`: one kernel launch on
+    contiguous float32 tensors."""
+    y = torch.empty_like(x)
+    _build.launch(_lib, "pax_ssd", (x, dt, A, B, C, D, y), *x.shape, B.shape[-1], chunk)
+    ssd_apply.launches += 1
+    return y
+
+
+_NO_BACKWARD = ("ssd has no backward yet: the port runs the Mamba2 hybrid family forward "
+                "only; training it, with a backward that recomputes through the plain "
+                "ssd_chunked, is a later slice (ROADMAP queue 1 item 10)")
+
+
+def ssd_apply(x, dt, A, B, C, D, *, chunk: int = 64) -> torch.Tensor:
+    """x: (Bb, T, H, P); dt: (Bb, T, H); A, D: (H,); B, C: (Bb, T, N) ->
+    y (Bb, T, H, P) float32, the SSD scan from a zero state.  P, N and chunk
+    in [1, 64], T a positive multiple of chunk."""
+    tensors = (x, dt, A, B, C, D)
+    shapes_ok = (x.ndim == 4 and dt.shape == x.shape[:3] and A.shape == D.shape == x.shape[2:3]
+                 and B.ndim == 3 and B.shape == C.shape and B.shape[:2] == x.shape[:2]
+                 and x.shape[0] * x.shape[2] > 0)
+    if not shapes_ok or not all(t.is_floating_point() for t in tensors):
+        raise ValueError("ssd_apply takes floating x (Bb, T, H, P), dt (Bb, T, H), A and D (H,), "
+                         f"B and C (Bb, T, N); got {[tuple(t.shape) for t in tensors]}, "
+                         f"{[t.dtype for t in tensors]}")
+    T, Pd, N = x.shape[1], x.shape[3], B.shape[2]
+    if not (1 <= Pd <= MAX_HEAD_DIM and 1 <= N <= MAX_STATE and 1 <= chunk <= MAX_CHUNK
+            and T > 0 and T % chunk == 0):
+        raise ValueError(f"ssd_apply takes P, N and chunk in [1, {MAX_CHUNK}] and T a positive "
+                         f"multiple of chunk; got P={Pd}, N={N}, chunk={chunk}, T={T}")
+    if any(t.device != x.device for t in tensors):
+        raise ValueError(f"ssd_apply takes tensors on one device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    _, fn = kernels.resolve("mamba2_ssd", x.device)
+    return kernels.forward_only(_NO_BACKWARD, fn, *(t.float().contiguous() for t in tensors),
+                                chunk=chunk)
+
+
+ssd_apply.launches = 0  # counted by the ``cuda`` variant only

@@ -73,21 +73,6 @@ def _hop_lib() -> ctypes.CDLL:
     return lib
 
 
-def _call(load, fn_name: str, tensors, *sizes) -> None:
-    """Launch ``fn_name`` of the library ``load()`` returns on the current
-    stream of the tensors' card; raise on a refused launch."""
-    dev = tensors[0].device
-    if any(t.device.type != "cuda" or t.device != dev for t in tensors):
-        raise ValueError(f"{fn_name} takes CUDA tensors on one device, got "
-                         f"{[str(t.device) for t in tensors]}")
-    lib = load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, fn_name)(*(t.data_ptr() for t in tensors), *sizes, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc}")
-
-
 def _check_rows(dp: int, buckets: int) -> None:
     if dp * buckets > _MAX_ROWS:
         raise ValueError(f"dp*buckets={dp * buckets} exceeds {_MAX_ROWS} grid rows")
@@ -100,7 +85,7 @@ def launch_pack_transposed(x2d: torch.Tensor, dp: int, buckets: int,
     seg = x2d.shape[1]
     _check_rows(dp, buckets)
     out = torch.empty((buckets, dp, seg), dtype=wire_dtype, device=x2d.device)
-    _call(_lib, "pax_pack_transposed", (x2d, out), dp, buckets, seg,
+    _build.launch(_lib, "pax_pack_transposed", (x2d, out), dp, buckets, seg,
           int(wire_dtype == torch.bfloat16))
     pack_transposed.launches += 1
     return out
@@ -112,7 +97,7 @@ def launch_unpack_transposed(x3d: torch.Tensor) -> torch.Tensor:
     buckets, dp, seg = x3d.shape
     _check_rows(dp, buckets)
     out = torch.empty((dp * buckets, seg), dtype=torch.float32, device=x3d.device)
-    _call(_lib, "pax_unpack_transposed", (x3d, out), dp, buckets, seg,
+    _build.launch(_lib, "pax_unpack_transposed", (x3d, out), dp, buckets, seg,
           int(x3d.dtype == torch.bfloat16))
     unpack_transposed.launches += 1
     return out
@@ -126,7 +111,7 @@ def launch_pack_transposed_ef(x2d: torch.Tensor, e2d: torch.Tensor, dp: int,
     _check_rows(dp, buckets)
     out = torch.empty((buckets, dp, seg), dtype=torch.bfloat16, device=x2d.device)
     new_ef = torch.empty_like(x2d)
-    _call(_lib, "pax_pack_transposed_ef", (x2d, e2d, out, new_ef), dp, buckets, seg)
+    _build.launch(_lib, "pax_pack_transposed_ef", (x2d, e2d, out, new_ef), dp, buckets, seg)
     pack_transposed_ef.launches += 1
     return out, new_ef
 
@@ -136,7 +121,7 @@ def launch_quant_i8(x2d: torch.Tensor) -> tuple:
     x2d = x2d.contiguous()
     q = torch.empty(x2d.shape, dtype=torch.int8, device=x2d.device)
     s = torch.empty((x2d.shape[0], 1), dtype=torch.float32, device=x2d.device)
-    _call(_hop_lib, "pax_quant_i8", (x2d, q, s), x2d.shape[0])
+    _build.launch(_hop_lib, "pax_quant_i8", (x2d, q, s), x2d.shape[0])
     quant_i8.launches += 1
     return q, s
 
@@ -147,7 +132,7 @@ def launch_hop_add_quant_i8(q2d: torch.Tensor, s: torch.Tensor,
     q2d, s, a2d = q2d.contiguous(), s.contiguous(), a2d.contiguous()
     q2 = torch.empty_like(q2d)
     s2 = torch.empty_like(s)
-    _call(_hop_lib, "pax_hop_add_quant_i8", (q2d, s, a2d, q2, s2), q2d.shape[0])
+    _build.launch(_hop_lib, "pax_hop_add_quant_i8", (q2d, s, a2d, q2, s2), q2d.shape[0])
     hop_add_quant_i8.launches += 1
     return q2, s2
 
@@ -157,7 +142,7 @@ def launch_hop_accum_i8(q2d: torch.Tensor, s: torch.Tensor,
     """The ``cuda`` variant of :func:`hop_accum_i8`: one kernel launch."""
     q2d, s, a2d = q2d.contiguous(), s.contiguous(), a2d.contiguous()
     out = torch.empty_like(a2d)
-    _call(_hop_lib, "pax_hop_accum_i8", (q2d, s, a2d, out), q2d.shape[0])
+    _build.launch(_hop_lib, "pax_hop_accum_i8", (q2d, s, a2d, out), q2d.shape[0])
     hop_accum_i8.launches += 1
     return out
 
@@ -166,7 +151,7 @@ def launch_hop_add_quant_bf16(w2d: torch.Tensor, a2d: torch.Tensor) -> torch.Ten
     """The ``cuda`` variant of :func:`hop_add_quant_bf16`: one kernel launch."""
     w2d, a2d = w2d.contiguous(), a2d.contiguous()
     out = torch.empty_like(w2d)
-    _call(_hop_lib, "pax_hop_add_quant_bf16", (w2d, a2d, out), w2d.shape[0])
+    _build.launch(_hop_lib, "pax_hop_add_quant_bf16", (w2d, a2d, out), w2d.shape[0])
     hop_add_quant_bf16.launches += 1
     return out
 
@@ -175,7 +160,7 @@ def launch_hop_accum_bf16(w2d: torch.Tensor, a2d: torch.Tensor) -> torch.Tensor:
     """The ``cuda`` variant of :func:`hop_accum_bf16`: one kernel launch."""
     w2d, a2d = w2d.contiguous(), a2d.contiguous()
     out = torch.empty_like(a2d)
-    _call(_hop_lib, "pax_hop_accum_bf16", (w2d, a2d, out), w2d.shape[0])
+    _build.launch(_hop_lib, "pax_hop_accum_bf16", (w2d, a2d, out), w2d.shape[0])
     hop_accum_bf16.launches += 1
     return out
 

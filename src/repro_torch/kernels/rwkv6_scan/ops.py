@@ -1,0 +1,86 @@
+"""Wrapper of the WKV6 scan kernel — what the rwkv6 family's time-mix
+calls on the full sequence (``models/rwkv.py:time_mix`` with no state).
+
+:func:`wkv6_apply` takes the model layout, r, k, v and wlog (B, T, H, N)
+and u (H, N), as the reference's ``wkv6_apply`` does, and returns
+y (B, T, H, N) in float32.  It casts to float32, checks what the kernel
+takes, then runs the variant the kernel registry (:mod:`repro_torch.kernels`)
+holds for the tensors' device: on a CUDA tensor :func:`launch_wkv6`, which
+launches ``csrc/wkv6.cu`` on the current stream (raising if the launch is
+refused) and adds one to ``wkv6_apply.launches``; on a CPU tensor
+:func:`.ref.wkv6`.  Any other device raises, and nothing falls back from a
+CUDA tensor to the plain version.
+
+Unlike the reference's wrapper, nothing is transposed to (B*H, T, N): the
+kernel reads the model layout in place, one (b, h) per thread block, so the
+wrapper copies only what is not already contiguous float32.
+
+Forward only.  The reference trains through its lax ``wkv6_chunked``, not
+through this kernel; both variants here run inside an autograd function
+whose backward raises until the training slice gives the kernel a backward.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from ... import kernels
+from .. import _build
+
+SOURCES = (Path(__file__).with_name("csrc") / "wkv6.cu",)
+
+#: head widths N and chunk lengths the kernel takes: its shared memory holds
+#: the (N, N) state and seven tiles of a chunk
+MAX_HEAD_DIM = 64
+MAX_CHUNK = 64
+
+_P, _N = ctypes.c_void_p, ctypes.c_longlong
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("wkv6", SOURCES)
+    lib.pax_wkv6.argtypes = [_P] * 6 + [_N] * 5 + [_P]
+    lib.pax_wkv6.restype = ctypes.c_int
+    return lib
+
+
+def launch_wkv6(r, k, v, wlog, u, *, chunk: int) -> torch.Tensor:
+    """The ``cuda`` variant of :func:`wkv6_apply`: one kernel launch on
+    contiguous float32 tensors."""
+    y = torch.empty_like(r)
+    _build.launch(_lib, "pax_wkv6", (r, k, v, wlog, u, y), *r.shape, chunk)
+    wkv6_apply.launches += 1
+    return y
+
+
+_NO_BACKWARD = ("wkv6 has no backward yet: the port runs the rwkv6 family forward only; "
+                "training it, with a backward that recomputes through the plain "
+                "wkv6_chunked, is a later slice (ROADMAP queue 1 item 10)")
+
+
+def wkv6_apply(r, k, v, wlog, u, *, chunk: int = 32) -> torch.Tensor:
+    """r, k, v, wlog: (B, T, H, N); u: (H, N) -> y (B, T, H, N) float32,
+    the WKV6 scan from a zero state.  N and chunk in [1, 64], T a positive
+    multiple of chunk."""
+    tensors = (r, k, v, wlog, u)
+    shapes_ok = (r.ndim == 4 and k.shape == v.shape == wlog.shape == r.shape
+                 and u.shape == r.shape[2:] and r.shape[0] * r.shape[2] > 0)
+    if not shapes_ok or not all(t.is_floating_point() for t in tensors):
+        raise ValueError("wkv6_apply takes floating r, k, v, wlog (B, T, H, N) and u (H, N); "
+                         f"got {[tuple(t.shape) for t in tensors]}, "
+                         f"{[t.dtype for t in tensors]}")
+    T, N = r.shape[1], r.shape[3]
+    if not (1 <= N <= MAX_HEAD_DIM and 1 <= chunk <= MAX_CHUNK and T > 0 and T % chunk == 0):
+        raise ValueError(f"wkv6_apply takes N and chunk in [1, {MAX_CHUNK}] and T a positive "
+                         f"multiple of chunk; got N={N}, chunk={chunk}, T={T}")
+    if any(t.device != r.device for t in tensors):
+        raise ValueError(f"wkv6_apply takes tensors on one device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    _, fn = kernels.resolve("rwkv6_scan", r.device)
+    return kernels.forward_only(_NO_BACKWARD, fn, *(t.float().contiguous() for t in tensors),
+                                chunk=chunk)
+
+
+wkv6_apply.launches = 0  # counted by the ``cuda`` variant only

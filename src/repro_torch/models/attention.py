@@ -27,6 +27,17 @@ from .common import apply_rope
 ATTENTION_IMPLS = ("xla", "blockwise", "flash")
 
 
+def attention_shapes(cfg, dtype, lead: tuple = ()) -> dict:
+    """Parameter shapes of one attention block, stacked on ``lead``."""
+    hd, nq, nkv, d = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads, cfg.d_model
+    out = {"wq": ((*lead, d, nq * hd), dtype), "wk": ((*lead, d, nkv * hd), dtype),
+           "wv": ((*lead, d, nkv * hd), dtype), "wo": ((*lead, nq * hd, d), dtype)}
+    if cfg.qkv_bias:
+        out.update(bq=((*lead, nq * hd), dtype), bk=((*lead, nkv * hd), dtype),
+                   bv=((*lead, nkv * hd), dtype))
+    return out
+
+
 def _project_qkv(p: dict, x: torch.Tensor, cfg):
     hd = cfg.resolved_head_dim
     q = x @ p["wq"].to(x.dtype)

@@ -13,6 +13,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -25,14 +26,58 @@ def dtype_of(name: str) -> torch.dtype:
 # numbers come from a CPU generator, so one seed gives the same weights on
 # every device.
 # ---------------------------------------------------------------------------
+def normal_init_(w: torch.Tensor, gen: torch.Generator, std: float) -> None:
+    """Fill ``w`` with N(0, 1) * std, one slice of its leading (layer) axis
+    at a time when it is stacked, so the host holds one layer's draw."""
+    for part in (w if w.ndim > 2 else (w,)):
+        part.copy_(torch.randn(part.shape, generator=gen).mul_(std))
+
+
 def dense_init_(w: torch.Tensor, gen: torch.Generator, scale: float = 1.0) -> None:
     """Fill ``w`` (…, in, out) with N(0, 1) * scale / sqrt(in)."""
-    std = scale / math.sqrt(w.shape[-2])
-    w.copy_(torch.randn(w.shape, generator=gen) * std)
+    normal_init_(w, gen, scale / math.sqrt(w.shape[-2]))
 
 
 def embed_init_(w: torch.Tensor, gen: torch.Generator) -> None:
-    w.copy_(torch.randn(w.shape, generator=gen) * 0.02)
+    normal_init_(w, gen, 0.02)
+
+
+# ---------------------------------------------------------------------------
+# parameter blocks: the reference's parameter tree as modules
+# ---------------------------------------------------------------------------
+class ParamBlock(nn.Module):
+    """A named set of parameters (one node of the reference's tree); child
+    blocks are the nested nodes."""
+
+    def __init__(self, shapes: dict, device) -> None:
+        super().__init__()
+        for name, (shape, dtype) in shapes.items():
+            self.register_parameter(name, nn.Parameter(
+                torch.empty(shape, dtype=dtype, device=device)))
+
+    def layer(self, l: int | None = None) -> dict:
+        """This node as the reference's nested dict: layer ``l``'s slice of
+        every stacked parameter, or with no ``l`` the parameters themselves."""
+        out = {name: p if l is None else p[l]
+               for name, p in self.named_parameters(recurse=False)}
+        for name, child in self.named_children():
+            out[name] = child.layer(l)
+        return out
+
+
+def norm_shapes(shape: tuple, kind: str) -> dict:
+    # norm scales stay float32 whatever the model's parameter dtype
+    out = {"scale": (shape, torch.float32)}
+    if kind != "rmsnorm":
+        out["bias"] = (shape, torch.float32)
+    return out
+
+
+def embed_shapes(cfg, dtype) -> dict:
+    out = {"tok": ((cfg.vocab_size, cfg.d_model), dtype)}
+    if not cfg.tie_embeddings:
+        out["unembed"] = ((cfg.d_model, cfg.vocab_size), dtype)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -50,6 +95,11 @@ def apply_norm(scale: torch.Tensor, x: torch.Tensor, kind: str = "rmsnorm",
         y = (xf - mu) * torch.rsqrt(var + eps)
         y = y * scale.float() + bias.float()
     return y.to(x.dtype)
+
+
+def norm(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """:func:`apply_norm` with a norm node of the tree (``scale``, ``bias``)."""
+    return apply_norm(p["scale"], x, kind, bias=p.get("bias"))
 
 
 # ---------------------------------------------------------------------------
@@ -106,9 +156,10 @@ def embed_tokens(tok: torch.Tensor, tokens: torch.Tensor, compute_dtype) -> torc
     return F.embedding(tokens, tok.to(compute_dtype))
 
 
-def unembed(tok: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Tied unembedding: ``x @ tok.T``."""
-    return x @ tok.t().to(x.dtype)
+def unembed(embed: dict, x: torch.Tensor, tie: bool) -> torch.Tensor:
+    """``x @ tok.T`` when tied, else ``x @ unembed``."""
+    w = embed["tok"].t() if tie else embed["unembed"]
+    return x @ w.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,14 @@ import torch
 from .common import GLU_ACTIVATIONS, activation_fn, is_glu
 
 
+def mlp_shapes(d: int, f: int, activation: str, dtype, lead: tuple = ()) -> dict:
+    """Parameter shapes of one FFN, stacked on ``lead``."""
+    out = {"wi": ((*lead, d, f), dtype), "wo": ((*lead, f, d), dtype)}
+    if is_glu(activation):
+        out["wg"] = ((*lead, d, f), dtype)
+    return out
+
+
 def mlp(p: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
     """``p``: one layer's weights (``wi``, ``wo`` and, for GLU, ``wg``)."""
     if is_glu(activation):

@@ -3,7 +3,9 @@
 ``build_model(cfg)`` returns a :class:`ModelApi` with ``init(seed, device)``
 (-> the parameter module), ``loss_fn(model, batch)`` and
 ``forward(model, batch, last_only=False)`` (-> logits).  The port holds
-the dense family.
+three families of the reference: ``dense`` (``transformer``), ``ssm``
+(rwkv6, ``rwkv``) and ``hybrid`` (Mamba2 + shared attention, ``hybrid``);
+the ssm and hybrid families run forward only for now.
 
 :func:`param_leaves` is the reference's ``jax.tree.leaves`` order — sorted
 keys at every level of the parameter tree, each leaf holding all ``L``
@@ -21,8 +23,21 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..runtime.device import resolve_device
-from . import transformer
+from . import hybrid, rwkv, transformer
 from .common import is_glu
+
+#: family -> (its module, its parameter module)
+_FAMILIES = {"dense": (transformer, transformer.TransformerLM),
+             "ssm": (rwkv, rwkv.RwkvLM),
+             "hybrid": (hybrid, hybrid.HybridLM)}
+
+
+def _family(cfg: ModelConfig):
+    try:
+        return _FAMILIES[cfg.family]
+    except KeyError:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet (the port "
+                                  f"holds {', '.join(_FAMILIES)})") from None
 
 
 @dataclasses.dataclass
@@ -34,15 +49,12 @@ class ModelApi:
 
 
 def build_model(cfg: ModelConfig) -> ModelApi:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (this slice: dense)")
+    fam, _ = _family(cfg)
     return ModelApi(
         cfg,
-        init=lambda seed=0, device=None: transformer.init_lm(
-            cfg, seed, resolve_device(device)),
-        loss_fn=lambda m, b, dist=None: transformer.loss_fn(m, b, cfg),
-        forward=lambda m, b, dist=None, last_only=False: transformer.forward(
+        init=lambda seed=0, device=None: fam.init_lm(cfg, seed, resolve_device(device)),
+        loss_fn=lambda m, b, dist=None: fam.loss_fn(m, b, cfg),
+        forward=lambda m, b, dist=None, last_only=False: fam.forward(
             m, b["tokens"], cfg, last_only=last_only),
     )
 
@@ -64,7 +76,7 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig, device=None) -> nn.Module:
     """The reference's parameter pytree (nested dicts of numpy arrays, e.g.
     ``jax.tree.map(np.asarray, api.init(key))``) as the port's parameters.
     Layouts agree, so this is a name map; shapes and dtypes are checked."""
-    model = transformer.TransformerLM(cfg, resolve_device(device))
+    model = _family(cfg)[1](cfg, resolve_device(device))
     for name, p in model.named_parameters():
         node = np_tree
         for part in name.split("."):
@@ -85,11 +97,21 @@ def _mlp_params(d: int, f: int, activation: str) -> int:
 
 
 def analytic_param_count(cfg: ModelConfig) -> int:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    _family(cfg)  # raises for a family the port does not hold
     d, f, V, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.num_layers
     hd = cfg.resolved_head_dim
     n = V * d * (1 if cfg.tie_embeddings else 2)
     attn = d * hd * cfg.num_heads * 2 + d * hd * cfg.num_kv_heads * 2
+    if cfg.family == "ssm":  # rwkv6
+        per_layer = 5 * d * d + d * 32 * 5 * 2  # time-mix mats + lora
+        per_layer += d * f * 2 + d * d  # channel mix
+        return n + L * per_layer
+    if cfg.family == "hybrid":
+        s = cfg.ssm
+        d_inner = s.expand * d
+        H = d_inner // s.head_dim
+        per_layer = d * (2 * d_inner + 2 * s.state_size + H) + d_inner * d  # in/out proj
+        shared = (2 * d) * d + attn + _mlp_params(d, f, cfg.activation) + d * d
+        return n + L * per_layer + shared
     return n + L * (attn + _mlp_params(d, f, cfg.activation))
 

@@ -17,40 +17,20 @@ import math
 import torch
 from torch import nn
 
-from .attention import attention
+from .attention import attention, attention_shapes
 from .common import (
-    apply_norm,
+    ParamBlock,
     dense_init_,
     dtype_of,
     embed_init_,
+    embed_shapes,
     embed_tokens,
+    norm,
+    norm_shapes,
     softmax_cross_entropy,
     unembed,
 )
-from .common import is_glu
-from .mlp import mlp
-
-
-class ParamBlock(nn.Module):
-    """A named set of parameters (one node of the reference's tree)."""
-
-    def __init__(self, shapes: dict, device) -> None:
-        super().__init__()
-        for name, (shape, dtype) in shapes.items():
-            self.register_parameter(name, nn.Parameter(
-                torch.empty(shape, dtype=dtype, device=device)))
-
-    def layer(self, l: int) -> dict:
-        """Layer ``l``'s slice of every stacked parameter."""
-        return {name: p[l] for name, p in self.named_parameters(recurse=False)}
-
-
-def _norm_shapes(shape: tuple, kind: str) -> dict:
-    # norm scales stay float32 whatever the model's parameter dtype
-    out = {"scale": (shape, torch.float32)}
-    if kind != "rmsnorm":
-        out["bias"] = (shape, torch.float32)
-    return out
+from .mlp import mlp, mlp_shapes
 
 
 class TransformerLM(nn.Module):
@@ -60,27 +40,16 @@ class TransformerLM(nn.Module):
         super().__init__()
         if cfg.family != "dense":
             raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-        L, d, f, V = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
-        hd, nq, nkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+        L, d = cfg.num_layers, cfg.d_model
         pdt = dtype_of(cfg.param_dtype)
-        embed = {"tok": ((V, d), pdt)}
-        if not cfg.tie_embeddings:
-            embed["unembed"] = ((d, V), pdt)
-        self.embed = ParamBlock(embed, device)
-        self.final_norm = ParamBlock(_norm_shapes((d,), cfg.norm), device)
-        attn = {"wq": ((L, d, nq * hd), pdt), "wk": ((L, d, nkv * hd), pdt),
-                "wv": ((L, d, nkv * hd), pdt), "wo": ((L, nq * hd, d), pdt)}
-        if cfg.qkv_bias:
-            attn.update(bq=((L, nq * hd), pdt), bk=((L, nkv * hd), pdt),
-                        bv=((L, nkv * hd), pdt))
-        ffn = {"wi": ((L, d, f), pdt), "wo": ((L, f, d), pdt)}
-        if is_glu(cfg.activation):
-            ffn["wg"] = ((L, d, f), pdt)
+        self.embed = ParamBlock(embed_shapes(cfg, pdt), device)
+        self.final_norm = ParamBlock(norm_shapes((d,), cfg.norm), device)
         self.layers = nn.Module()
-        self.layers.attn = ParamBlock(attn, device)
-        self.layers.ln1 = ParamBlock(_norm_shapes((L, d), cfg.norm), device)
-        self.layers.ln2 = ParamBlock(_norm_shapes((L, d), cfg.norm), device)
-        self.layers.mlp = ParamBlock(ffn, device)
+        self.layers.attn = ParamBlock(attention_shapes(cfg, pdt, (L,)), device)
+        self.layers.ln1 = ParamBlock(norm_shapes((L, d), cfg.norm), device)
+        self.layers.ln2 = ParamBlock(norm_shapes((L, d), cfg.norm), device)
+        self.layers.mlp = ParamBlock(mlp_shapes(d, cfg.d_ff, cfg.activation, pdt, (L,)),
+                                     device)
 
 
 @torch.no_grad()
@@ -108,14 +77,6 @@ def init_lm(cfg, seed: int, device) -> TransformerLM:
     return model
 
 
-def _norm(block: ParamBlock, x, kind: str, l=None):
-    scale = block.scale if l is None else block.scale[l]
-    bias = None
-    if kind != "rmsnorm":
-        bias = block.bias if l is None else block.bias[l]
-    return apply_norm(scale, x, kind, bias=bias)
-
-
 def forward(model: TransformerLM, tokens: torch.Tensor, cfg,
             last_only: bool = False) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, vocab), or (B, 1, vocab) with
@@ -127,16 +88,14 @@ def forward(model: TransformerLM, tokens: torch.Tensor, cfg,
     x = embed_tokens(model.embed.tok, tokens, cdt)
     lay = model.layers
     for l in range(cfg.num_layers):
-        h = _norm(lay.ln1, x, cfg.norm, l)
+        h = norm(lay.ln1.layer(l), x, cfg.norm)
         x = x + attention(lay.attn.layer(l), h, cfg, positions=positions, causal=True)
-        h2 = _norm(lay.ln2, x, cfg.norm, l)
+        h2 = norm(lay.ln2.layer(l), x, cfg.norm)
         x = x + mlp(lay.mlp.layer(l), h2, cfg.activation)
     if last_only:
         x = x[:, -1:]
-    x = _norm(model.final_norm, x, cfg.norm)
-    if cfg.tie_embeddings:
-        return unembed(model.embed.tok, x)
-    return x @ model.embed.unembed.to(x.dtype)
+    x = norm(model.final_norm.layer(), x, cfg.norm)
+    return unembed(model.embed.layer(), x, cfg.tie_embeddings)
 
 
 def loss_fn(model: TransformerLM, batch: dict, cfg) -> torch.Tensor:

@@ -1,0 +1,197 @@
+"""The port's Mamba2 SSD scan against the reference, on the CPU.
+
+Same inputs (numpy, seeded) through both packages.  The reference's
+``ssd_apply`` runs its Pallas kernel in interpret mode, as its own tests
+run it; the port's runs its plain version (``ref.ssd``, the chunked form
+from a zero state), which is what a CPU tensor resolves to.  The CUDA
+kernel is held to that plain version by the ``cuda``-marked tests at the
+end (skipped without a card) and by ``chip_smoke.py`` on the card.
+
+Tolerances (atol = rtol): the reference's (``tests/test_kernels.py``),
+5e-4 against the sequential oracle ``ssd_ref`` and against the Pallas
+kernel, 3e-4 against the chunked form; the port's twins of the
+reference's own functions (its oracle, ``ssd_chunked`` with a state,
+``ssd_step``) at 2e-5: the same float32 arithmetic summed in another
+order.
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels.mamba2_ssd.ops import ssd_apply as r_ssd_apply
+from repro.kernels.mamba2_ssd.ref import ssd_ref as r_ssd_ref
+from repro.models.mamba import ssd_chunked as r_ssd_chunked
+from repro.models.mamba import ssd_step as r_ssd_step
+
+from repro_torch import kernels as T_kernels
+from repro_torch.kernels.mamba2_ssd import ops as T_ops
+from repro_torch.kernels.mamba2_ssd import ref as T_ref
+from repro_torch.models import mamba as t_mamba
+
+# the reference's sweep (tests/test_kernels.py:SSD_SWEEP)
+SSD_SWEEP = [
+    # B, T, H, P, N, chunk
+    (2, 64, 3, 4, 8, 16),
+    (1, 128, 2, 16, 16, 32),
+    (2, 128, 1, 32, 64, 64),
+    (1, 64, 4, 64, 16, 16),
+]
+
+
+def _softplus(x):
+    return np.logaddexp(x, 0.0)
+
+
+def _inputs(B, T, H, P, N, dist="sweep", seed=0):
+    """x, B, C N(0, 1).  The sweep's distribution: dt = softplus(N(0, 1)),
+    A = -exp(linspace(0, 1, H)), D = 0.5.  The models' at init:
+    dt = softplus(N(0, 0.5) + log(e - 1)) (softplus of dt_bias is 1),
+    A = -linspace(1, 16, H), D = 1."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, H, P)).astype(np.float32)
+    z = rng.standard_normal((B, T, H))
+    Bm, Cm = (rng.standard_normal((B, T, N)).astype(np.float32) for _ in range(2))
+    if dist == "sweep":
+        dt, A, D = _softplus(z), -np.exp(np.linspace(0.0, 1.0, H)), np.full(H, 0.5)
+    else:
+        dt, A, D = _softplus(0.5 * z + math.log(math.e - 1)), -np.linspace(1.0, 16.0, H), np.ones(H)
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return x, f32(dt), f32(A), Bm, Cm, f32(D)
+
+
+def _oracle(x, dt, A, Bm, Cm, D, fn):
+    """A sequential oracle (the reference's or the port's) in model layout,
+    B and C broadcast to every head as the reference's wrapper does."""
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    flat = (x.transpose(0, 2, 1, 3).reshape(B * H, T, P), dt.transpose(0, 2, 1).reshape(B * H, T),
+            np.broadcast_to(Bm[:, None], (B, H, T, N)).reshape(B * H, T, N),
+            np.broadcast_to(Cm[:, None], (B, H, T, N)).reshape(B * H, T, N),
+            np.tile(A, B), np.tile(D, B))
+    if fn is r_ssd_ref:
+        out = np.asarray(r_ssd_ref(*map(jnp.asarray, flat)))
+    else:
+        out = T_ref.ssd_ref(*(torch.from_numpy(np.array(a)) for a in flat)).numpy()
+    return out.reshape(B, H, T, P).transpose(0, 2, 1, 3)
+
+
+def _t(*arrays):
+    return tuple(torch.from_numpy(a) for a in arrays)
+
+
+@pytest.mark.parametrize("B,T,H,P,N,chunk", SSD_SWEEP)
+def test_ssd_apply_matches_reference_sweep(B, T, H, P, N, chunk):
+    """The port's wrapper (plain version on the CPU) against the reference's
+    Pallas kernel and its oracle; the port's oracle against the reference's."""
+    args = _inputs(B, T, H, P, N)
+    before = T_ops.ssd_apply.launches
+    got = T_ops.ssd_apply(*_t(*args), chunk=chunk)
+    assert T_ops.ssd_apply.launches == before  # CPU tensors: the plain version
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, T, H, P)
+    pallas = np.asarray(r_ssd_apply(*map(jnp.asarray, args), chunk=chunk, interpret=True))
+    oracle = _oracle(*args, r_ssd_ref)
+    np.testing.assert_allclose(got.numpy(), pallas, atol=5e-4, rtol=5e-4)
+    np.testing.assert_allclose(got.numpy(), oracle, atol=5e-4, rtol=5e-4)
+    np.testing.assert_allclose(_oracle(*args, T_ref.ssd_ref), oracle, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("B,T,H,P,N,chunk", SSD_SWEEP)
+def test_ssd_plain_matches_oracle_on_the_models_decays(B, T, H, P, N, chunk):
+    args = _inputs(B, T, H, P, N, dist="model", seed=1)
+    got = T_ref.ssd(*_t(*args), chunk=chunk).numpy()
+    np.testing.assert_allclose(got, _oracle(*args, r_ssd_ref), atol=5e-4, rtol=5e-4)
+
+
+def test_ssd_matches_model_chunked():
+    """Kernel function == the reference model's chunked form from a zero
+    state (the reference's shape and tolerance)."""
+    B, T, H, P, N, chunk = 2, 64, 2, 8, 16, 16
+    args = _inputs(B, T, H, P, N, seed=2)
+    want, _ = r_ssd_chunked(*map(jnp.asarray, args), jnp.zeros((B, H, P, N)), chunk)
+    np.testing.assert_allclose(T_ops.ssd_apply(*_t(*args), chunk=chunk).numpy(),
+                               np.asarray(want), atol=3e-4, rtol=3e-4)
+
+
+def test_chunked_and_step_twins_carry_a_state_as_the_reference():
+    """``ssd_chunked`` from a nonzero state (y and the final state) and
+    ``ssd_step`` equal the reference's; stepping T times equals the chunked
+    form."""
+    B, T, H, P, N, chunk = 2, 32, 2, 4, 8, 8
+    x, dt, A, Bm, Cm, D = _inputs(B, T, H, P, N, seed=3)
+    s0 = np.random.default_rng(4).standard_normal((B, H, P, N)).astype(np.float32)
+    y_r, s_r = r_ssd_chunked(*map(jnp.asarray, (x, dt, A, Bm, Cm, D, s0)), chunk)
+    y_t, s_t = t_mamba.ssd_chunked(*_t(x, dt, A, Bm, Cm, D, s0), chunk)
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_r), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_r), atol=2e-5, rtol=2e-5)
+    state, ys = torch.from_numpy(s0), []
+    for t in range(T):
+        y1, state = t_mamba.ssd_step(*_t(x[:, t], dt[:, t], A, Bm[:, t], Cm[:, t], D), state)
+        ys.append(y1)
+    want1, _ = r_ssd_step(*map(jnp.asarray, (x[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0], D, s0)))
+    np.testing.assert_allclose(ys[0].numpy(), np.asarray(want1), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(torch.stack(ys, 1).numpy(), y_t.numpy(), atol=3e-4, rtol=3e-4)
+    np.testing.assert_allclose(state.numpy(), s_t.numpy(), atol=3e-4, rtol=3e-4)
+
+
+def test_registry_resolves_ssd_by_device():
+    assert T_kernels.resolve("mamba2_ssd", "cpu") == ("torch", T_ref.ssd)
+    assert T_kernels.resolve("mamba2_ssd", "cuda") == ("cuda", T_ops.launch_ssd)
+    with pytest.raises(ValueError):
+        T_kernels.resolve("mamba2_ssd", "meta")
+    # the CUDA launch refuses a CPU tensor rather than passing it a host pointer
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        T_ops.launch_ssd(*_t(*_inputs(1, 16, 2, 4, 8)), chunk=16)
+
+
+@pytest.mark.parametrize("T,H,P,N,chunk,bc_rows,dtype,what", [
+    (48, 2, 4, 8, 32, 1, torch.float32, "multiple of chunk"),     # T % chunk
+    (64, 2, 80, 8, 16, 1, torch.float32, r"\[1, 64\]"),           # P past smem
+    (64, 2, 4, 72, 16, 1, torch.float32, r"\[1, 64\]"),           # N past smem
+    (128, 2, 4, 8, 128, 1, torch.float32, r"\[1, 64\]"),          # chunk past smem
+    (64, 2, 4, 8, 16, 2, torch.float32, r"B and C \(Bb, T, N\)"),  # B/C of another batch
+    (64, 2, 4, 8, 16, 1, torch.int32, "floating"),
+])
+def test_ssd_refuses_what_the_kernel_does_not_take(T, H, P, N, chunk, bc_rows, dtype, what):
+    x = torch.zeros((1, T, H, P), dtype=dtype)
+    dt, a = torch.zeros((1, T, H), dtype=dtype), torch.zeros(H, dtype=dtype)
+    bc = torch.zeros((bc_rows, T, N), dtype=dtype)
+    with pytest.raises(ValueError, match=what):
+        T_ops.ssd_apply(x, dt, a, bc, bc, a, chunk=chunk)
+
+
+def test_backward_through_ssd_raises():
+    x, dt, A, Bm, Cm, D = _t(*_inputs(1, 32, 2, 4, 8))
+    out = T_ops.ssd_apply(x.requires_grad_(), dt, A, Bm, Cm, D, chunk=16)
+    with pytest.raises(RuntimeError, match="no backward yet"):
+        out.sum().backward()
+
+
+# ---------------------------------------------------------------------------
+# on the card: the CUDA kernel against its plain version (skip here)
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: python3 chip_smoke.py "
+                    "or pytest -m cuda tests/test_torch_ssd.py)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist", ["sweep", "model"])
+@pytest.mark.parametrize("B,T,H,P,N,chunk", SSD_SWEEP + [(1, 256, 4, 64, 64, 64)])
+def test_cuda_ssd_kernel_vs_plain(cuda_device, B, T, H, P, N, chunk, dist):
+    args = _inputs(B, T, H, P, N, dist)
+    dev = tuple(a.to(cuda_device) for a in _t(*args))
+    before = T_ops.ssd_apply.launches
+    got = T_ops.ssd_apply(*dev, chunk=chunk)
+    assert T_ops.ssd_apply.launches == before + 1
+    want = T_ref.ssd(*dev, chunk=chunk)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=3e-4, rtol=3e-4)
+    np.testing.assert_allclose(got.cpu().numpy(), _oracle(*args, T_ref.ssd_ref),
+                               atol=5e-4, rtol=5e-4)

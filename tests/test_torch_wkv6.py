@@ -1,0 +1,190 @@
+"""The port's WKV6 scan against the reference, on the CPU.
+
+Same inputs (numpy, seeded) through both packages.  The reference's
+``wkv6_apply`` runs its Pallas kernel in interpret mode, as its own tests
+run it; the port's runs its plain version (``ref.wkv6``, the chunked form
+from a zero state), which is what a CPU tensor resolves to.  The CUDA
+kernel is held to that plain version by the ``cuda``-marked tests at the
+end (skipped without a card) and by ``chip_smoke.py`` on the card.
+
+Tolerances (atol = rtol): the reference's (``tests/test_kernels.py``),
+5e-4 against the sequential oracle ``wkv6_ref`` and against the Pallas
+kernel, 3e-4 against the chunked form; the port's twins of the
+reference's own functions (its oracle, ``wkv6_chunked`` with a state,
+``wkv6_step``) at 2e-5: the same float32 arithmetic summed in another
+order.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels.rwkv6_scan.ops import wkv6_apply as r_wkv6_apply
+from repro.kernels.rwkv6_scan.ref import wkv6_ref as r_wkv6_ref
+from repro.models.rwkv import wkv6_chunked as r_wkv6_chunked
+from repro.models.rwkv import wkv6_step as r_wkv6_step
+
+from repro_torch import kernels as T_kernels
+from repro_torch.kernels.rwkv6_scan import ops as T_ops
+from repro_torch.kernels.rwkv6_scan import ref as T_ref
+from repro_torch.models import rwkv as t_rwkv
+
+# the reference's sweep (tests/test_kernels.py:WKV_SWEEP)
+WKV_SWEEP = [
+    # B, T, H, N, chunk
+    (2, 64, 3, 8, 16),
+    (1, 128, 2, 16, 32),
+    (2, 96, 1, 32, 32),
+    (1, 64, 4, 64, 16),
+]
+
+
+def _inputs(B, T, H, N, dist="sweep", seed=0):
+    """r, k, v (B, T, H, N) N(0, 1); wlog on the sweep's distribution
+    (-exp(N(0, 0.5)) clamped to [-5, -1e-4]) or on the models' at init
+    (w0 = -2 plus a small adapter term: -exp(-2 + N(0, 0.1))); u N(0, 0.1)."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, T, H, N)).astype(np.float32) for _ in range(3))
+    z = rng.standard_normal((B, T, H, N))
+    wlog = -np.exp(0.5 * z) if dist == "sweep" else -np.exp(-2.0 + 0.1 * z)
+    wlog = np.clip(wlog, -5.0, -1e-4).astype(np.float32)
+    u = (0.1 * rng.standard_normal((H, N))).astype(np.float32)
+    return r, k, v, wlog, u
+
+
+def _flat(x: np.ndarray) -> np.ndarray:
+    """(B, T, H, N) -> (B*H, T, N), the reference kernel's layout."""
+    B, T, H, N = x.shape
+    return x.transpose(0, 2, 1, 3).reshape(B * H, T, N)
+
+
+def _oracle(r, k, v, wlog, u, fn):
+    """A sequential oracle (the reference's or the port's) in model layout."""
+    B, T, H, N = r.shape
+    uf = np.tile(u[None], (B, 1, 1)).reshape(B * H, N)
+    if fn is r_wkv6_ref:
+        out = np.asarray(r_wkv6_ref(*(jnp.asarray(_flat(a)) for a in (r, k, v, wlog)),
+                                    jnp.asarray(uf)))
+    else:
+        out = T_ref.wkv6_ref(*(torch.from_numpy(_flat(a)) for a in (r, k, v, wlog)),
+                             torch.from_numpy(uf)).numpy()
+    return out.reshape(B, H, T, N).transpose(0, 2, 1, 3)
+
+
+def _t(*arrays):
+    return tuple(torch.from_numpy(a) for a in arrays)
+
+
+@pytest.mark.parametrize("B,T,H,N,chunk", WKV_SWEEP)
+def test_wkv6_apply_matches_reference_sweep(B, T, H, N, chunk):
+    """The port's wrapper (plain version on the CPU) against the reference's
+    Pallas kernel and its oracle; the port's oracle against the reference's."""
+    args = _inputs(B, T, H, N)
+    before = T_ops.wkv6_apply.launches
+    got = T_ops.wkv6_apply(*_t(*args), chunk=chunk)
+    assert T_ops.wkv6_apply.launches == before  # CPU tensors: the plain version
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, T, H, N)
+    pallas = np.asarray(r_wkv6_apply(*map(jnp.asarray, args), chunk=chunk, interpret=True))
+    oracle = _oracle(*args, r_wkv6_ref)
+    np.testing.assert_allclose(got.numpy(), pallas, atol=5e-4, rtol=5e-4)
+    np.testing.assert_allclose(got.numpy(), oracle, atol=5e-4, rtol=5e-4)
+    np.testing.assert_allclose(_oracle(*args, T_ref.wkv6_ref), oracle, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("B,T,H,N,chunk", WKV_SWEEP)
+def test_wkv6_plain_matches_oracle_on_the_models_decays(B, T, H, N, chunk):
+    args = _inputs(B, T, H, N, dist="model", seed=1)
+    got = T_ref.wkv6(*_t(*args), chunk=chunk).numpy()
+    np.testing.assert_allclose(got, _oracle(*args, r_wkv6_ref), atol=5e-4, rtol=5e-4)
+
+
+def test_wkv6_matches_model_chunked():
+    """Kernel function == the reference model's chunked form from a zero
+    state (the reference's shape and tolerance)."""
+    B, T, H, N, chunk = 2, 64, 2, 16, 16
+    args = _inputs(B, T, H, N, seed=2)
+    want, _ = r_wkv6_chunked(*map(jnp.asarray, args), jnp.zeros((B, H, N, N)), chunk)
+    np.testing.assert_allclose(T_ops.wkv6_apply(*_t(*args), chunk=chunk).numpy(),
+                               np.asarray(want), atol=3e-4, rtol=3e-4)
+
+
+def test_chunked_and_step_twins_carry_a_state_as_the_reference():
+    """``wkv6_chunked`` from a nonzero state (y and the final state) and
+    ``wkv6_step`` equal the reference's; stepping T times equals the
+    chunked form."""
+    B, T, H, N, chunk = 2, 32, 2, 8, 8
+    r, k, v, wlog, u = _inputs(B, T, H, N, seed=3)
+    s0 = np.random.default_rng(4).standard_normal((B, H, N, N)).astype(np.float32)
+    y_r, s_r = r_wkv6_chunked(*map(jnp.asarray, (r, k, v, wlog, u, s0)), chunk)
+    y_t, s_t = t_rwkv.wkv6_chunked(*_t(r, k, v, wlog, u, s0), chunk)
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_r), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_r), atol=2e-5, rtol=2e-5)
+    state, ys = torch.from_numpy(s0), []
+    for t in range(T):
+        y1, state = t_rwkv.wkv6_step(*(torch.from_numpy(a[:, t]) for a in (r, k, v, wlog)),
+                                     torch.from_numpy(u), state)
+        ys.append(y1)
+    want1, _ = r_wkv6_step(*(jnp.asarray(a[:, 0]) for a in (r, k, v, wlog)), jnp.asarray(u),
+                           jnp.asarray(s0))
+    np.testing.assert_allclose(ys[0].numpy(), np.asarray(want1), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(torch.stack(ys, 1).numpy(), y_t.numpy(), atol=3e-4, rtol=3e-4)
+    np.testing.assert_allclose(state.numpy(), s_t.numpy(), atol=3e-4, rtol=3e-4)
+
+
+def test_registry_resolves_wkv6_by_device():
+    assert T_kernels.resolve("rwkv6_scan", "cpu") == ("torch", T_ref.wkv6)
+    assert T_kernels.resolve("rwkv6_scan", "cuda") == ("cuda", T_ops.launch_wkv6)
+    with pytest.raises(ValueError):
+        T_kernels.resolve("rwkv6_scan", "meta")
+    # the CUDA launch refuses a CPU tensor rather than passing it a host pointer
+    r, k, v, wlog, u = _t(*_inputs(1, 16, 1, 8))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        T_ops.launch_wkv6(r, k, v, wlog, u, chunk=16)
+
+
+@pytest.mark.parametrize("shape,u_shape,chunk,dtype,what", [
+    ((1, 48, 2, 8), (2, 8), 32, torch.float32, "multiple of chunk"),    # T % chunk
+    ((1, 64, 1, 72), (1, 72), 16, torch.float32, r"\[1, 64\]"),          # N past smem
+    ((1, 128, 1, 8), (1, 8), 128, torch.float32, r"\[1, 64\]"),         # chunk past smem
+    ((1, 64, 2, 8), (1, 8), 16, torch.float32, r"u \(H, N\)"),           # u per head
+    ((1, 64, 2, 8), (2, 8), 16, torch.int32, "floating"),
+])
+def test_wkv6_refuses_what_the_kernel_does_not_take(shape, u_shape, chunk, dtype, what):
+    r = torch.zeros(shape, dtype=dtype)
+    with pytest.raises(ValueError, match=what):
+        T_ops.wkv6_apply(r, r, r, r, torch.zeros(u_shape, dtype=dtype), chunk=chunk)
+
+
+def test_backward_through_wkv6_raises():
+    r, k, v, wlog, u = _t(*_inputs(1, 32, 2, 8))
+    out = T_ops.wkv6_apply(r.requires_grad_(), k, v, wlog, u, chunk=16)
+    with pytest.raises(RuntimeError, match="no backward yet"):
+        out.sum().backward()
+
+
+# ---------------------------------------------------------------------------
+# on the card: the CUDA kernel against its plain version (skip here)
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: python3 chip_smoke.py "
+                    "or pytest -m cuda tests/test_torch_wkv6.py)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist", ["sweep", "model"])
+@pytest.mark.parametrize("B,T,H,N,chunk", WKV_SWEEP + [(1, 256, 4, 64, 32)])
+def test_cuda_wkv6_kernel_vs_plain(cuda_device, B, T, H, N, chunk, dist):
+    args = _inputs(B, T, H, N, dist)
+    dev = tuple(a.to(cuda_device) for a in _t(*args))
+    before = T_ops.wkv6_apply.launches
+    got = T_ops.wkv6_apply(*dev, chunk=chunk)
+    assert T_ops.wkv6_apply.launches == before + 1
+    want = T_ref.wkv6(*dev, chunk=chunk)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=3e-4, rtol=3e-4)
+    np.testing.assert_allclose(got.cpu().numpy(), _oracle(*args, T_ref.wkv6_ref),
+                               atol=5e-4, rtol=5e-4)
