@@ -9,7 +9,8 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. build the CUDA kernels of the port's paths from ``src/repro_torch``:
    one ``nvcc`` per source (``ring_wire.cu``, ``ring_hops.cu``,
-   ``flash_attention.cu``, ``wkv6.cu``, ``ssd.cu``), started together;
+   ``flash_attention.cu`` (f32), ``flash_attention_wgmma.cu`` (bf16),
+   ``wkv6.cu``, ``ssd.cu``), started together;
 2. [check] hold each kernel against its plain PyTorch version: bitwise
    for the wire kernels — the zero1 pack/unpack and the error-feedback
    pack at (dp, buckets) in {(1,1), (1,2), (4,2), (8,4)} at the full
@@ -24,7 +25,11 @@ Phases (any failure exits non-zero and prints no result line):
    tolerances), at the full-width qwen2-0.5b shape (B=4, S=2048, 14/2
    heads, D=64) in bf16 and f32 and at a ragged S=2000 in bf16 (f32 at
    2e-5; bf16 within two bf16 roundings, 2^-6 of |want|, plus 1e-5), and
-   non-causally at S=256 and at a ragged S=192; the ``wkv6`` and ``ssd``
+   non-causally at S=256 and at a ragged S=192, and the tensor-core
+   kernel's bf16 edges (D = 8, 32, 40, 72, 128, 256, S = 1 and 65, groups
+   1 and 7 non-causal at a ragged S, views at a misaligned base) within
+   two bf16 roundings, each row logging the entry point it launched (bf16:
+   the tensor-core kernel, f32: the CUDA-core kernel); the ``wkv6`` and ``ssd``
    scans against their plain chunked versions (3e-4) and the sequential
    oracles (5e-4) at every ``WKV_SWEEP``/``SSD_SWEEP`` shape on the
    sweep's and the models' input distributions, and at the full-width
@@ -33,8 +38,10 @@ Phases (any failure exits non-zero and prints no result line):
    PyTorch call computing the same function, with CUDA events, beside the
    least time the card allows: bytes over its memory bandwidth for the
    ring-wire kernels and the scans (whose operations over the TF32 rate
-   are less), the causal FLOPs over the bf16 tensor-core rate for
-   flash attention (library call: ``scaled_dot_product_attention``);
+   are less), the causal FLOPs over the peak for the inputs' type for
+   flash attention (library call: ``scaled_dot_product_attention``), at
+   the main path's shape in bf16 and f32 and at [forward-hybrid]'s D=80,
+   with the achieved TFLOP/s;
 4. check the training path end to end at a small size: the reduced
    qwen2-0.5b config in float32 trains 3 steps on the card and on the CPU
    (a subprocess, the plain kernel versions) and the losses agree;
@@ -155,7 +162,8 @@ def phase_build():
     from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
 
     libs = (("ring_wire", ops.SOURCES), ("ring_hops", ops.HOP_SOURCES),
-            ("flash_attention", fa_ops.SOURCES), ("wkv6", wkv_ops.SOURCES),
+            ("flash_attention", fa_ops.SOURCES),
+            ("flash_attention_wgmma", fa_ops.WGMMA_SOURCES), ("wkv6", wkv_ops.SOURCES),
             ("ssd", ssd_ops.SOURCES))
 
     def build(lib):
@@ -166,7 +174,8 @@ def phase_build():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         built = list(pool.map(build, libs))
-    for load in (ops._lib, ops._hop_lib, fa_ops._lib, wkv_ops._lib, ssd_ops._lib):
+    for load in (ops._lib, ops._hop_lib, fa_ops._lib, fa_ops._wgmma_lib, wkv_ops._lib,
+                 ssd_ops._lib):
         load()
     log(f"[build] {len(libs)} libraries in parallel in {time.perf_counter() - t0:.1f} s: "
         + ", ".join(f"{p.relative_to(HERE)} ({dt:.1f} s)" for p, dt in built))
@@ -512,6 +521,19 @@ FA_CHECKS = (
     (4, 2048, 32, 32, 80, True, "float32", (2e-5, 2e-5)),     # HYBRID_ATTN
     (2, 256, 4, 2, 64, False, "float32", (2e-5, 2e-5)),       # non-causal
     (1, 192, 2, 1, 64, False, "float32", (2e-5, 2e-5)),       # non-causal, ragged S
+    # the tensor-core kernel's edges (bf16): head dims of each template width
+    # and one per consumer-warpgroup count, D not a multiple of 16 (padded by
+    # TMA's zero fill), one key, one key past a tile, groups 1 and 7
+    (2, 256, 4, 2, 32, True, "bfloat16", BF16_ROUNDINGS),     # D=32
+    (1, 512, 4, 4, 128, True, "bfloat16", BF16_ROUNDINGS),    # D=128, two warpgroups
+    (1, 384, 4, 2, 256, True, "bfloat16", BF16_ROUNDINGS),    # D=256, one warpgroup
+    (2, 300, 4, 2, 40, True, "bfloat16", BF16_ROUNDINGS),     # D=40, padded to 48
+    (1, 200, 4, 1, 72, False, "bfloat16", BF16_ROUNDINGS),    # D=72, non-causal, ragged S
+    (1, 100, 3, 1, 8, False, "bfloat16", BF16_ROUNDINGS),     # D=8, the narrowest head
+    (2, 1, 4, 2, 64, True, "bfloat16", BF16_ROUNDINGS),       # S=1
+    (2, 65, 4, 2, 64, True, "bfloat16", BF16_ROUNDINGS),      # S=65
+    (1, 333, 7, 7, 64, False, "bfloat16", BF16_ROUNDINGS),    # group 1, non-causal, ragged S
+    (1, 333, 14, 2, 80, False, "bfloat16", BF16_ROUNDINGS),   # group 7, non-causal, ragged S
 )
 FWD_BATCH, FWD_SEQ = 4, 2048                        # [forward]'s batch and sequence
 FULL_ATTN = (FWD_BATCH, FWD_SEQ, 14, 2, 64)         # qwen2-0.5b's heads at that batch
@@ -537,62 +559,84 @@ def phase_check_flash() -> dict:
     worst = 0.0
     for B, S, H, Hkv, D, causal, dtype, (atol, rtol) in FA_CHECKS:
         q, k, v = _qkv(B, S, H, Hkv, D, dtype, gen)
+        before = dict(ops.flash_attention.by_entry)
         got = ops.flash_attention(q, k, v, causal=causal)
+        entry = [e for e, n in ops.flash_attention.by_entry.items() if n != before[e]]
         want = ref.attention_ref(q, k, v, causal=causal)
         torch_sync()
         err = _max_err(got, want)
         excess = float(((got.float() - want.float()).abs()
                         - atol - rtol * want.float().abs()).max())
         log(f"[check] flash_attention B={B} S={S} H={H}/{Hkv} D={D} "
-            f"{'causal' if causal else 'non-causal'} {dtype}: max abs err {err:.3e} "
-            f"(atol {atol}, rtol {rtol})")
+            f"{'causal' if causal else 'non-causal'} {dtype} via {'+'.join(entry)}: "
+            f"max abs err {err:.3e} (atol {atol}, rtol {rtol})")
+        if entry != [ops.route(q.dtype)]:
+            raise AssertionError(f"flash_attention {dtype} D={D} launched {entry}, expected "
+                                 f"{ops.route(q.dtype)}")
         if got.dtype != want.dtype or got.shape != want.shape or excess > 0:
             raise AssertionError(f"flash_attention disagrees with attention_ref at B={B} "
                                  f"S={S} H={H}/{Hkv} D={D} causal={causal} {dtype}: {err}")
         if (B, S, H, Hkv, D) == FULL_ATTN and dtype == "bfloat16":
             worst = err
         del q, k, v, got, want
+    # bf16 views 2 bytes past an aligned base: TMA needs 16-byte aligned
+    # bases, so the wrapper hands the kernel an aligned copy
+    q, k, v = (torch.randn(n * 130 * 64 + 1, generator=gen, device="cuda").to(torch.bfloat16)
+               [1:].view(n, 130, 64) for n in (4, 2, 2))
+    got = ops.flash_attention(q, k, v)
+    want = ref.attention_ref(q, k, v)
+    torch_sync()
+    atol, rtol = BF16_ROUNDINGS
+    excess = float(((got.float() - want.float()).abs() - atol - rtol * want.float().abs()).max())
+    log(f"[check] flash_attention misaligned bf16 views (4/2 heads, S=130, D=64): max abs err "
+        f"{_max_err(got, want):.3e} (atol {atol}, rtol {rtol})")
+    if excess > 0:
+        raise AssertionError(f"flash_attention disagrees on misaligned views: {excess}")
     return {"flash_attention": worst}
 
 
 def phase_time_flash() -> dict:
     """Kernel, plain version and ``scaled_dot_product_attention`` at the
-    main path's shape.  Bound: the causal FLOPs (QK^T and PV over the
-    S(S+1)/2 pairs) over the peak for the inputs' type, or q, k, v read
-    and o written once over the memory bandwidth, whichever is longer."""
+    main path's shape, in bf16 (the tensor-core kernel, the record) and f32
+    (the CUDA-core kernel), and the bf16 kernel and library at
+    [forward-hybrid]'s shape.  Bound: the causal FLOPs (QK^T and PV over
+    the S(S+1)/2 pairs) over the peak for the inputs' type, or q, k, v read
+    and o written once over the memory bandwidth, whichever is longer;
+    achieved TFLOP/s: those FLOPs over the kernel's time."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
 
-    B, S, H, Hkv, D = FULL_ATTN
     gen = torch.Generator(device="cuda").manual_seed(3)
-    flops = 4 * B * H * D * S * (S + 1) / 2
     out = {}
-    for dtype, rate in (("float32", F32_FLOP_PER_S), ("bfloat16", BF16_FLOP_PER_S)):
+    for name, (B, S, H, Hkv, D), dtype, rate in (
+            ("float32", FULL_ATTN, "float32", F32_FLOP_PER_S),
+            ("bfloat16", FULL_ATTN, "bfloat16", BF16_FLOP_PER_S),
+            ("hybrid", HYBRID_ATTN, "bfloat16", BF16_FLOP_PER_S)):
+        flops = 4 * B * H * D * S * (S + 1) / 2
         q, k, v = _qkv(B, S, H, Hkv, D, dtype, gen)
         nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
         q4, k4, v4 = q.view(B, H, S, D), k.view(B, Hkv, S, D), v.view(B, Hkv, S, D)
         t = dict(ms=_time_ms(lambda: ops.flash_attention(q, k, v)),
                  plain_ms=_time_ms(lambda: ref.attention_ref(q, k, v)),
                  library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
-                     q4, k4, v4, is_causal=True, enable_gqa=True)),
+                     q4, k4, v4, is_causal=True, enable_gqa=H != Hkv)),
                  bound_ms=max(flops / rate, nbytes / HBM_BYTES_PER_S) * 1e3,
-                 bound_by="operations" if flops / rate > nbytes / HBM_BYTES_PER_S else "bytes")
-        log(f"[time] flash_attention B={B} S={S} H={H}/{Hkv} D={D} causal {dtype}: kernel "
-            f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, library (sdpa) "
-            f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
-            f"{flops:.3e} FLOP at {rate / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB)")
-        out[dtype] = t
+                 bound_by="operations" if flops / rate > nbytes / HBM_BYTES_PER_S else "bytes",
+                 entry=ops.route(q.dtype))
+        t["tflops"] = flops / t["ms"] / 1e9
+        log(f"[time] flash_attention B={B} S={S} H={H}/{Hkv} D={D} causal {dtype} "
+            f"({t['entry']}{', a record' if name != 'bfloat16' else ''}): kernel "
+            f"{t['ms']:.3f} ms ({t['tflops']:.1f} TFLOP/s), plain {t['plain_ms']:.3f} ms, "
+            f"library (sdpa) {t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}: {flops:.3e} FLOP at {rate / 1e12:.0f} TFLOP/s, "
+            f"{nbytes / 1e6:.1f} MB)")
+        out[name] = t
         del q, k, v, q4, k4, v4
-    B, S, H, Hkv, D = HYBRID_ATTN
-    q, k, v = _qkv(B, S, H, Hkv, D, "bfloat16", gen)
-    q4, k4, v4 = q.view(B, H, S, D), k.view(B, Hkv, S, D), v.view(B, Hkv, S, D)
-    ms = _time_ms(lambda: ops.flash_attention(q, k, v))
-    lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
-    log(f"[time] flash_attention B={B} S={S} H={H}/{Hkv} D={D} causal bfloat16 (a record, "
-        f"[forward-hybrid]'s shape): kernel {ms:.3f} ms, library (sdpa) {lib_ms:.3f} ms")
-    del q, k, v, q4, k4, v4
-    return {"flash_attention": out["bfloat16"]}
+    record = dict(out["bfloat16"])
+    record.update({f"{name}_{key}": out[name][key] for name in ("float32", "hybrid")
+                   for key in ("ms", "library_ms", "bound_ms", "tflops")})
+    return {"flash_attention": record}
 
 
 SMALL_ARGS = ["--arch", ARCH, "--smoke", "--steps", "3", "--global-batch", "8",
@@ -746,6 +790,70 @@ F32_LOGIT_TOL = 1e-3
 LAST_ONLY_ATOL = 1e-5
 
 
+def _enqueue_ms(fn, iters: int = FWD_ITERS) -> float:
+    """Median host time to enqueue one call (until it returns, before any
+    sync), each started on a drained card: near the call's CUDA-event time
+    when the host, not the card, sets the pace."""
+    import torch
+
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+class _FlashSpy:
+    """Within ``with``, keeps the q, k, v and output of the last
+    ``flash_mha`` call the models' attention makes (the wrapper runs as
+    it is, so the launch counts are the forward's own); ``check`` then
+    holds that output to ``attention_ref`` on the same activations."""
+
+    def __enter__(self):
+        from repro_torch.models import attention
+
+        self.seen, self._real = {}, attention.flash_mha
+
+        def spy(q, k, v, *, causal=True):
+            out = self._real(q, k, v, causal=causal)
+            self.seen = dict(q=q, k=k, v=v, out=out, causal=causal)
+            return out
+
+        attention.flash_mha = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention
+
+        attention.flash_mha = self._real
+
+    def check(self, tag: str) -> None:
+        from repro_torch.kernels.flash_attention import ref
+
+        q, k, v, out = (self.seen[n] for n in ("q", "k", "v", "out"))
+        B, S, H, D = q.shape
+
+        def flat(t):  # flash_mha's (B, S, heads, D) -> the kernel's (B * heads, S, D)
+            return t.transpose(1, 2).reshape(-1, S, D)
+
+        want = ref.attention_ref(flat(q), flat(k), flat(v), causal=self.seen["causal"]).float()
+        got = flat(out).float()
+        torch_sync()
+        atol, rtol = BF16_ROUNDINGS
+        excess = float(((got - want).abs() - atol - rtol * want.abs()).max())
+        log(f"[{tag}] the last flash call's output on the layer's own bf16 activations "
+            f"(B={B} S={S} H={H}/{k.shape[2]} D={D}, |q| <= {float(q.float().abs().max()):.2f}, "
+            f"|v| <= {float(v.float().abs().max()):.2f}) against attention_ref: max abs err "
+            f"{_max_err(got, want):.3e} (atol {atol}, rtol {rtol})")
+        if out.dtype != q.dtype or excess > 0:
+            raise AssertionError(f"[{tag}] flash output on the model's activations differs "
+                                 f"from attention_ref by {_max_err(got, want)}")
+        self.seen = {}
+
+
 def phase_forward(card: str) -> int:
     """The full-sequence forward under ``attention_impl="flash"`` at full
     width; returns the flash launches of one forward (counts zeroed just
@@ -765,10 +873,11 @@ def phase_forward(card: str) -> int:
                                      generator=gen).cuda()}
     shape = (FWD_BATCH, FWD_SEQ, cfg.vocab_size)
     with torch.no_grad():
-        _zero_counts()
-        flash = apis["flash"].forward(model, batch)
-        torch_sync()
-        counts = _counts()
+        with _FlashSpy() as spy:
+            _zero_counts()
+            flash = apis["flash"].forward(model, batch)
+            torch_sync()
+            counts = _counts()
         launches = counts.pop("flash_attention")
         log(f"[forward] {ARCH} full width, B={FWD_BATCH} S={FWD_SEQ} bf16, flash: "
             f"flash_attention launched {launches} times in one forward "
@@ -776,6 +885,7 @@ def phase_forward(card: str) -> int:
         if launches != cfg.num_layers or any(counts.values()):
             raise AssertionError(f"one flash forward launched flash_attention {launches} "
                                  f"times (want {cfg.num_layers}) and {counts}")
+        spy.check("forward")
         xla = apis["xla"].forward(model, batch)
         blockwise = apis["blockwise"].forward(model, batch)
         last = apis["flash"].forward(model, batch, last_only=True)
@@ -804,13 +914,18 @@ def phase_forward(card: str) -> int:
                                  f"last row by {_max_err(last, tail)}")
         del last, tail
         ms = {}
-        turns = impls + impls[::-1]
+        turns = (impls + impls[::-1]) * 2
         for impl in turns:
             ms.setdefault(impl, []).append(
                 _time_ms(lambda: apis[impl].forward(model, batch), FWD_ITERS))
         log(f"[forward] ms per forward (median of {FWD_ITERS}, in turns {', '.join(turns)}, "
             f"after 3 warm-ups each), B={FWD_BATCH} S={FWD_SEQ} bf16 on {card}: "
-            + "; ".join(f"{impl} {ms[impl][0]:.2f}, {ms[impl][1]:.2f}" for impl in impls))
+            + "; ".join(f"{impl} {', '.join(f'{t:.2f}' for t in ms[impl])} (median "
+                        f"{statistics.median(ms[impl]):.2f})" for impl in impls))
+        enqueue = {impl: _enqueue_ms(lambda: apis[impl].forward(model, batch)) for impl in impls}
+        log("[forward] host ms to enqueue one forward (median of "
+            f"{FWD_ITERS}, each on a drained card): "
+            + "; ".join(f"{impl} {t:.2f}" for impl, t in enqueue.items()))
         del flash, xla
         torch.cuda.empty_cache()
         out32 = {}
@@ -1124,8 +1239,10 @@ def phase_forward_hybrid(card: str) -> dict:
     batch = _tokens(cfg)
     firings = cfg.num_layers // cfg.hybrid.shared_attn_every
     with torch.no_grad():
-        flash, counts = _forward_check(apis["flash"], model, batch, cfg, "forward-hybrid",
-                                       {"ssd": cfg.num_layers, "flash_attention": firings})
+        with _FlashSpy() as spy:
+            flash, counts = _forward_check(apis["flash"], model, batch, cfg, "forward-hybrid",
+                                           {"ssd": cfg.num_layers, "flash_attention": firings})
+        spy.check("forward-hybrid")
         xla, _ = _forward_check(apis["xla"], model, batch, cfg, "forward-hybrid",
                                 {"ssd": cfg.num_layers})
         top1 = float((flash.argmax(-1) == xla.argmax(-1)).float().mean())
@@ -1288,7 +1405,7 @@ KERNELS = {
     "hop_accum_i8": (CU + "ring_hops.cu", TPU + "97"),
     "hop_add_quant_bf16": (CU + "ring_hops.cu", TPU + "115"),
     "hop_accum_bf16": (CU + "ring_hops.cu", TPU + "128"),
-    "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+    "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu",
                         "src/repro/kernels/flash_attention/kernel.py:75"),
     "ssd": ("src/repro_torch/kernels/mamba2_ssd/csrc/ssd.cu",
             "src/repro/kernels/mamba2_ssd/kernel.py:62"),

@@ -1,7 +1,8 @@
 // Flash attention, forward, for Hopper (sm_90a): grouped-query attention with
-// an online softmax, causal or not, in float32 on the CUDA cores.
+// an online softmax, causal or not, in float32 on the CUDA cores, for float32
+// inputs.  (bf16 inputs run on the tensor cores: flash_attention_wgmma.cu.)
 //
-// Replaces the Pallas kernel `flash_attention` of
+// Replaces, for f32 inputs, the Pallas kernel `flash_attention` of
 // src/repro/kernels/flash_attention/kernel.py (the `_attn_kernel` body).  In
 // the kernel's layout, q (BH, S, D) and k/v (BKV, S, D), with query head bh
 // reading kv row bh / (BH / BKV):
@@ -12,15 +13,14 @@
 // computed as the TPU kernel computes it: a running max m (from -1e30), a
 // running denominator l and an f32 accumulator rescaled by exp(m_old - m_new)
 // at every kv tile, and o = acc / max(l, 1e-30) cast to the output dtype.
-// Inputs are f32 or bf16; the arithmetic is f32 in both cases, as the
-// reference's `.astype(jnp.float32)`.
+// The arithmetic is f32, as the reference's `.astype(jnp.float32)`.
 //
 // Bound on this card: operations.  At the main path's shape (qwen2-0.5b,
 // B=4, S=2048, 14/2 heads, D=64) the causal work is 4*B*H*D*S(S+1)/2 = 3.0e10
-// FLOP against 34 MB of q, k, v and o: about 0.03 ms on the tensor cores'
-// bf16 rate, 0.01 ms of bytes.  This first kernel does its products on the
-// CUDA cores in f32 (67 TFLOP/s, so no faster than about 0.45 ms); moving
-// them to wgmma with TMA-fed tiles is the redesign's work.
+// FLOP against 67 MB of f32 q, k, v and o.  The products stay on the CUDA
+// cores in f32 (67 TFLOP/s, so no faster than about 0.45 ms), by decision:
+// TF32 products would break the f32 tolerance of 2e-5, and a product split
+// into three bf16 terms is a design of its own.
 //
 // Design, one thread block per (bh, 64-query tile), 256 threads:
 // * The grid runs in parallel and in no order, so the TPU's sequential kv
@@ -42,7 +42,6 @@
 //
 // The launch uses the caller's stream, allocates nothing and does not
 // synchronise; the entry point returns the launch's cudaError_t.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -56,35 +55,28 @@ constexpr int kPS = kBQ + 4;    // row stride of the transposed p tile (16-byte 
 constexpr int kMaxD = 256;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
 // Rows [row0, row0 + 64) of an (S, D) matrix into dst[d * 64 + r], zero past S.
-template <typename T>
-__device__ __forceinline__ void stage_transposed(float* dst, const T* src, int row0, int S,
+__device__ __forceinline__ void stage_transposed(float* dst, const float* src, int row0, int S,
                                                  int D) {
   for (int idx = threadIdx.x; idx < kBQ * D; idx += kThreads) {
     const int r = idx % kBQ, d = idx / kBQ;
     const int row = row0 + r;
-    dst[idx] = row < S ? to_f32(src[static_cast<long long>(row) * D + d]) : 0.f;
+    dst[idx] = row < S ? src[static_cast<long long>(row) * D + d] : 0.f;
   }
 }
 
 // Rows [row0, row0 + 64) of an (S, D) matrix into dst[r * D + d], zero past S.
-template <typename T>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src, int row0, int S, int D) {
-  const T* base = src + static_cast<long long>(row0) * D;
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int row0, int S, int D) {
+  const float* base = src + static_cast<long long>(row0) * D;
   for (int idx = threadIdx.x; idx < kBK * D; idx += kThreads) {
-    dst[idx] = row0 + idx / D < S ? to_f32(base[idx]) : 0.f;
+    dst[idx] = row0 + idx / D < S ? base[idx] : 0.f;
   }
 }
 
-template <typename T, int G>
+template <int G>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, int S, int D, int group, int causal, float scale) {
+flash_fwd(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+          float* __restrict__ o, int S, int D, int group, int causal, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;               // [D][kBQ]  q tile, transposed
   float* kt = qt + D * kBQ;       // [D][kBK]  k tile, transposed
@@ -95,8 +87,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * kBQ;  // longest rows first
   const int bh = blockIdx.x;
   const long long head = static_cast<long long>(S) * D;
-  const T* kh = k + (bh / group) * head;
-  const T* vh = v + (bh / group) * head;
+  const float* kh = k + (bh / group) * head;
+  const float* vh = v + (bh / group) * head;
   const int tx = threadIdx.x & 15;  // score columns 4*tx + j, output columns 64*g + 4*tx + j
   const int ty = threadIdx.x >> 4;  // rows 4*ty + i
 
@@ -192,7 +184,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     __syncthreads();  // the next tile overwrites kt, vs and pt
   }
 
-  T* oh = o + bh * head;
+  float* oh = o + bh * head;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + 4 * ty + i;
@@ -203,44 +195,35 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       const int col = 64 * g + 4 * tx;
       if (col < D) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) put(oh + static_cast<long long>(qpos) * D + col + j,
-                                        acc[i][4 * g + j] / denom);
+        for (int j = 0; j < 4; ++j) oh[static_cast<long long>(qpos) * D + col + j] =
+            acc[i][4 * g + j] / denom;
       }
     }
   }
 }
 
-template <typename T, int G>
+template <int G>
 int launch(const void* q, const void* k, const void* v, void* o, long long bh, int S, int D,
            int group, int causal, float scale, cudaStream_t stream) {
   const int smem = static_cast<int>((3 * D * kBQ + kBK * kPS) * sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd<T, G>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd<G>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(static_cast<unsigned>(bh), static_cast<unsigned>((S + kBQ - 1) / kBQ));
-  flash_fwd<T, G><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, D, group, causal, scale);
+  flash_fwd<G><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), S, D, group, causal, scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, long long bh, int S, int D,
-             int group, int causal, float scale, cudaStream_t stream) {
-  if (D <= 64) return launch<T, 1>(q, k, v, o, bh, S, D, group, causal, scale, stream);
-  if (D <= 128) return launch<T, 2>(q, k, v, o, bh, S, D, group, causal, scale, stream);
-  if (D <= 192) return launch<T, 3>(q, k, v, o, bh, S, D, group, causal, scale, stream);
-  return launch<T, 4>(q, k, v, o, bh, S, D, group, causal, scale, stream);
 }
 
 }  // namespace
 
-// q (bh, s, d), k/v (bkv, s, d), o (bh, s, d), all contiguous and of one dtype
-// (bf16 if `bf16`, else f32).  Returns cudaErrorInvalidValue for shapes the
-// kernel does not take, else the launch's cudaError_t.
+// q (bh, s, d), k/v (bkv, s, d), o (bh, s, d), all contiguous f32.  Returns
+// cudaErrorInvalidValue for shapes the kernel does not take, else the
+// launch's cudaError_t.
 extern "C" int pax_flash_attention(const void* q, const void* k, const void* v, void* o,
                                    long long bh, long long bkv, long long s, long long d,
-                                   int causal, int bf16, void* stream) {
+                                   int causal, void* stream) {
   if (bh <= 0 || bkv <= 0 || bh % bkv != 0 || bh > 0x7fffffffLL || s <= 0 ||
       (s + kBQ - 1) / kBQ > 65535 || d < 8 || d > kMaxD || d % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -248,10 +231,9 @@ extern "C" int pax_flash_attention(const void* q, const void* k, const void* v, 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
   const int group = static_cast<int>(bh / bkv);
-  if (bf16) {
-    return dispatch<__nv_bfloat16>(q, k, v, o, bh, static_cast<int>(s), static_cast<int>(d),
-                                   group, causal, scale, st);
-  }
-  return dispatch<float>(q, k, v, o, bh, static_cast<int>(s), static_cast<int>(d), group, causal,
-                         scale, st);
+  const int S = static_cast<int>(s), D = static_cast<int>(d);
+  if (D <= 64) return launch<1>(q, k, v, o, bh, S, D, group, causal, scale, st);
+  if (D <= 128) return launch<2>(q, k, v, o, bh, S, D, group, causal, scale, st);
+  if (D <= 192) return launch<3>(q, k, v, o, bh, S, D, group, causal, scale, st);
+  return launch<4>(q, k, v, o, bh, S, D, group, causal, scale, st);
 }

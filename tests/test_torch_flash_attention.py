@@ -229,6 +229,69 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(shapes, dtypes, w
 
 
 # ---------------------------------------------------------------------------
+# the tensor-core kernel's design, checked on the CPU
+# ---------------------------------------------------------------------------
+#: chip_smoke.py's gate for the full-width bf16 rows (BF16_ROUNDINGS): the
+#: kernel and the plain version each round once, at the output
+BF16_ROUNDINGS = (1e-5, 2.0 ** -6)
+
+
+def _bf16_pv_emulation(q, k, v, *, split: bool, causal: bool = True) -> torch.Tensor:
+    """The bf16 kernel's rounding in plain torch: f32 scores and p, P.V with
+    p rounded to bf16 (``split``: plus the bf16 rounding of what that left
+    out, both products summed in f32), the output rounded once to bf16."""
+    BH, S, D = q.shape
+    group = BH // k.shape[0]
+    kx = k.repeat_interleave(group, dim=0).float()
+    vx = v.repeat_interleave(group, dim=0).float()
+    s = torch.einsum("bqd,bkd->bqk", q.float(), kx) / np.sqrt(D)
+    if causal:
+        s = torch.where(torch.ones(S, S, dtype=torch.bool).tril(), s, T_ref.NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p_hi = p.bfloat16().float()
+    acc = p_hi @ vx
+    if split:
+        acc = acc + (p - p_hi).bfloat16().float() @ vx
+    return (acc / p.sum(-1, keepdim=True)).bfloat16()
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D", [(1, 256, 4, 2, 64), (1, 256, 4, 4, 80)])
+def test_bf16_kernel_carries_p_as_two_bf16_terms(B, S, H, Hkv, D):
+    """P as bf16(p) + bf16(p - bf16(p)) stays inside the card's bf16 gate
+    around the reference's attention_ref; one bf16(p) does not (its error
+    scales with sum |p v|, not with the output, so outputs near zero fail)."""
+    q, k, v = (_kernel_layout(a) for a in _qkv(B, S, H, Hkv, D, seed=2))
+    want = _f32(r_attention_ref(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))))
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    atol, rtol = BF16_ROUNDINGS
+    np.testing.assert_allclose(_f32(T_ref.attention_ref(tq, tk, tv)), want, atol=atol, rtol=rtol)
+    for split, passes in ((True, True), (False, False)):
+        got = _f32(_bf16_pv_emulation(tq, tk, tv, split=split))
+        excess = np.abs(got - want) - atol - rtol * np.abs(want)
+        assert (excess.max() <= 0) == passes, (split, excess.max(), (excess > 0).sum())
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "pax_flash_attention_wgmma"),
+                                         (torch.float32, "pax_flash_attention")])
+def test_route_by_dtype_at_every_head_dim(dtype, entry):
+    """bf16 goes to the tensor-core kernel, f32 to the CUDA-core kernel,
+    whatever the head dim: the wrapper takes every multiple of 8 up to
+    MAX_HEAD_DIM in both dtypes and refuses the rest; what neither kernel
+    takes raises."""
+    assert T_ops.route(dtype) == entry
+    for D in range(8, T_ops.MAX_HEAD_DIM + 1, 8):
+        q = torch.zeros(2, 1, D, dtype=dtype)
+        assert T_ops.flash_attention(q, q[:1], q[:1]).shape == q.shape
+    for D in (4, 12, T_ops.MAX_HEAD_DIM + 8):
+        q = torch.zeros(2, 1, D, dtype=dtype)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            T_ops.flash_attention(q, q[:1], q[:1])
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        T_ops.route(torch.float16)
+    assert set(T_ops.flash_attention.by_entry) == {e for e, _ in T_ops.ROUTES.values()}
+
+
+# ---------------------------------------------------------------------------
 # on the card: the CUDA kernel against its plain version (skip here)
 # ---------------------------------------------------------------------------
 @pytest.fixture
@@ -270,3 +333,45 @@ def test_cuda_model_flash_path_launches_the_kernel(cuda_device):
             model, {"tokens": tok})
     assert T_ops.flash_attention.launches == before + tcfg.num_layers
     np.testing.assert_allclose(_f32(flash.cpu()), _f32(xla.cpu()), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,D,causal", [
+    (2, 256, 4, 2, 32, True),      # D=32
+    (1, 384, 4, 2, 256, True),     # D=256, one consumer warpgroup
+    (2, 300, 4, 2, 40, True),      # D=40, padded to 48 by TMA's zero fill
+    (1, 200, 4, 1, 72, False),     # D=72, non-causal, ragged S
+    (1, 100, 3, 1, 8, False),      # D=8
+    (2, 1, 4, 2, 64, True),        # S=1
+    (2, 65, 4, 2, 64, True),       # S=65: one key past a tile
+    (1, 333, 7, 7, 64, False),     # group 1, non-causal, ragged S
+    (1, 333, 14, 2, 80, False),    # group 7, non-causal, ragged S
+])
+def test_cuda_wgmma_kernel_edges_vs_plain(cuda_device, B, S, H, Hkv, D, causal):
+    q, k, v = (torch.from_numpy(_kernel_layout(a)).to(cuda_device, torch.bfloat16)
+               for a in _qkv(B, S, H, Hkv, D))
+    before = T_ops.flash_attention.by_entry["pax_flash_attention_wgmma"]
+    got = T_ops.flash_attention(q, k, v, causal=causal)
+    assert T_ops.flash_attention.by_entry["pax_flash_attention_wgmma"] == before + 1
+    want = T_ref.attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    atol, rtol = BF16_ROUNDINGS
+    np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_cuda_wgmma_kernel_takes_misaligned_views(cuda_device):
+    """TMA needs 16-byte aligned bases: views 2 bytes past one are copied."""
+    q, k, v = (torch.from_numpy(_kernel_layout(a)).to(cuda_device, torch.bfloat16)
+               for a in _qkv(1, 130, 4, 2, 64))
+    shifted = []
+    for t in (q, k, v):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+        buf[1:] = t.flatten()
+        shifted.append(buf[1:].view(t.shape))
+    assert shifted[0].data_ptr() % 16
+    got = T_ops.flash_attention(*shifted)
+    want = T_ref.attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    atol, rtol = BF16_ROUNDINGS
+    np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()), atol=atol, rtol=rtol)
