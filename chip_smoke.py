@@ -4,13 +4,22 @@
     python3 chip_smoke.py               # every phase, one card
     python3 chip_smoke.py --only check  # build + [check] only (a first run)
     python3 chip_smoke.py --only ring4  # build + [ring4] only, four cards
+    python3 chip_smoke.py --baseline-ssd build/ssd_parent.cu  # [time] also an earlier ssd
+
+``--baseline-ssd PATH`` builds an earlier ``ssd`` source with the entry point
+``pax_ssd`` and the same arguments (for example the CUDA-core kernel of
+commit f584f51: ``git show f584f51:src/repro_torch/kernels/mamba2_ssd/csrc/ssd.cu
+> build/ssd_parent.cu``) and times it in turns with the current kernel in
+[time], since times move between calls.
 
 Phases (any failure exits non-zero and prints no result line):
 
 1. build the CUDA kernels of the port's paths from ``src/repro_torch``:
    one ``nvcc`` per source (``ring_wire.cu``, ``ring_hops.cu``,
    ``flash_attention.cu`` (f32), ``flash_attention_wgmma.cu`` (bf16),
-   ``wkv6.cu``, ``ssd.cu``), started together;
+   ``wkv6.cu``, ``ssd_wgmma.cu``), started together; the tensor-core
+   libraries' SASS holds HGMMA instructions (``cuobjdump``), and the
+   ``ssd`` kernel's resident blocks per SM are logged;
 2. [check] hold each kernel against its plain PyTorch version: bitwise
    for the wire kernels — the zero1 pack/unpack and the error-feedback
    pack at (dp, buckets) in {(1,1), (1,2), (4,2), (8,4)} at the full
@@ -33,7 +42,11 @@ Phases (any failure exits non-zero and prints no result line):
    scans against their plain chunked versions (3e-4) and the sequential
    oracles (5e-4) at every ``WKV_SWEEP``/``SSD_SWEEP`` shape on the
    sweep's and the models' input distributions, and at the full-width
-   shapes of rwkv6-7b and zamba2-2.7b (the oracle's error there a record);
+   shapes of rwkv6-7b and zamba2-2.7b (the oracle's error there a record,
+   and at zamba2's shape also the kernel's and the plain form's error
+   against the plain form run in float64), plus the ``ssd`` kernel's edges
+   (P, N and chunk not multiples of 8, chunk 1, a single chunk, N=3, and
+   views at a misaligned base), each ``ssd`` row logging its entry point;
 3. [time] time each kernel, its plain version and, where one exists, one
    PyTorch call computing the same function, with CUDA events, beside the
    least time the card allows: bytes over its memory bandwidth for the
@@ -73,8 +86,8 @@ Phases (any failure exits non-zero and prints no result line):
    finite logits, ``last_only`` against the last row; ms per forward;
 10. [forward-hybrid] zamba2-2.7b the same way under ``"flash"`` (54 ``ssd``
    and 9 ``flash_attention`` launches) and ``"xla"`` (54 and 0) on the same
-   weights: ms per forward for both, the bf16 logits' max difference and
-   top-1 agreement, ``last_only``;
+   weights: ms per forward for both and the host's time to enqueue one, the
+   bf16 logits' max difference and top-1 agreement, ``last_only``;
 11. [card-vs-cpu] both families at full width and reduced depth (rwkv6 2
    layers, zamba2 6 so that the shared block fires once), float32, B=1,
    S=256, the same CPU-drawn weights: the card runs the kernels, the CPU
@@ -98,6 +111,7 @@ relative) of the f32 run's.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import multiprocessing
@@ -183,8 +197,33 @@ def phase_build():
         log_file = path.with_suffix(".log")
         if log_file.exists():
             for line in log_file.read_text().splitlines():
-                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                if ("registers" in line and "GMMA" not in line) or "spill" in line \
+                        or "Compiling entry" in line:
                     log(f"[build]   {line.strip()}")
+    for (name, _), (path, _) in zip(libs, built):
+        if name in TENSOR_CORE_LIBS:
+            hgmma = _hgmma(path)
+            log(f"[build] {path.name}: {len(hgmma)} HGMMA instructions in its SASS, e.g. "
+                f"{hgmma[0] if hgmma else None}")
+            if not any(TENSOR_CORE_LIBS[name] in line for line in hgmma):
+                raise AssertionError(f"{path.name} has no {TENSOR_CORE_LIBS[name]} HGMMA")
+    log(f"[build] ssd kernel (P = N = chunk = 64): {ssd_ops.blocks_per_sm()} resident blocks "
+        "per SM")
+
+
+#: the libraries whose kernels run on the tensor cores, and their operand type
+TENSOR_CORE_LIBS = {"flash_attention_wgmma": "BF16", "ssd": "TF32"}
+
+
+def _hgmma(lib: Path) -> list:
+    """The HGMMA (wgmma) instructions in a built library's SASS."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    return [line.split("*/", 1)[1].split(";")[0].strip() for line in out.splitlines()
+            if "HGMMA" in line and "*/" in line]
 
 
 def _max_err(a, b) -> float:
@@ -961,9 +1000,13 @@ SSM_ARCH, HYBRID_ARCH = "rwkv6-7b", "zamba2-2.7b"
 # the main path's shape (rwkv6-7b at [forward-ssm]'s batch and sequence)
 WKV_SHAPES = ((2, 64, 3, 8, 16), (1, 128, 2, 16, 32), (2, 96, 1, 32, 32), (1, 64, 4, 64, 16))
 WKV_FULL = (FWD_BATCH, FWD_SEQ, 64, 64, 32)
-# B, T, H, P, N, chunk: the reference's SSD_SWEEP, then zamba2-2.7b's shape
+# B, T, H, P, N, chunk: the reference's SSD_SWEEP, then the tensor-core kernel's
+# edges (P, N and chunk not multiples of 8; N=3, rows of 12 bytes; chunk 1; a
+# single chunk), then zamba2-2.7b's shape
 SSD_SHAPES = ((2, 64, 3, 4, 8, 16), (1, 128, 2, 16, 16, 32), (2, 128, 1, 32, 64, 64),
-              (1, 64, 4, 64, 16, 16))
+              (1, 64, 4, 64, 16, 16),
+              (2, 24, 3, 7, 13, 8), (1, 60, 2, 5, 3, 12), (1, 16, 2, 8, 8, 1),
+              (2, 64, 2, 64, 64, 64))
 SSD_FULL = (FWD_BATCH, FWD_SEQ, 80, 64, 64, 64)
 #: the reference's tolerances (atol = rtol): against the chunked form, and
 #: against the sequential oracle
@@ -1033,13 +1076,24 @@ def _ssd_oracle(x, dt, A, Bm, Cm, D):
     return out.reshape(B, H, T, P).permute(0, 2, 1, 3)
 
 
+def _misaligned(t):
+    """A copy of ``t`` as a contiguous view 4 bytes past an aligned base."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.flatten()
+    return buf[1:].view(t.shape)
+
+
 def phase_check_scans() -> dict:
     """Both scan kernels against their plain chunked versions (gate 3e-4)
-    and the sequential oracles (gate 5e-4) at every reference sweep shape,
-    on the sweep's and the models' input distributions, and at the main
-    path's full-width shapes, where the oracle's error is a record: T=2048
-    is 16x longer than any shape the reference holds to it.  Returns the
-    worst kernel-vs-plain difference at the full-width shapes."""
+    and the sequential oracles (gate 5e-4) at every reference sweep shape
+    (and the ``ssd`` kernel's edges), on the sweep's and the models' input
+    distributions, and at the main path's full-width shapes, where the
+    oracle's error is a record: T=2048 is 16x longer than any shape the
+    reference holds to it; there ``ssd``'s kernel and plain form are also
+    held, as a record, to the plain form run in float64.  Returns the worst
+    kernel-vs-plain difference at the full-width shapes."""
     import torch
     from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
     from repro_torch.kernels.mamba2_ssd import ref as ssd_ref
@@ -1059,11 +1113,13 @@ def phase_check_scans() -> dict:
             got = wkv_ops.wkv6_apply(*args, chunk=chunk)
             plain = wkv_ref.wkv6(*args, chunk=chunk)
             oracle = _wkv_oracle(*args)
-            full = shape == WKV_FULL
+            full, via = shape == WKV_FULL, ""
         else:
             *dims, chunk = shape
             args = _ssd_inputs(*dims, dist, gen)
+            before = ssd_ops.ssd_apply.launches
             got = ssd_ops.ssd_apply(*args, chunk=chunk)
+            via = f" via {ssd_ops.ENTRY}" if ssd_ops.ssd_apply.launches == before + 1 else ""
             plain = ssd_ref.ssd(*args, chunk=chunk)
             oracle = _ssd_oracle(*args)
             full = shape == SSD_FULL
@@ -1071,16 +1127,40 @@ def phase_check_scans() -> dict:
         finite = bool(torch.isfinite(got).all())
         err, err_o = _max_err(got, plain), _max_err(got, oracle)
         over, over_o = _excess(got, plain, CHUNKED_TOL), _excess(got, oracle, ORACLE_TOL)
-        log(f"[check] {name} {shape} {dist}: max abs err vs plain {err:.3e} (gate "
-            f"{CHUNKED_TOL}), vs oracle {err_o:.3e} ({'record' if full else 'gate'} "
-            f"{ORACLE_TOL}{', inside' if over_o <= 0 else ', OUTSIDE'}); |y| max "
+        log(f"[check] {name} {shape} {dist}{via}: max abs err vs "
+            f"plain {err:.3e} (gate {CHUNKED_TOL}), vs oracle {err_o:.3e} "
+            f"({'record' if full else 'gate'} {ORACLE_TOL}"
+            f"{', inside' if over_o <= 0 else ', OUTSIDE'}); |y| max "
             f"{float(oracle.abs().max()):.3e}")
-        if not finite or got.shape != plain.shape or over > 0 or (over_o > 0 and not full):
+        if not finite or got.shape != plain.shape or over > 0 or (over_o > 0 and not full) \
+                or (name == "ssd" and not via):
             raise AssertionError(f"{name} disagrees at {shape} {dist}: finite {finite}, "
-                                 f"vs plain {err}, vs oracle {err_o}")
+                                 f"vs plain {err}, vs oracle {err_o}, launched {via or 'none'}")
         if full:
             worst[name] = max(worst[name], err)
-        del args, got, plain, oracle
+        if full and name == "ssd":
+            del oracle
+            f64 = ssd_ref.ssd(*(a.double() for a in args), chunk=chunk)
+            log(f"[check] ssd {shape} {dist} against the plain form in float64 (a record): "
+                f"kernel {_max_err(got, f64):.3e}, plain form in f32 {_max_err(plain, f64):.3e}")
+            del f64
+        del args, got, plain
+    # inputs at a misaligned base: the kernel reads 4-byte words, so views 4
+    # bytes past a 16-byte boundary go through as they are
+    args = _ssd_inputs(2, 128, 3, 64, 64, "model", gen)
+    shifted = tuple(_misaligned(a) for a in args)
+    before = ssd_ops.ssd_apply.launches
+    got = ssd_ops.ssd_apply(*shifted, chunk=64)
+    plain, oracle = ssd_ref.ssd(*args, chunk=64), _ssd_oracle(*args)
+    torch_sync()
+    log(f"[check] ssd misaligned views (B=2 T=128 H=3 P=N=64, chunk 64, base % 16 = "
+        f"{shifted[0].data_ptr() % 16}) via {ssd_ops.ENTRY}: max abs err vs plain "
+        f"{_max_err(got, plain):.3e} (gate {CHUNKED_TOL}), vs oracle {_max_err(got, oracle):.3e} "
+        f"(gate {ORACLE_TOL})")
+    if (ssd_ops.ssd_apply.launches != before + 1 or _excess(got, plain, CHUNKED_TOL) > 0
+            or _excess(got, oracle, ORACLE_TOL) > 0):
+        raise AssertionError(f"ssd disagrees on misaligned views: {_max_err(got, plain)}")
+    del args, shifted, got, plain, oracle
     torch.cuda.empty_cache()
     return worst
 
@@ -1101,10 +1181,34 @@ def _scan_work(name: str, args, chunk: int) -> tuple:
     return nbytes, flops
 
 
-def phase_time_scans(card: str) -> dict:
+def _baseline_ssd(path: Path):
+    """``launch(x, dt, A, B, C, D, chunk) -> y`` of an earlier ``ssd``
+    source built from ``path`` (entry point ``pax_ssd``, the same
+    arguments as the current kernel's)."""
+    import torch
+    from repro_torch.kernels import _build
+
+    fn = ctypes.CDLL(str(_build.build("ssd_baseline", [path]))).pax_ssd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(x, dt, A, B, C, D, *, chunk):
+        y = torch.empty_like(x)
+        rc = fn(*(t.data_ptr() for t in (x, dt, A, B, C, D, y)), *x.shape, B.shape[-1], chunk,
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"{path} pax_ssd launch failed: CUDA error {rc}")
+        return y
+
+    return launch
+
+
+def phase_time_scans(card: str, baseline_ssd: Path | None = None) -> dict:
     """Kernel and plain version at the main paths' shapes (the models'
     input distribution); no single PyTorch call computes either scan, so
-    there is no library time."""
+    there is no library time.  ``ssd`` also logs its 3xTF32 tensor-core
+    floor (three times its FLOPs at the TF32 rate) and, given
+    ``baseline_ssd``, an earlier source timed in turns with it."""
     import torch
     from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
     from repro_torch.kernels.mamba2_ssd import ref as ssd_ref
@@ -1130,6 +1234,22 @@ def phase_time_scans(card: str) -> dict:
             f"{flops:.3e} FLOP at {TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s TF32 = {t_ops * 1e3:.4f}"
             f" ms, at the {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s CUDA-core f32 rate "
             f"{flops / F32_FLOP_PER_S * 1e3:.3f} ms)")
+        if name == "ssd":
+            log(f"[time] ssd as 3xTF32: {3 * flops:.3e} FLOP on the tensor cores, the kernel's "
+                f"own floor {3 * flops / TF32_FLOP_PER_S * 1e3:.4f} ms; "
+                f"{ssd_ops.blocks_per_sm()} resident blocks per SM")
+        if name == "ssd" and baseline_ssd is not None:
+            old = _baseline_ssd(baseline_ssd)
+            err = _max_err(old(*args, chunk=chunk), kernel(*args, chunk=chunk))
+            turns = ("baseline", "kernel", "kernel", "baseline")
+            ms = {}
+            for who in turns:
+                fn = old if who == "baseline" else kernel
+                ms.setdefault(who, []).append(_time_ms(lambda: fn(*args, chunk=chunk)))
+            log(f"[time] ssd {shape} f32 on {card}, in turns {', '.join(turns)}: "
+                f"{baseline_ssd.name} (pax_ssd) {', '.join(f'{v:.3f}' for v in ms['baseline'])} "
+                f"ms, {ssd_ops.ENTRY} {', '.join(f'{v:.3f}' for v in ms['kernel'])} ms; the two "
+                f"outputs differ by {err:.3e}")
         out[name] = t
         del args
     torch.cuda.empty_cache()
@@ -1257,10 +1377,14 @@ def phase_forward_hybrid(card: str) -> dict:
         for impl in turns:
             ms.setdefault(impl, []).append(
                 _time_ms(lambda: apis[impl].forward(model, batch), FWD_ITERS))
+        enqueue = {impl: _enqueue_ms(lambda: apis[impl].forward(model, batch))
+                   for impl in ("flash", "xla")}
     log(f"[forward-hybrid] {HYBRID_ARCH} full width ({cfg.num_layers} layers, {firings} "
         f"shared-block firings), B={FWD_BATCH} S={FWD_SEQ} bf16 on {card}, ms per forward "
         f"(median of {FWD_ITERS}, in turns {', '.join(turns)}): "
         + "; ".join(f"{impl} {t[0]:.2f}, {t[1]:.2f}" for impl, t in ms.items()))
+    log(f"[forward-hybrid] host ms to enqueue one forward (median of {FWD_ITERS}, each on a "
+        "drained card): " + "; ".join(f"{impl} {t:.2f}" for impl, t in enqueue.items()))
     del model
     torch.cuda.empty_cache()
     return counts
@@ -1407,7 +1531,7 @@ KERNELS = {
     "hop_accum_bf16": (CU + "ring_hops.cu", TPU + "128"),
     "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu",
                         "src/repro/kernels/flash_attention/kernel.py:75"),
-    "ssd": ("src/repro_torch/kernels/mamba2_ssd/csrc/ssd.cu",
+    "ssd": ("src/repro_torch/kernels/mamba2_ssd/csrc/ssd_wgmma.cu",
             "src/repro/kernels/mamba2_ssd/kernel.py:62"),
     "wkv6": ("src/repro_torch/kernels/rwkv6_scan/csrc/wkv6.cu",
              "src/repro/kernels/rwkv6_scan/kernel.py:60"),
@@ -1419,6 +1543,9 @@ def main() -> int:
     ap.add_argument("--only", choices=("check", "ring4"), default=None,
                     help="check: stop after building and checking the kernels; "
                          "ring4: build, then only the four-card int8 ring")
+    ap.add_argument("--baseline-ssd", type=Path, default=None, metavar="PATH",
+                    help="an earlier ssd source (entry point pax_ssd) to time in turns with "
+                         "the current kernel in [time]")
     args = ap.parse_args()
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
@@ -1461,7 +1588,7 @@ def main() -> int:
         timing = phase_time(n_full)
         timing.update(phase_time_ring(n_full))
         timing.update(phase_time_flash())
-        timing.update(phase_time_scans(card))
+        timing.update(phase_time_scans(card, args.baseline_ssd))
         torch.cuda.empty_cache()
         phase_small_reference()
         launches, uncompressed = phase_main_path()

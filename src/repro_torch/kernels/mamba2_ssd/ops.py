@@ -7,8 +7,10 @@ shared by the heads (Mamba2 with one group), and returns y (Bb, T, H, P) in
 float32.  It casts to float32, checks what the kernel takes, then runs the
 variant the kernel registry (:mod:`repro_torch.kernels`) holds for the
 tensors' device: on a CUDA tensor :func:`launch_ssd`, which launches
-``csrc/ssd.cu`` on the current stream (raising if the launch is refused)
-and adds one to ``ssd_apply.launches``; on a CPU tensor :func:`.ref.ssd`.
+``csrc/ssd_wgmma.cu`` (entry point :data:`ENTRY`: the four products of
+every chunk as 3xTF32 wgmma on the tensor cores) on the current stream
+(raising if the launch is refused) and adds one to ``ssd_apply.launches``;
+on a CPU tensor :func:`.ref.ssd`.
 Any other device raises, and nothing falls back from a CUDA tensor to the
 plain version.
 
@@ -31,29 +33,52 @@ import torch
 from ... import kernels
 from .. import _build
 
-SOURCES = (Path(__file__).with_name("csrc") / "ssd.cu",)
+SOURCES = (Path(__file__).with_name("csrc") / "ssd_wgmma.cu",)
+#: the C entry point that :func:`launch_ssd` calls
+ENTRY = "pax_ssd_wgmma"
 
-#: head widths P, state widths N and chunk lengths the kernel takes: its
-#: shared memory holds the (P, N) state and the chunk's tiles
+#: head widths P, state widths N and chunk lengths the kernel takes: each is
+#: zero-padded to one 64-wide tile in shared memory
 MAX_HEAD_DIM = 64
 MAX_STATE = 64
 MAX_CHUNK = 64
+#: at P = N = chunk = 64, float32 words of B's and C's split tiles per
+#: (batch row, chunk): hi and lo of two 64 x 64 tiles, shared by the heads
+SPLIT_TILE_WORDS = 4 * 64 * 64
 
 _P, _N = ctypes.c_void_p, ctypes.c_longlong
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ssd", SOURCES)
-    lib.pax_ssd.argtypes = [_P] * 7 + [_N] * 6 + [_P]
-    lib.pax_ssd.restype = ctypes.c_int
+    getattr(lib, ENTRY).argtypes = [_P] * 8 + [_N] * 6 + [_P]
+    getattr(lib, ENTRY).restype = ctypes.c_int
+    lib.pax_ssd_wgmma_blocks_per_sm.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.pax_ssd_wgmma_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 
+def blocks_per_sm() -> int:
+    """Blocks of the kernel that one SM of the current card holds at once
+    (its registers and shared memory as built)."""
+    n = ctypes.c_int(0)
+    rc = _lib().pax_ssd_wgmma_blocks_per_sm(ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"pax_ssd_wgmma_blocks_per_sm failed: CUDA error {rc}")
+    return n.value
+
+
 def launch_ssd(x, dt, A, B, C, D, *, chunk: int) -> torch.Tensor:
-    """The ``cuda`` variant of :func:`ssd_apply`: one kernel launch on
-    contiguous float32 tensors."""
+    """The ``cuda`` variant of :func:`ssd_apply`: one call of the kernel's
+    entry point on contiguous float32 tensors (at P = N = chunk = 64 it
+    splits B and C once per batch row and chunk into a scratch buffer, then
+    scans)."""
+    Bb, T, _, Pd = x.shape
+    N = B.shape[-1]
+    full = Pd == N == chunk == MAX_CHUNK
     y = torch.empty_like(x)
-    _build.launch(_lib, "pax_ssd", (x, dt, A, B, C, D, y), *x.shape, B.shape[-1], chunk)
+    tiles = torch.empty(Bb * (T // chunk) * SPLIT_TILE_WORDS if full else 0, device=x.device)
+    _build.launch(_lib, ENTRY, (x, dt, A, B, C, D, y, tiles), *x.shape, N, chunk)
     ssd_apply.launches += 1
     return y
 

@@ -1,10 +1,11 @@
 """Plain PyTorch versions of the Mamba2 SSD scan.
 
-* :func:`ssd` — the function of ``csrc/ssd.cu`` in its layout: x
+* :func:`ssd` — the function of ``csrc/ssd_wgmma.cu`` in its layout: x
   (Bb, T, H, P), dt (Bb, T, H), A and D (H,), B and C (Bb, T, N) shared by
-  the heads, from a zero state, returning y (Bb, T, H, P) in float32.  It
-  is :func:`ssd_chunked` with the final state dropped, and the kernel
-  registry's ``torch`` variant.
+  the heads, from a zero state, returning y (Bb, T, H, P) in the inputs'
+  type (float32 from the wrapper; ``chip_smoke.py`` also runs it in
+  float64 as an oracle).  It is :func:`ssd_chunked` with the final state
+  dropped, and the kernel registry's ``torch`` variant.
 * :func:`ssd_chunked` — the reference's chunked form with a state in and
   out (``repro/models/mamba.py:ssd_chunked``), which the port's
   ``models/mamba.py`` takes from here.
@@ -65,7 +66,7 @@ def ssd_chunked(x, dt, A, B, C, D, state, chunk: int):
 def ssd(x, dt, A, B, C, D, *, chunk: int):
     """The kernel's function: :func:`ssd_chunked` from a zero state, y only."""
     Bb, _, H, Pd = x.shape
-    state = torch.zeros((Bb, H, Pd, B.shape[-1]), dtype=torch.float32, device=x.device)
+    state = torch.zeros((Bb, H, Pd, B.shape[-1]), dtype=x.dtype, device=x.device)
     return ssd_chunked(x, dt, A, B, C, D, state, chunk)[0]
 
 

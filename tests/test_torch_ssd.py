@@ -171,6 +171,92 @@ def test_backward_through_ssd_raises():
 
 
 # ---------------------------------------------------------------------------
+# the tensor-core kernel's arithmetic, checked on the CPU
+# ---------------------------------------------------------------------------
+def test_ssd_sources_are_the_tensor_core_kernel():
+    """The wrapper builds one source, the 3xTF32 wgmma kernel, and launches
+    the entry point it defines."""
+    assert [p.name for p in T_ops.SOURCES] == ["ssd_wgmma.cu"]
+    src = T_ops.SOURCES[0].read_text()
+    assert f'extern "C" int {T_ops.ENTRY}(' in src
+    assert "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32" in src
+    assert not (T_ops.SOURCES[0].parent / "ssd.cu").exists()
+
+
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 stored mantissa bits) as cvt.rna.tf32.f32
+    rounds a finite value: to nearest, ties away from zero."""
+    return ((a.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def test_tf32_rounding_is_nearest_with_ties_away():
+    bits = torch.tensor([0x3F800000, 0x3F800FFF, 0x3F801000, 0x3F801001, 0x3F803000,
+                         0xBF801000 - (1 << 32), 0x3FFFF000, 0x00001000, 0x00000FFF, 0],
+                        dtype=torch.int64).to(torch.int32)
+    want = torch.tensor([0x3F800000, 0x3F800000, 0x3F802000, 0x3F802000, 0x3F804000,
+                         0xBF802000 - (1 << 32), 0x40000000, 0x00002000, 0, 0],
+                        dtype=torch.int64).to(torch.int32)
+    got = _tf32(bits.view(torch.float32)).view(torch.int32)
+    assert got.tolist() == want.tolist()
+    # the low 13 bits are clear, and one rounding moves a value by at most 2^-11 of it
+    a = torch.from_numpy(np.random.default_rng(5).standard_normal(4096).astype(np.float32))
+    r = _tf32(a)
+    assert not (r.view(torch.int32) & 0x1FFF).any()
+    assert float(((r - a).abs() / a.abs()).max()) <= 2.0 ** -11
+
+
+def _tf32_product(eq: str, a, b, terms: int):
+    """einsum of TF32 operands: one rounding each (``terms=1``) or hi + lo,
+    hi.hi + hi.lo + lo.hi (``terms=3``), as the kernel's wgmma.  Summed in
+    float64, so that only the operands' precision is emulated."""
+    ah, bh = _tf32(a), _tf32(b)
+    f64 = torch.float64
+    out = torch.einsum(eq, ah.to(f64), bh.to(f64))
+    if terms == 3:
+        out = (out + torch.einsum(eq, ah.to(f64), _tf32(b - bh).to(f64))
+               + torch.einsum(eq, _tf32(a - ah).to(f64), bh.to(f64)))
+    return out.float()
+
+
+def _ssd_tf32_emulation(x, dt, A, B, C, D, *, chunk: int, terms: int):
+    """The kernel's arithmetic in plain torch: the chunked form from a zero
+    state with each of the four products on TF32 operands; C S^T scaled by
+    exp(la_t) after its product, d on M's diagonal, the state's update in
+    f32 around a fresh product."""
+    Bb, T, H, Pd = x.shape
+    S = torch.zeros((Bb, H, Pd, B.shape[-1]))
+    tri = torch.ones((chunk, chunk), dtype=torch.bool).tril()
+    d_diag = torch.eye(chunk)[..., None] * D                            # (c, c, H)
+    ys = []
+    for c0 in range(0, T, chunk):
+        xc, dtc = x[:, c0:c0 + chunk], dt[:, c0:c0 + chunk]             # (Bb, c, H, P), (Bb, c, H)
+        Bc, Cc = B[:, c0:c0 + chunk], C[:, c0:c0 + chunk]               # (Bb, c, N)
+        la = torch.cumsum(dtc * A, dim=1)                               # (Bb, c, H)
+        G = _tf32_product("btn,bsn->bts", Cc, Bc, terms)
+        decay = torch.exp(torch.where(tri[..., None], la[:, :, None] - la[:, None], -torch.inf))
+        M = G[..., None] * decay * dtc[:, None] + d_diag                  # (Bb, t, s, H)
+        y = (torch.exp(la)[..., None] * _tf32_product("btn,bhpn->bthp", Cc, S, terms)
+             + _tf32_product("btsh,bshp->bthp", M, xc, terms))
+        ys.append(y)
+        kf = torch.exp(la[:, -1:] - la) * dtc                           # (Bb, c, H)
+        S = (torch.exp(la[:, -1])[..., None, None] * S
+             + _tf32_product("bthp,bthn->bhpn", xc, Bc[:, :, None] * kf[..., None], terms))
+    return torch.cat(ys, dim=1)
+
+
+@pytest.mark.parametrize("terms,inside", [(3, True), (1, False)])
+@pytest.mark.parametrize("dist", ["sweep", "model"])
+def test_kernel_needs_three_tf32_products(dist, terms, inside):
+    """3xTF32 stays inside the card's gate (allclose at 3e-4) around the
+    plain chunked form; one TF32 rounding of the operands leaves it."""
+    args = _t(*_inputs(1, 256, 4, 64, 64, dist, seed=6))
+    want = T_ref.ssd(*args, chunk=64)
+    got = _ssd_tf32_emulation(*args, chunk=64, terms=terms)
+    excess = float(((got - want).abs() - 3e-4 - 3e-4 * want.abs()).max())
+    assert (excess <= 0) == inside, (terms, dist, excess, float((got - want).abs().max()))
+
+
+# ---------------------------------------------------------------------------
 # on the card: the CUDA kernel against its plain version (skip here)
 # ---------------------------------------------------------------------------
 @pytest.fixture
@@ -181,9 +267,15 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# the tensor-core kernel's edges: P, N and chunk not multiples of 8 (N=3: rows
+# of 12 bytes), chunk 1, a single chunk
+SSD_EDGES = [(2, 24, 3, 7, 13, 8), (1, 60, 2, 5, 3, 12), (1, 16, 2, 8, 8, 1),
+             (2, 64, 2, 64, 64, 64)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dist", ["sweep", "model"])
-@pytest.mark.parametrize("B,T,H,P,N,chunk", SSD_SWEEP + [(1, 256, 4, 64, 64, 64)])
+@pytest.mark.parametrize("B,T,H,P,N,chunk", SSD_SWEEP + SSD_EDGES + [(1, 256, 4, 64, 64, 64)])
 def test_cuda_ssd_kernel_vs_plain(cuda_device, B, T, H, P, N, chunk, dist):
     args = _inputs(B, T, H, P, N, dist)
     dev = tuple(a.to(cuda_device) for a in _t(*args))
@@ -195,3 +287,20 @@ def test_cuda_ssd_kernel_vs_plain(cuda_device, B, T, H, P, N, chunk, dist):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=3e-4, rtol=3e-4)
     np.testing.assert_allclose(got.cpu().numpy(), _oracle(*args, T_ref.ssd_ref),
                                atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_kernel_takes_misaligned_views(cuda_device):
+    """Views 4 bytes past a 16-byte boundary: the kernel reads 4-byte words."""
+    args = _inputs(2, 128, 3, 64, 64, "model")
+    dev = tuple(a.to(cuda_device) for a in _t(*args))
+    shifted = []
+    for t in dev:
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+        buf[1:] = t.flatten()
+        shifted.append(buf[1:].view(t.shape))
+    assert shifted[0].data_ptr() % 16
+    got = T_ops.ssd_apply(*shifted, chunk=64)
+    want = T_ref.ssd(*dev, chunk=64)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=3e-4, rtol=3e-4)
