@@ -2,10 +2,11 @@
 a plain C interface -> ``ctypes``).
 
 Each library is compiled at first use for ``sm_90a`` into ``build/kernels/``
-at the repository root, named by a digest of its sources, so an edited
-source never loads a stale library.  The compile goes to a temporary file
-that is renamed into place, so concurrent ranks never load a half-written
-library.  Nothing here runs at import.  :func:`launch` is the one place a
+at the repository root, named by a digest of its sources and of the shared
+headers in ``kernels/csrc/`` (which nvcc gets with ``-I``), so an edited
+source or header never loads a stale library.  The compile goes to a
+temporary file that is renamed into place, so concurrent ranks never load a
+half-written library.  Nothing here runs at import.  :func:`launch` is the one place a
 kernel wrapper calls into a library.
 """
 from __future__ import annotations
@@ -23,6 +24,8 @@ import torch
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+#: the headers the kernels' sources share (``#include "tf32_wgmma.cuh"``)
+INCLUDE_DIR = Path(__file__).with_name("csrc")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -38,9 +41,14 @@ def nvcc() -> str:
                        "are compiled on the machine with the card")
 
 
+def headers() -> list:
+    """The shared headers, each part of every library's digest."""
+    return sorted(INCLUDE_DIR.glob("*.cuh"))
+
+
 def library_path(name: str, sources) -> Path:
     h = hashlib.sha1()
-    for src in sources:
+    for src in (*sources, *headers()):
         h.update(Path(src).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
@@ -57,7 +65,7 @@ def build(name: str, sources) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
+    cmd = [nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v", f"-I{INCLUDE_DIR}",
            "-shared", "-Xcompiler", "-fPIC", "-o", tmp, *map(str, sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:

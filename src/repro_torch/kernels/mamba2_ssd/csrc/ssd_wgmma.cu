@@ -38,7 +38,11 @@
 // inside it (3.1e-5 and 2.3e-5; tests/test_torch_ssd.py holds both
 // emulations to the gate).  Both terms are rounded explicitly, to nearest
 // with ties away as cvt.rna.tf32.f32 rounds (wgmma would truncate a raw f32
-// bit pattern, and lo must be what the hardware's hi leaves out).  The
+// bit pattern, and lo must be what the hardware's hi leaves out), without the
+// shared split's screen for NaN and the top of the range: every exponent
+// here is <= 0, so finite inputs make no non-finite value, and with the
+// screen the generic path's registers spill (264 bytes; measured on the
+// card).  The
 // cumsum, the exponentials, the mask and the dt and exp(la_end - la)
 // scalings stay f32 on the CUDA cores, and so does the state's update: the
 // state product goes to a fresh accumulator each chunk, added to
@@ -96,8 +100,9 @@
 // * P = N = chunk = 64 (the repo's Mamba2 configs) is a compile-time case
 //   of the same code (kFull), free of bounds tests.
 //
-// The helpers above the kernel (the TF32 split, the tile layout, the
-// descriptors and the m64n64k8 tf32 wgmma forms) know nothing of the scan.
+// The helpers (the TF32 split, the tile layout, the descriptors, the tf32
+// wgmma forms, the bulk copy) know nothing of the scan; they live in
+// kernels/csrc/tf32_wgmma.cuh, shared with the wkv6 scan.
 //
 // The launches use the caller's stream, allocate nothing (the caller passes
 // the split tiles' buffer) and do not synchronise; the entry point returns
@@ -106,172 +111,17 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32_wgmma.cuh"
+
 namespace {
+
+using namespace pax_tf32;
 
 constexpr int kThreads = 128;                // one warpgroup
 constexpr int kTile = 64;                    // every operand tile is 64 x 64 f32
 constexpr int kTileBytes = kTile * kTile * 4;
-constexpr int kBoxBytes = kTile * 16;        // one column box: 4 floats x 64 rows
 constexpr int kMax = 64;                     // P, N and chunk
 constexpr int kSmem = 6 * kTileBytes + 4 * kTile * 4 + 2 * 8;  // tiles, vectors, mbarriers
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// -- TF32 ------------------------------------------------------------------
-// a rounded to TF32 as cvt.rna.tf32.f32 rounds a finite value (to nearest,
-// ties away from zero), in two integer operations: the conversion itself
-// compiles to a longer sequence that also screens NaN and infinity.
-__device__ __forceinline__ uint32_t tf32_rna(float a) {
-  return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
-}
-// a -> hi = tf32(a) and lo = tf32(a - hi): hi + lo carries 21 of a's bits.
-__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(a);
-  lo = tf32_rna(a - __uint_as_float(hi));
-}
-
-// -- 64 x 64 K-major tiles, no swizzle ---------------------------------------
-// Byte offset of (row, col), col along K: column box col / 4, row's 16 bytes.
-__device__ __forceinline__ int tile_off(int row, int col) {
-  return (col >> 2) * kBoxBytes + row * 16 + (col & 3) * 4;
-}
-// A hi/lo pair is two tiles, lo kTileBytes after hi.
-__device__ __forceinline__ void put_split(uint8_t* pair, int off, float a) {
-  uint32_t hi, lo;
-  split_tf32(a, hi, lo);
-  *reinterpret_cast<uint32_t*>(pair + off) = hi;
-  *reinterpret_cast<uint32_t*>(pair + kTileBytes + off) = lo;
-}
-// Two K-neighbours (col even) in one 8-byte store per term.
-__device__ __forceinline__ void put_split2(uint8_t* pair, int off, float a, float b) {
-  uint2 hi, lo;
-  split_tf32(a, hi.x, lo.x);
-  split_tf32(b, hi.y, lo.y);
-  *reinterpret_cast<uint2*>(pair + off) = hi;
-  *reinterpret_cast<uint2*>(pair + kTileBytes + off) = lo;
-}
-// The 128-byte line of global memory at p into L2.
-__device__ __forceinline__ void prefetch_l2(const float* p) {
-  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
-}
-// -- mbarrier and bulk copies (TMA without a tensor map) --------------------
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-// `bytes` (a multiple of 16, both ends 16-byte aligned) from global memory to
-// shared memory, completing on `bar` (armed here for exactly these bytes).
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-// Generic-proxy writes to shared memory, made visible to wgmma's reads.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// -- wgmma ------------------------------------------------------------------
-// Shared-memory matrix descriptor, no swizzle: start address, LBO (the byte
-// step between core matrices along K) and SBO (along M or N), each >> 4.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
-}
-// k8 step kk of a 64 x 64 tile: column boxes 2 kk and 2 kk + 1.
-__device__ __forceinline__ uint64_t tile_desc(uint32_t tile, int kk) {
-  return desc(tile + kk * 2 * kBoxBytes, kBoxBytes, 128);
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// Keeps the compiler from moving reads or writes of wgmma's registers across
-// the asynchronous instructions.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// d[64 x 64] (+)= A[64 x 8] . B[8 x 64], tf32, both K-major in shared memory.
-__device__ __forceinline__ void mma_ss(float* d, uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[64 x 64] (+)= A[64 x 8] (registers, tf32) . B[8 x 64], B K-major in shared memory.
-__device__ __forceinline__ void mma_rs(float* d, const uint32_t* a, uint64_t db,
-                                       int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-// d (+)= A . B^T over `ksteps` k8 steps in 3xTF32, A and B hi/lo tile pairs.
-__device__ __forceinline__ void mma_ss_3x(float* d, uint32_t a, uint32_t b, int ksteps,
-                                          int accumulate) {
-#pragma unroll
-  for (int kk = 0; kk < kTile / 8; ++kk) {
-    if (kk < ksteps) {
-      const uint64_t ah = tile_desc(a, kk), al = tile_desc(a + kTileBytes, kk);
-      const uint64_t bh = tile_desc(b, kk), bl = tile_desc(b + kTileBytes, kk);
-      mma_ss(d, ah, bl, accumulate || kk > 0);
-      mma_ss(d, al, bh, 1);
-      mma_ss(d, ah, bh, 1);
-    }
-  }
-}
 
 // C and B of one (batch row, chunk), at N = chunk = 64, as the hi/lo tiles
 // the scan reads (C (t, n~) hi, lo, then B (s, n~) hi, lo: 64 KB), so that
@@ -294,9 +144,9 @@ ssd_split_bc(const float* __restrict__ Bm, const float* __restrict__ Cm,
     for (int g = 0; g < 8; ++g) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int n = 8 * g + 2 * m + e, off = tile_off(t, 8 * g + m + 4 * e);
-        put_split(out, off, cc[t * kTile + n]);
-        put_split(out + 2 * kTileBytes, off, bc[t * kTile + n]);
+        const int n = 8 * g + 2 * m + e, off = tile_off<kTile>(t, 8 * g + m + 4 * e);
+        put_split<kTileBytes, false>(out, off, cc[t * kTile + n]);
+        put_split<kTileBytes, false>(out + 2 * kTileBytes, off, bc[t * kTile + n]);
       }
     }
   }
@@ -431,8 +281,9 @@ ssd_fwd_wgmma(const float* __restrict__ x, const float* __restrict__ dt,
         for (int g = 0; g < 8; ++g) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            put_split(c_t, tile_off(8 * (2 * warp + u) + tr, 8 * g + m + 4 * e),
-                      cv[16 * u + 2 * g + e]);
+            put_split<kTileBytes, false>(
+                c_t, tile_off<kTile>(8 * (2 * warp + u) + tr, 8 * g + m + 4 * e),
+                cv[16 * u + 2 * g + e]);
           }
         }
       }
@@ -441,7 +292,8 @@ ssd_fwd_wgmma(const float* __restrict__ x, const float* __restrict__ dt,
         const int t = 4 * (4 * warp + v) + lane / 8;
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
-          put_split(w_t, tile_off(t, 8 * k + r / 2 + 4 * (r % 2)), bv[4 * k + v]);
+          put_split<kTileBytes, false>(w_t, tile_off<kTile>(t, 8 * k + r / 2 + 4 * (r % 2)),
+                                       bv[4 * k + v]);
         }
       }
     }
@@ -449,7 +301,9 @@ ssd_fwd_wgmma(const float* __restrict__ x, const float* __restrict__ dt,
     for (int v = 0; v < 4; ++v) {
       const int t = 4 * (4 * warp + v) + lane / 8;
 #pragma unroll
-      for (int k = 0; k < 8; ++k) put_split(x_t, tile_off(8 * k + r, t), xv[4 * k + v]);
+      for (int k = 0; k < 8; ++k) {
+        put_split<kTileBytes, false>(x_t, tile_off<kTile>(8 * k + r, t), xv[4 * k + v]);
+      }
     }
     // warp 0: la = cumsum(dt a) as a warp scan, exp(la), exp(la_end - la) dt
     if (warp == 0) {
@@ -486,9 +340,9 @@ ssd_fwd_wgmma(const float* __restrict__ x, const float* __restrict__ dt,
     for (int i = 0; i < 32; ++i) acc[i] = 0.f;  // (not live across the loads)
     fence_regs<32>(acc);
     wgmma_fence();
-    mma_ss_3x(acc, c_addr, w_addr, kN, 0);
+    mma_ss_3x<64, kTile, kTileBytes, kTile, kTileBytes, kTile / 8>(acc, c_addr, w_addr, kN, 0);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs<32>(acc);
 
     // 3. M = G * exp(la_t - la_s) * dt_s on and below the diagonal, plus d on
@@ -508,7 +362,7 @@ ssd_fwd_wgmma(const float* __restrict__ x, const float* __restrict__ dt,
           const float mts = acc[4 * j + 2 * i + c] * __expf(la_t - la[s]) * dts[s];
           mv[c] = (t < C && s <= t) ? (s == t ? mts + dskip : mts) : 0.f;
         }
-        put_split2(w_t, tile_off(t, 8 * j + c0), mv[0], mv[1]);
+        put_split2<kTileBytes, false>(w_t, tile_off<kTile>(t, 8 * j + c0), mv[0], mv[1]);
       }
     }
     fence_async_smem();
@@ -523,10 +377,10 @@ ssd_fwd_wgmma(const float* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) {
         const int j = 2 * quarter + jj;
-        split_tf32(S[4 * j + 0], s_hi[4 * jj + 0], s_lo[4 * jj + 0]);  // (r0, 2q)
-        split_tf32(S[4 * j + 2], s_hi[4 * jj + 1], s_lo[4 * jj + 1]);  // (r0 + 8, 2q)
-        split_tf32(S[4 * j + 1], s_hi[4 * jj + 2], s_lo[4 * jj + 2]);  // (r0, 2q + 1)
-        split_tf32(S[4 * j + 3], s_hi[4 * jj + 3], s_lo[4 * jj + 3]);  // (r0 + 8, 2q + 1)
+        split_tf32<false>(S[4 * j + 0], s_hi[4 * jj + 0], s_lo[4 * jj + 0]);  // (r0, 2q)
+        split_tf32<false>(S[4 * j + 2], s_hi[4 * jj + 1], s_lo[4 * jj + 1]);  // (r0 + 8, 2q)
+        split_tf32<false>(S[4 * j + 1], s_hi[4 * jj + 2], s_lo[4 * jj + 2]);  // (r0, 2q + 1)
+        split_tf32<false>(S[4 * j + 3], s_hi[4 * jj + 3], s_lo[4 * jj + 3]);  // (r0 + 8, 2q + 1)
       }
       if (2 * quarter < kN) {
         fence_regs<8>(s_hi);
@@ -537,14 +391,15 @@ ssd_fwd_wgmma(const float* __restrict__ x, const float* __restrict__ dt,
         for (int jj = 0; jj < 2; ++jj) {
           const int kk = 2 * quarter + jj;
           if (kk < kN) {
-            const uint64_t bh = tile_desc(c_addr, kk), bl = tile_desc(c_addr + kTileBytes, kk);
-            mma_rs(acc, s_hi + 4 * jj, bl, kk > 0);
-            mma_rs(acc, s_lo + 4 * jj, bh, 1);
-            mma_rs(acc, s_hi + 4 * jj, bh, 1);
+            const uint64_t bh = tile_desc<kTile>(c_addr, kk);
+            const uint64_t bl = tile_desc<kTile>(c_addr + kTileBytes, kk);
+            mma_rs<64>(acc, s_hi + 4 * jj, bl, kk > 0);
+            mma_rs<64>(acc, s_lo + 4 * jj, bh, 1);
+            mma_rs<64>(acc, s_hi + 4 * jj, bh, 1);
           }
         }
         wgmma_commit();
-        wgmma_wait_all();
+        wgmma_wait<0>();
         fence_regs<32>(acc);
       }
     }
@@ -563,7 +418,7 @@ ssd_fwd_wgmma(const float* __restrict__ x, const float* __restrict__ dt,
     // then y = Y^T at rows t < C, columns p < P
     fence_regs<32>(acc);
     wgmma_fence();
-    mma_ss_3x(acc, x_addr, w_addr, kC, 1);
+    mma_ss_3x<64, kTile, kTileBytes, kTile, kTileBytes, kTile / 8>(acc, x_addr, w_addr, kC, 1);
     wgmma_commit();
 #pragma unroll
     for (int v = 0; v < 4; ++v) {
@@ -574,7 +429,7 @@ ssd_fwd_wgmma(const float* __restrict__ x, const float* __restrict__ dt,
         bv[4 * k + v] = (t < C && n < N) ? bc[t * N + n] : 0.f;
       }
     }
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs<32>(acc);
     float* yc = y + xbase + static_cast<long long>(t0) * xrow;
 #pragma unroll
@@ -602,7 +457,8 @@ ssd_fwd_wgmma(const float* __restrict__ x, const float* __restrict__ dt,
       const float k = kf[t];
 #pragma unroll
       for (int nb = 0; nb < 8; ++nb) {
-        put_split(w_t, tile_off(8 * nb + lane % 8, t), bv[4 * nb + v] * k);
+        put_split<kTileBytes, false>(w_t, tile_off<kTile>(8 * nb + lane % 8, t),
+                                     bv[4 * nb + v] * k);
       }
     }
     fence_async_smem();
@@ -611,9 +467,9 @@ ssd_fwd_wgmma(const float* __restrict__ x, const float* __restrict__ dt,
     // 8. S = exp(la_end) S + x^T (B kf), the product in a fresh accumulator
     // and the sum in f32
     wgmma_fence();
-    mma_ss_3x(acc, x_addr, w_addr, kC, 0);
+    mma_ss_3x<64, kTile, kTileBytes, kTile, kTileBytes, kTile / 8>(acc, x_addr, w_addr, kC, 0);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs<32>(acc);
     const float a_end = ela[C - 1];
 #pragma unroll

@@ -3,5 +3,6 @@ only.
 
 ``ops`` holds the wrapper (CUDA kernel for CUDA tensors, plain version for
 CPU tensors), ``ref`` the plain PyTorch versions and the sequential
-oracle, ``csrc`` the CUDA source (``wkv6.cu``).
+oracle, ``csrc`` the CUDA source (``wkv6_wgmma.cu``, 3xTF32 on the tensor
+cores).
 """

@@ -6,14 +6,17 @@ and u (H, N), as the reference's ``wkv6_apply`` does, and returns
 y (B, T, H, N) in float32.  It casts to float32, checks what the kernel
 takes, then runs the variant the kernel registry (:mod:`repro_torch.kernels`)
 holds for the tensors' device: on a CUDA tensor :func:`launch_wkv6`, which
-launches ``csrc/wkv6.cu`` on the current stream (raising if the launch is
-refused) and adds one to ``wkv6_apply.launches``; on a CPU tensor
-:func:`.ref.wkv6`.  Any other device raises, and nothing falls back from a
-CUDA tensor to the plain version.
+launches ``csrc/wkv6_wgmma.cu`` (entry point :data:`ENTRY`: the four
+products of every chunk as 3xTF32 wgmma on the tensor cores) on the current
+stream (raising if the launch is refused) and adds one to
+``wkv6_apply.launches``; on a CPU tensor :func:`.ref.wkv6`.  Any other
+device raises, and nothing falls back from a CUDA tensor to the plain
+version.
 
 Unlike the reference's wrapper, nothing is transposed to (B*H, T, N): the
-kernel reads the model layout in place, one (b, h) per thread block, so the
-wrapper copies only what is not already contiguous float32.
+kernel reads the model layout in place, one (b, h) per thread block, at any
+4-byte aligned base, so the wrapper copies only what is not already
+contiguous float32.
 
 Forward only.  The reference trains through its lax ``wkv6_chunked``, not
 through this kernel; both variants here run inside an autograd function
@@ -29,10 +32,12 @@ import torch
 from ... import kernels
 from .. import _build
 
-SOURCES = (Path(__file__).with_name("csrc") / "wkv6.cu",)
+SOURCES = (Path(__file__).with_name("csrc") / "wkv6_wgmma.cu",)
+#: the C entry point that :func:`launch_wkv6` calls
+ENTRY = "pax_wkv6_wgmma"
 
-#: head widths N and chunk lengths the kernel takes: its shared memory holds
-#: the (N, N) state and seven tiles of a chunk
+#: head widths N and chunk lengths the kernel takes: each is zero-padded to
+#: one tile of 64 channels and of 32 or 64 steps
 MAX_HEAD_DIM = 64
 MAX_CHUNK = 64
 
@@ -41,16 +46,28 @@ _P, _N = ctypes.c_void_p, ctypes.c_longlong
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("wkv6", SOURCES)
-    lib.pax_wkv6.argtypes = [_P] * 6 + [_N] * 5 + [_P]
-    lib.pax_wkv6.restype = ctypes.c_int
+    getattr(lib, ENTRY).argtypes = [_P] * 6 + [_N] * 5 + [_P]
+    getattr(lib, ENTRY).restype = ctypes.c_int
+    lib.pax_wkv6_wgmma_blocks_per_sm.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.pax_wkv6_wgmma_blocks_per_sm.restype = ctypes.c_int
     return lib
+
+
+def blocks_per_sm() -> int:
+    """Blocks of the kernel at N = 64, chunk 32 that one SM of the current
+    card holds at once (its registers and shared memory as built)."""
+    n = ctypes.c_int(0)
+    rc = _lib().pax_wkv6_wgmma_blocks_per_sm(ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"pax_wkv6_wgmma_blocks_per_sm failed: CUDA error {rc}")
+    return n.value
 
 
 def launch_wkv6(r, k, v, wlog, u, *, chunk: int) -> torch.Tensor:
     """The ``cuda`` variant of :func:`wkv6_apply`: one kernel launch on
     contiguous float32 tensors."""
     y = torch.empty_like(r)
-    _build.launch(_lib, "pax_wkv6", (r, k, v, wlog, u, y), *r.shape, chunk)
+    _build.launch(_lib, ENTRY, (r, k, v, wlog, u, y), *r.shape, chunk)
     wkv6_apply.launches += 1
     return y
 

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the WKV6 scan.
 
-* :func:`wkv6` — the function of ``csrc/wkv6.cu`` in its layout: r, k, v
+* :func:`wkv6` — the function of ``csrc/wkv6_wgmma.cu`` in its layout: r, k, v
   and wlog (B, T, H, N), u (H, N), from a zero state, returning
-  y (B, T, H, N) in float32.  It is :func:`wkv6_chunked` with the final
+  y (B, T, H, N) in their type (float32 on the kernel's path, float64 for
+  ``chip_smoke.py``'s full-width comparison).  It is :func:`wkv6_chunked` with the final
   state dropped, and the kernel registry's ``torch`` variant.
 * :func:`wkv6_chunked` — the reference's chunked matmul form with a state
   in and out (``repro/models/rwkv.py:wkv6_chunked``), which the port's
@@ -50,7 +51,7 @@ def wkv6_chunked(r, k, v, wlog, u, state, chunk: int):
 def wkv6(r, k, v, wlog, u, *, chunk: int):
     """The kernel's function: :func:`wkv6_chunked` from a zero state, y only."""
     B, _, H, N = r.shape
-    state = torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+    state = torch.zeros((B, H, N, N), dtype=r.dtype, device=r.device)
     return wkv6_chunked(r, k, v, wlog, u, state, chunk)[0]
 
 

@@ -28,9 +28,12 @@ from repro.models.mamba import ssd_chunked as r_ssd_chunked
 from repro.models.mamba import ssd_step as r_ssd_step
 
 from repro_torch import kernels as T_kernels
+from repro_torch.kernels import _build as T_build
 from repro_torch.kernels.mamba2_ssd import ops as T_ops
 from repro_torch.kernels.mamba2_ssd import ref as T_ref
 from repro_torch.models import mamba as t_mamba
+
+from _torch_tf32 import _tf32, _tf32_product
 
 # the reference's sweep (tests/test_kernels.py:SSD_SWEEP)
 SSD_SWEEP = [
@@ -175,18 +178,15 @@ def test_backward_through_ssd_raises():
 # ---------------------------------------------------------------------------
 def test_ssd_sources_are_the_tensor_core_kernel():
     """The wrapper builds one source, the 3xTF32 wgmma kernel, and launches
-    the entry point it defines."""
+    the entry point it defines; its wgmma forms are in the header it
+    includes."""
     assert [p.name for p in T_ops.SOURCES] == ["ssd_wgmma.cu"]
     src = T_ops.SOURCES[0].read_text()
     assert f'extern "C" int {T_ops.ENTRY}(' in src
-    assert "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32" in src
+    assert '#include "tf32_wgmma.cuh"' in src
+    header = (T_build.INCLUDE_DIR / "tf32_wgmma.cuh").read_text()
+    assert "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32" in header
     assert not (T_ops.SOURCES[0].parent / "ssd.cu").exists()
-
-
-def _tf32(a: torch.Tensor) -> torch.Tensor:
-    """float32 rounded to TF32 (10 stored mantissa bits) as cvt.rna.tf32.f32
-    rounds a finite value: to nearest, ties away from zero."""
-    return ((a.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
 def test_tf32_rounding_is_nearest_with_ties_away():
@@ -203,19 +203,6 @@ def test_tf32_rounding_is_nearest_with_ties_away():
     r = _tf32(a)
     assert not (r.view(torch.int32) & 0x1FFF).any()
     assert float(((r - a).abs() / a.abs()).max()) <= 2.0 ** -11
-
-
-def _tf32_product(eq: str, a, b, terms: int):
-    """einsum of TF32 operands: one rounding each (``terms=1``) or hi + lo,
-    hi.hi + hi.lo + lo.hi (``terms=3``), as the kernel's wgmma.  Summed in
-    float64, so that only the operands' precision is emulated."""
-    ah, bh = _tf32(a), _tf32(b)
-    f64 = torch.float64
-    out = torch.einsum(eq, ah.to(f64), bh.to(f64))
-    if terms == 3:
-        out = (out + torch.einsum(eq, ah.to(f64), _tf32(b - bh).to(f64))
-               + torch.einsum(eq, _tf32(a - ah).to(f64), bh.to(f64)))
-    return out.float()
 
 
 def _ssd_tf32_emulation(x, dt, A, B, C, D, *, chunk: int, terms: int):

@@ -14,6 +14,8 @@ reference's own functions (its oracle, ``wkv6_chunked`` with a state,
 ``wkv6_step``) at 2e-5: the same float32 arithmetic summed in another
 order.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -26,9 +28,13 @@ from repro.models.rwkv import wkv6_chunked as r_wkv6_chunked
 from repro.models.rwkv import wkv6_step as r_wkv6_step
 
 from repro_torch import kernels as T_kernels
+from repro_torch.kernels import _build as T_build
+from repro_torch.kernels.mamba2_ssd import ops as T_ssd_ops
 from repro_torch.kernels.rwkv6_scan import ops as T_ops
 from repro_torch.kernels.rwkv6_scan import ref as T_ref
 from repro_torch.models import rwkv as t_rwkv
+
+from _torch_tf32 import TF32_TOP, _tf32, _tf32_product
 
 # the reference's sweep (tests/test_kernels.py:WKV_SWEEP)
 WKV_SWEEP = [
@@ -164,6 +170,106 @@ def test_backward_through_wkv6_raises():
 
 
 # ---------------------------------------------------------------------------
+# the tensor-core kernel's sources and arithmetic, checked on the CPU
+# ---------------------------------------------------------------------------
+def test_wkv6_sources_are_the_tensor_core_kernel():
+    """The wrapper builds one source, the 3xTF32 wgmma kernel, and launches
+    the entry point it defines; the CUDA-core ``wkv6.cu`` is gone."""
+    assert [p.name for p in T_ops.SOURCES] == ["wkv6_wgmma.cu"]
+    src = T_ops.SOURCES[0].read_text()
+    assert f'extern "C" int {T_ops.ENTRY}(' in src
+    assert '#include "tf32_wgmma.cuh"' in src
+    header = (T_build.INCLUDE_DIR / "tf32_wgmma.cuh").read_text()
+    for shape in ("m64n32k8", "m64n64k8"):
+        assert f"wgmma.mma_async.sync.aligned.{shape}.f32.tf32.tf32" in header
+    assert not (T_ops.SOURCES[0].parent / "wkv6.cu").exists()
+
+
+def test_build_digest_covers_the_shared_header(tmp_path, monkeypatch):
+    """Both scan kernels include the shared header, and an edited header
+    names another library, so a stale build is never loaded."""
+    for ops in (T_ops, T_ssd_ops):
+        assert '#include "tf32_wgmma.cuh"' in ops.SOURCES[0].read_text()
+    assert T_build.INCLUDE_DIR / "tf32_wgmma.cuh" in T_build.headers()
+    src = tmp_path / "k.cu"
+    src.write_text('#include "h.cuh"\n')
+    header = tmp_path / "h.cuh"
+    header.write_text("// one\n")
+    monkeypatch.setattr(T_build, "INCLUDE_DIR", tmp_path)
+    before = T_build.library_path("k", [src])
+    assert T_build.library_path("k", [src]) == before
+    header.write_text("// two\n")
+    assert T_build.library_path("k", [src]) != before
+
+
+def test_tf32_split_keeps_non_finite_values():
+    """The split's hi term, which the emulations round with: the card's NaN
+    (0x7fffffff, which rounding to nearest in integers would carry into the
+    sign bit as -0) stays NaN, infinities stay infinite, and the top of the
+    finite range is truncated instead of rounded to infinity; the header's
+    threshold is the emulation's.  A NaN that the wkv6 kernel's products
+    make, 0 * inf or inf - inf where the factorised form overflows, so stays
+    non-finite through the split of A for the last product."""
+    bits = torch.tensor([0x7FFFFFFF, -1, 0x7FC00000, 0x7F800000, 0xFF800000 - (1 << 32),
+                         0x7F7FFFFF, 0x7F7FF000, 0x7F7FEFFF, 0x3F801000],
+                        dtype=torch.int64).to(torch.int32)
+    want = torch.tensor([0x7FFFE000, 0xFFFFE000 - (1 << 32), 0x7FC00000, 0x7F800000,
+                         0xFF800000 - (1 << 32), 0x7F7FE000, 0x7F7FE000, 0x7F7FE000, 0x3F802000],
+                        dtype=torch.int64).to(torch.int32)
+    got = _tf32(bits.view(torch.float32))
+    assert got.view(torch.int32).tolist() == want.tolist()
+    assert torch.isnan(got[:3]).all() and torch.isinf(got[3:5]).all()
+    assert torch.isfinite(got[5:]).all()
+    header = (T_build.INCLUDE_DIR / "tf32_wgmma.cuh").read_text()
+    top = re.search(r"constexpr float kTf32Top = (\S+)f;", header)
+    assert top and float.fromhex(top.group(1)) == TF32_TOP
+    assert "fabsf(a) < kTf32Top ? tf32_rna(a) : __float_as_uint(a) & 0xffffe000u" in header
+    # the wkv6 kernel keeps the screen (the default) at every split
+    src = T_ops.SOURCES[0].read_text()
+    assert "split" in src and "false>" not in src
+
+
+def _wkv6_tf32_emulation(r, k, v, wlog, u, *, chunk: int, terms: int):
+    """The kernel's arithmetic in plain torch: the chunked form from a zero
+    state with each of the four products on TF32 operands; q~'s exponent
+    the step before's la; the bonus d on the diagonal of the masked
+    q~ k~^T, S q~ and M v summed into one output, the state's update in f32
+    around a fresh product."""
+    B, T, H, N = r.shape
+    S = torch.zeros((B, H, N, N))
+    tri = torch.ones((chunk, chunk), dtype=torch.bool).tril(-1)
+    eye = torch.eye(chunk, dtype=torch.bool)
+    ys = []
+    for c0 in range(0, T, chunk):
+        rc, kc, vc, wc = (x[:, c0:c0 + chunk].transpose(1, 2) for x in (r, k, v, wlog))
+        la = torch.cumsum(wc, dim=2)                                     # (B, H, c, N)
+        la_prev = torch.cat([torch.zeros_like(la[:, :, :1]), la[:, :, :-1]], dim=2)
+        q_t, k_t = rc * torch.exp(la_prev), kc * torch.exp(-la)
+        A = _tf32_product("bhti,bhsi->bhts", q_t, k_t, terms)
+        d = (rc * (u[None, :, None, :] * kc)).sum(-1)                    # (B, H, c)
+        M = torch.where(tri, A, torch.where(eye, d[..., None], 0.0))
+        y = _tf32_product("bhti,bhij->bhtj", q_t, S, terms) + _tf32_product(
+            "bhts,bhsj->bhtj", M, vc, terms)
+        ys.append(y.transpose(1, 2))
+        kk = kc * torch.exp(la[:, :, -1:] - la)
+        S = torch.exp(la[:, :, -1])[..., None] * S + _tf32_product("bhti,bhtj->bhij", kk, vc,
+                                                                     terms)
+    return torch.cat(ys, dim=1)
+
+
+@pytest.mark.parametrize("terms,inside", [(3, True), (1, False)])
+@pytest.mark.parametrize("dist", ["sweep", "model"])
+def test_kernel_needs_three_tf32_products(dist, terms, inside):
+    """3xTF32 stays inside the card's gate (allclose at 3e-4) around the
+    plain chunked form; one TF32 rounding of the operands leaves it."""
+    args = _t(*_inputs(1, 256, 4, 64, dist, seed=6))
+    want = T_ref.wkv6(*args, chunk=32)
+    got = _wkv6_tf32_emulation(*args, chunk=32, terms=terms)
+    excess = float(((got - want).abs() - 3e-4 - 3e-4 * want.abs()).max())
+    assert (excess <= 0) == inside, (terms, dist, excess, float((got - want).abs().max()))
+
+
+# ---------------------------------------------------------------------------
 # on the card: the CUDA kernel against its plain version (skip here)
 # ---------------------------------------------------------------------------
 @pytest.fixture
@@ -174,9 +280,16 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# the tensor-core kernel's edges: N and chunk not multiples of 8 (N=3: rows of
+# 12 bytes), chunk 1, a single chunk (of 32 steps at N=64, of 40 at N=16),
+# chunk 64 at N=64
+WKV_EDGES = [(2, 48, 3, 13, 12), (1, 60, 2, 3, 5), (1, 16, 2, 8, 1), (2, 32, 3, 64, 32),
+             (1, 40, 2, 16, 40), (1, 256, 2, 64, 64)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dist", ["sweep", "model"])
-@pytest.mark.parametrize("B,T,H,N,chunk", WKV_SWEEP + [(1, 256, 4, 64, 32)])
+@pytest.mark.parametrize("B,T,H,N,chunk", WKV_SWEEP + WKV_EDGES + [(1, 256, 4, 64, 32)])
 def test_cuda_wkv6_kernel_vs_plain(cuda_device, B, T, H, N, chunk, dist):
     args = _inputs(B, T, H, N, dist)
     dev = tuple(a.to(cuda_device) for a in _t(*args))
@@ -185,6 +298,29 @@ def test_cuda_wkv6_kernel_vs_plain(cuda_device, B, T, H, N, chunk, dist):
     assert T_ops.wkv6_apply.launches == before + 1
     want = T_ref.wkv6(*dev, chunk=chunk)
     torch.cuda.synchronize()
+    # where the factorised form overflows (ROADMAP queue 3) the plain form is
+    # not finite, and the kernel, which computes the same function, must not
+    # be either; both gates hold at every other output
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    ok = np.isfinite(want)
+    np.testing.assert_array_equal(np.isfinite(got), ok)
+    np.testing.assert_allclose(got[ok], want[ok], atol=3e-4, rtol=3e-4)
+    np.testing.assert_allclose(got[ok], _oracle(*args, T_ref.wkv6_ref)[ok], atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_wkv6_kernel_takes_misaligned_views(cuda_device):
+    """Views 4 bytes past a 16-byte boundary: the kernel reads them 4 bytes
+    at a time (its 16-byte copies need aligned rows)."""
+    args = _inputs(2, 128, 3, 64, "model")
+    dev = tuple(a.to(cuda_device) for a in _t(*args))
+    shifted = []
+    for t in dev:
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+        buf[1:] = t.flatten()
+        shifted.append(buf[1:].view(t.shape))
+    assert shifted[0].data_ptr() % 16
+    got = T_ops.wkv6_apply(*shifted, chunk=32)
+    want = T_ref.wkv6(*dev, chunk=32)
+    torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=3e-4, rtol=3e-4)
-    np.testing.assert_allclose(got.cpu().numpy(), _oracle(*args, T_ref.wkv6_ref),
-                               atol=5e-4, rtol=5e-4)
