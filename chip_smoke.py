@@ -4,6 +4,7 @@
     python3 chip_smoke.py               # every phase, one card
     python3 chip_smoke.py --only check  # build + [check] only (a first run)
     python3 chip_smoke.py --only ring4  # build + [ring4] only, four cards
+    python3 chip_smoke.py --only serve  # [serve] only (no kernel to build)
     python3 chip_smoke.py --baseline wkv6=build/wkv6_parent.cu  # [time] also an earlier wkv6
 
 ``--baseline NAME=PATH`` (repeatable; NAME ``wkv6`` or ``ssd``) builds an
@@ -100,7 +101,21 @@ Phases (any failure exits non-zero and prints no result line):
    layers, zamba2 6 so that the shared block fires once), float32, B=1,
    S=256, the same CPU-drawn weights: the card runs the kernels, the CPU
    their plain versions, and the logits agree within 1e-3;
-12. print the kernels' record as one JSON line, the card's name and power
+12. [serve] full-width qwen2-0.5b (bf16, seed 0) behind
+   ``ServeEngine(max_batch=8, block_size=16, prefill_chunk=32, max_seq=640)``
+   with a ``decode-tp`` plan group on NCCL: 16 greedy and 2 sampled requests
+   (prompts 64-512 from ``default_rng(0)``, 64 new tokens) served
+   continuously, then 4 greedy and both sampled ones one at a time with the
+   same tokens; one ``decode-tp`` call per decode step, no live KV block at
+   the end and no kernel launched (serving runs none); ms per decode step
+   and per prefill chunk (stream time between CUDA events, host enqueue,
+   wall on a drained card), a ``torch.profiler`` breakdown of both, the
+   logits copy, tokens/s, ``launch.bench_serve``'s open-loop p50/p99 (32
+   requests, gap 2 steps, and again at 0.8 of the admission capacity),
+   and the engine on the card against the engine on the CPU at 2 layers in
+   f32 (logits within 1e-3, greedy tokens equal up to the first CPU top-2
+   margin below 1e-3);
+13. print the kernels' record as one JSON line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 Each main path zeroes the launch counts just before it and reads them just
@@ -1495,6 +1510,374 @@ def phase_card_vs_cpu() -> None:
         torch.cuda.empty_cache()
 
 
+#: [serve]: full-width qwen2-0.5b behind the continuous-batching engine with
+#: the reference launcher's pages and chunks
+SERVE_ENGINE = dict(max_batch=8, block_size=16, prefill_chunk=32, max_seq=640)
+SERVE_GREEDY, SERVE_NEW = 16, 64
+SERVE_PROMPTS = (64, 512)                 # prompt lengths, drawn inclusive
+SERVE_ORACLE = (0, 5, 10, 15)             # greedy requests replayed one at a time
+SERVE_SAMPLED = dict(temperature=0.8, top_k=50)
+SERVE_BENCH = dict(requests=32, mean_gap_steps=2.0, prompt_range=(64, 513), new_tokens=64)
+SERVE_BELOW = 0.8                         # the second load's share of admission capacity
+#: [serve] card vs CPU: depth, requests (prompt length, new tokens), and the
+#: top-2 margin of the CPU logits below which a greedy token may flip
+SERVE_CPU_DEPTH = 2
+SERVE_CPU_REQS = ((100, 16), (40, 16))
+MARGIN = 1e-3
+
+
+class _StepTimer:
+    """The engine's ``step_hook``: records, for each model step by kind,
+    the host's enqueue time (until the call returns) and the stream time
+    between CUDA events around it.  On a host-bound stream that span is the
+    enqueue time again, not the device's busy time (the trace gives that).
+    With ``drain`` each call starts on a drained card and the host wall time
+    until the card is drained again is recorded too; without it the engine
+    runs as it would untimed."""
+
+    def __init__(self, drain: bool) -> None:
+        self.drain = drain
+        self.rec = {k: {"enqueue": [], "wall": [], "events": []} for k in ("prefill", "decode")}
+
+    def __call__(self, kind: str, fn, *args):
+        import torch
+
+        rec = self.rec[kind]
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if self.drain:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        out = fn(*args)
+        b.record()
+        rec["enqueue"].append((time.perf_counter() - t0) * 1e3)
+        if self.drain:
+            torch.cuda.synchronize()
+            rec["wall"].append((time.perf_counter() - t0) * 1e3)
+        rec["events"].append((a, b))
+        return out
+
+    def medians(self, kind: str) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        rec = self.rec[kind]
+        span = [a.elapsed_time(b) for a, b in rec["events"]]
+        out = {"n": len(span), "event_span_ms": statistics.median(span),
+               "enqueue_ms": statistics.median(rec["enqueue"])}
+        if self.drain:
+            out["wall_ms"] = statistics.median(rec["wall"])
+        return out
+
+
+def _serve_requests(cfg):
+    """16 greedy requests and 2 sampled ones, prompts from ``default_rng(0)``."""
+    import numpy as np
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1, SERVE_GREEDY + 2)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32) for n in lens]
+    return [Request(i, p, max_new_tokens=SERVE_NEW,
+                    **(SERVE_SAMPLED if i >= SERVE_GREEDY else {}))
+            for i, p in enumerate(prompts)]
+
+
+def _drain_timed(eng, reqs) -> tuple:
+    """Submit ``reqs`` and step the engine until it is empty; returns (wall
+    seconds, each step's host wall ms).  Every step ends in a copy to the
+    host, so its wall time holds its device time."""
+    for r in reqs:
+        eng.submit(r)
+    steps = []
+    t0 = time.perf_counter()
+    while eng.has_work:
+        t = time.perf_counter()
+        eng.step()
+        steps.append((time.perf_counter() - t) * 1e3)
+    return time.perf_counter() - t0, steps
+
+
+def _logits_copy_ms(cfg) -> float:
+    """Median time of the decode step's one copy to the host: the (8, vocab)
+    bf16 logits block, then its float32 view on the host."""
+    import torch
+
+    x = torch.randn(SERVE_ENGINE["max_batch"], cfg.vocab_size, device="cuda",
+                    dtype=torch.bfloat16)
+    times = []
+    for _ in range(3 + TIMING_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x.cpu().float().numpy()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[3:])
+
+
+def _profile_model_step(fn, n: int = 5) -> dict:
+    """``n`` calls of one model step under ``torch.profiler`` (after one
+    warm call): per call, the device's work launches (kernels, copies,
+    memsets), its busy time (the union of their intervals) and its time by
+    kernel class, read from the exported trace as ``launch.profile_step``
+    reads a training step's."""
+    import tempfile
+    from collections import Counter
+
+    import torch
+    from repro_torch.launch.profile_step import kernel_class, trace_summary
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    summary = trace_summary(events, n)
+    classes = Counter()
+    for name, (ms, _) in summary["work"].items():
+        classes[kernel_class(name)] += ms
+    return {"launches": sum(c for _, c in summary["work"].values()) / n,
+            "busy_ms": summary["busy_ms"],
+            "by_class_ms": {k: round(v, 4) for k, v in classes.most_common()}}
+
+
+def phase_serve(card: str) -> dict:
+    """[serve]: full-width qwen2-0.5b (bf16, random weights from seed 0)
+    behind ``ServeEngine`` with a ``decode-tp`` plan group on NCCL.
+
+    * 16 greedy requests and 2 sampled ones served continuously; 4 of the
+      greedy ones and both sampled ones then served one at a time on the
+      same engine must give the same tokens;
+    * one ``decode-tp`` call counted per decode step, no KV block live at
+      the end, no kernel launched (serving runs none of the port's kernels);
+    * ms per decode step at B=8 and per prefill chunk (stream time between
+      CUDA events, host wall around a drained step, host enqueue),
+      generated tokens/s, and ``launch.bench_serve``'s open-loop p50/p99
+      at the set load and at ``SERVE_BELOW`` of the admission capacity;
+    * the engine on the card against the engine on the CPU at 2 layers in
+      float32 (:func:`_serve_card_vs_cpu`).
+
+    Returns the numbers it logs."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import CallCounter
+    from repro_torch.launch import bench_serve
+    from repro_torch.models import build_model
+    from repro_torch.runtime.dist import make_dist
+    from repro_torch.serve import DecodeSync, Request, ServeEngine
+
+    _zero_counts()
+    cfg = configs.get_config(ARCH)
+    api = build_model(cfg)
+    model = _init_timed(api, "serve")
+    out = {}
+    with make_dist(device="cuda") as dist:
+        cc = CallCounter()
+        dist.abi.attach_tool(cc)
+        eng = ServeEngine(api, model, dist=dist, seed=0, **SERVE_ENGINE)
+        pool = sum(t.numel() * t.element_size() for t in eng._pages)
+        log(f"[serve] {ARCH} full width ({cfg.num_layers} layers, d={cfg.d_model}, "
+            f"{cfg.num_heads}/{cfg.num_kv_heads} heads at D={cfg.resolved_head_dim}, vocab "
+            f"{cfg.vocab_size}) bf16 on {card}, {dist.abi.backend.name} on "
+            f"{torch.distributed.get_backend()}: engine {SERVE_ENGINE}, KV pool "
+            f"{eng.alloc.num_blocks} blocks ({pool / 1e6:.1f} MB)")
+        eng.run([Request(1000, np.arange(1, 41, dtype=np.int32), max_new_tokens=4)])  # warm-up
+        cc.reset()
+        base = dict(eng.stats)
+
+        reqs = _serve_requests(cfg)
+        eng.step_hook = timer = _StepTimer(drain=False)
+        wall, step_ms = _drain_timed(eng, reqs)
+        out["run_decode"], out["run_prefill"] = timer.medians("decode"), timer.medians("prefill")
+        n_tok = sum(len(r.out_tokens) for r in reqs)
+        st = {k: eng.stats[k] - base[k] for k in ("steps", "decode_steps", "prefill_chunks")}
+        out["tokens_per_s"] = n_tok / wall
+        out["engine_step_ms"] = statistics.median(step_ms)
+        log(f"[serve] continuous: {len(reqs)} requests ({SERVE_GREEDY} greedy, 2 sampled at "
+            f"{SERVE_SAMPLED}; prompts {SERVE_PROMPTS[0]}-{SERVE_PROMPTS[1]}, {SERVE_NEW} new "
+            f"tokens each): {n_tok} tokens in {wall:.3f} s = {out['tokens_per_s']:.1f} "
+            f"tokens/s; {st['steps']} engine steps (median {out['engine_step_ms']:.2f} ms, "
+            f"host wall), {st['decode_steps']} decode steps, {st['prefill_chunks']} prefill "
+            f"chunks")
+        log(f"[serve] in that run, per model step (medians; stream time between CUDA events, "
+            f"host enqueue): decode (B=8) {out['run_decode']['event_span_ms']:.3f} ms, "
+            f"{out['run_decode']['enqueue_ms']:.3f} ms (n={out['run_decode']['n']}); prefill "
+            f"chunk (1x32) {out['run_prefill']['event_span_ms']:.3f} ms, "
+            f"{out['run_prefill']['enqueue_ms']:.3f} ms (n={out['run_prefill']['n']})")
+        if n_tok != len(reqs) * SERVE_NEW or not all(r.done for r in reqs):
+            raise AssertionError(f"[serve] {n_tok} tokens for {len(reqs)} requests")
+
+        # one at a time on the same engine, each model step on a drained card
+        eng.step_hook = timer = _StepTimer(drain=True)
+        replay = [reqs[i] for i in SERVE_ORACLE] + reqs[SERVE_GREEDY:]
+        for r in replay:
+            solo = Request(r.rid, r.prompt, r.max_new_tokens, r.temperature, r.top_k)
+            eng.run([solo])
+            if solo.out_tokens != r.out_tokens:
+                raise AssertionError(f"[serve] request {r.rid}: one at a time "
+                                     f"{solo.out_tokens[:8]}... vs continuous "
+                                     f"{r.out_tokens[:8]}...")
+        log(f"[serve] token identity: requests {[r.rid for r in replay]} served one at a time "
+            f"give the continuous run's {SERVE_NEW} tokens each (sampled ones included)")
+        out["decode"], out["prefill"] = timer.medians("decode"), timer.medians("prefill")
+        eng.step_hook = None
+        # the two model steps traced at their fixed shapes; every row on the
+        # null block, which no live request reads (the engine is empty now)
+        width = eng.scheduler.table_width
+        z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device="cuda")  # noqa: E731
+        B, C = SERVE_ENGINE["max_batch"], SERVE_ENGINE["prefill_chunk"]
+        with torch.no_grad():
+            out["decode_trace"] = _profile_model_step(
+                lambda: eng.model_step("decode", z(B, 1), z(B, width), z(B)))
+            out["prefill_trace"] = _profile_model_step(
+                lambda: eng.model_step("prefill", z(1, C), z(1, width), 0))
+        out["logits_copy_ms"] = _logits_copy_ms(cfg)
+        for name, m in (("decode step (B=8)", out["decode"]),
+                        ("prefill chunk (1x32)", out["prefill"])):
+            log(f"[serve] {name} on {card}: {m['event_span_ms']:.3f} ms between CUDA events, "
+                f"host wall around a drained step {m['wall_ms']:.3f} ms, host enqueue "
+                f"{m['enqueue_ms']:.3f} ms (medians of {m['n']})")
+        for name, key in (("decode step (B=8)", "decode"), ("prefill chunk (1x32)", "prefill")):
+            tr, m = out[f"{key}_trace"], out[key]
+            log(f"[serve] {name} traced (torch.profiler, 5 calls): {tr['launches']:.0f} "
+                f"launches a call, the device busy {tr['busy_ms']:.3f} ms of the "
+                f"{m['wall_ms']:.3f} ms drained wall (idle share "
+                f"{1 - tr['busy_ms'] / m['wall_ms']:.3f}); busy ms by class {tr['by_class_ms']}")
+        log(f"[serve] the decode step's copy of the ({SERVE_ENGINE['max_batch']}, "
+            f"{cfg.vocab_size}) bf16 logits to the host: {out['logits_copy_ms']:.3f} ms "
+            f"(median of {TIMING_ITERS})")
+
+        # the smoke load twice: as set (above the engine's admission
+        # capacity: p50/p99 mostly measure queue position) and at
+        # SERVE_BELOW of that capacity (p50/p99 measure serving)
+        cap = bench_serve.capacity_gap(eng, prompt_range=SERVE_BENCH["prompt_range"],
+                                       new_tokens=SERVE_BENCH["new_tokens"])
+        out["capacity_gap_steps"] = cap
+        for key, gap in (("bench", SERVE_BENCH["mean_gap_steps"]),
+                         ("bench_below", cap / SERVE_BELOW)):
+            records = bench_serve.run(eng, **dict(SERVE_BENCH, mean_gap_steps=gap))
+            out[key] = {name: value for name, value, _, _ in records}
+            log(f"[serve] launch.bench_serve on {card}, offered {cap / gap:.3f} of the "
+                f"admission capacity (one request per {cap:.3f} steps): {records[0][3]}: "
+                f"{out[key]['serve_tokens_per_s']:.1f} tokens/s, p50 "
+                f"{out[key]['serve_p50_ms']:.1f} ms, p99 {out[key]['serve_p99_ms']:.1f} ms")
+
+        steps = eng.stats["decode_steps"] - base["decode_steps"]
+        calls = cc.counts.get(DecodeSync.NAME, 0)
+        launched = _counts()
+        log(f"[serve] bookkeeping: {calls} {DecodeSync.NAME} calls for {steps} decode steps; "
+            f"{eng.alloc.live_blocks} KV blocks live; kernel launches {launched}")
+        if calls != steps or steps == 0 or "bcast" in cc.counts:
+            raise AssertionError(f"[serve] {calls} decode-tp calls for {steps} decode steps "
+                                 f"({dict(cc.counts)})")
+        if eng.alloc.live_blocks != 0:
+            raise AssertionError(f"[serve] {eng.alloc.live_blocks} KV blocks still live")
+        if any(launched.values()):
+            raise AssertionError(f"[serve] serving launched kernels: {launched}")
+    del eng, model
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = _serve_card_vs_cpu()
+    log("[serve] record " + json.dumps(out))
+    return out
+
+
+def _serve_card_vs_cpu() -> dict:
+    """The same CPU-drawn weights (full width, 2 layers, float32) behind an
+    engine on the CPU and one on the card, serving the same two greedy
+    requests: every prefill chunk's logits and every decode step's logits
+    of the live rows within 1e-3, the same greedy tokens, in the order the
+    engine ran them, up to the first token whose CPU top-2 margin is below
+    ``MARGIN`` (logged; the comparison stops there)."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = dataclasses.replace(configs.get_config(ARCH), num_layers=SERVE_CPU_DEPTH,
+                              param_dtype="float32", compute_dtype="float32")
+    api = build_model(cfg)
+    cpu_model = api.init(0, device="cpu")
+    models = {"cpu": cpu_model, "card": copy.deepcopy(cpu_model).to("cuda")}
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n, _ in SERVE_CPU_REQS]
+    runs = {}
+    for where, model in models.items():
+        eng = ServeEngine(api, model, seed=0, **SERVE_ENGINE)
+        events = []
+
+        def record(kind, fn, *args, _ev=events):
+            # args[2]: a prefill chunk's start, a decode step's lengths
+            lg = fn(*args)
+            arg = args[2] if kind == "prefill" else args[2].cpu()
+            _ev.append((kind, arg, lg.float().cpu()))
+            return lg
+
+        eng.step_hook = record
+        reqs = [Request(i, p, max_new_tokens=n) for i, (p, (_, n)) in
+                enumerate(zip(prompts, SERVE_CPU_REQS))]
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        runs[where] = (events, reqs, time.perf_counter() - t0)
+    ev_cpu, reqs_cpu, cpu_s = runs["cpu"]
+    ev_card, reqs_card, card_s = runs["card"]
+    if [e[:1] for e in ev_cpu] != [e[:1] for e in ev_card]:
+        raise AssertionError("[serve] card vs CPU: the engines ran different step sequences")
+
+    def margin(row) -> float:
+        top = torch.topk(row, 2).values
+        return float(top[0] - top[1])
+
+    C = SERVE_ENGINE["prefill_chunk"]
+    worst, compared, stop, first_chunk = 0.0, 0, None, None
+    owner = -1                                   # the request a prefill chunk belongs to
+    for n, ((kind, arg, lc), (_, _, lg)) in enumerate(zip(ev_cpu, ev_card)):
+        if kind == "prefill":
+            owner += arg == 0
+            diff = _max_err(lg, lc)
+            first_chunk = diff if first_chunk is None else first_chunk
+            plen = len(prompts[owner])
+            last = (plen - 1) - arg if arg <= plen - 1 < arg + C else None
+            picks = [] if last is None else [(lc[0, last], lg[0, last])]
+        else:
+            rows = [int(i) for i in torch.nonzero(arg > 0).flatten()]
+            diff = max(_max_err(lg[i], lc[i]) for i in rows)
+            picks = [(lc[i], lg[i]) for i in rows]
+        worst = max(worst, diff)
+        compared += 1
+        if diff > F32_LOGIT_TOL:
+            raise AssertionError(f"[serve] card vs CPU: step {n} ({kind}) logits differ by "
+                                 f"{diff:.3e} (bound {F32_LOGIT_TOL})")
+        small = [margin(c) for c, _ in picks if margin(c) < MARGIN]
+        if small:
+            stop = (n, kind, min(small))
+            break
+        if any(int(torch.argmax(c)) != int(torch.argmax(g)) for c, g in picks):
+            raise AssertionError(f"[serve] card vs CPU: step {n} ({kind}) greedy tokens differ")
+    if stop is None and [r.out_tokens for r in reqs_card] != [r.out_tokens for r in reqs_cpu]:
+        raise AssertionError("[serve] card vs CPU: the token streams differ")
+    scale = max(float(e[2].abs().max()) for e in ev_cpu)
+    log(f"[serve] card vs CPU: {ARCH} full width, {SERVE_CPU_DEPTH} layers, f32, requests "
+        f"{list(SERVE_CPU_REQS)} (prompt, new tokens): {compared} of {len(ev_cpu)} model steps "
+        f"compared, first prefill chunk's logits max abs diff {first_chunk:.3e}, worst "
+        f"{worst:.3e} (bound {F32_LOGIT_TOL}; logits' max abs {scale:.3f}); greedy tokens equal "
+        + ("throughout" if stop is None else
+           f"until step {stop[0]} ({stop[1]}), where a CPU top-2 margin of {stop[2]:.2e} "
+           f"is below {MARGIN} and the comparison stops")
+        + f"; CPU {cpu_s:.1f} s, card {card_s:.1f} s")
+    return {"worst": worst, "first_chunk": first_chunk, "compared": compared,
+            "stopped_at": None if stop is None else stop[0]}
+
+
 RING4 = 4
 RING4_ARGS = ["--arch", ARCH, "--global-batch", "32", "--seq-len", "128", "--log-every", "1",
               "--steps", "2", "--zero1-buckets", "1"]
@@ -1601,9 +1984,10 @@ KERNELS = {
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("check", "ring4"), default=None,
+    ap.add_argument("--only", choices=("check", "ring4", "serve"), default=None,
                     help="check: stop after building and checking the kernels; "
-                         "ring4: build, then only the four-card int8 ring")
+                         "ring4: build, then only the four-card int8 ring; "
+                         "serve: only [serve], which launches no kernel (no build)")
     ap.add_argument("--baseline", action="append", default=[], metavar="NAME=PATH",
                     help="an earlier source of the scan NAME (wkv6 or ssd; entry point "
                          "pax_NAME) to time in turns with the current kernel in [time]")
@@ -1637,6 +2021,10 @@ def main() -> int:
             f"torch {torch.__version__} cuda {torch.version.cuda}")
         n_full = flat_param_count(configs.get_config(ARCH))
         log(f"[model] {ARCH} full width: {n_full} parameters")
+        if args.only == "serve":
+            phase_serve(card)
+            log("[only] serve: the engine served on the card; no result line")
+            return 0
         phase_build()
         if args.only == "ring4":
             if torch.cuda.device_count() < RING4:
@@ -1666,6 +2054,7 @@ def main() -> int:
         launches["wkv6"] = phase_forward_ssm(card)
         launches["ssd"] = phase_forward_hybrid(card)["ssd"]
         phase_card_vs_cpu()
+        phase_serve(card)
         record = {"kernels": [
             {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches[name], "max_abs_err": worst[name],

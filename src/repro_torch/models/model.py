@@ -1,11 +1,14 @@
 """Model factory and the weight bridge from the reference package.
 
 ``build_model(cfg)`` returns a :class:`ModelApi` with ``init(seed, device)``
-(-> the parameter module), ``loss_fn(model, batch)`` and
-``forward(model, batch, last_only=False)`` (-> logits).  The port holds
-three families of the reference: ``dense`` (``transformer``), ``ssm``
-(rwkv6, ``rwkv``) and ``hybrid`` (Mamba2 + shared attention, ``hybrid``);
-the ssm and hybrid families run forward only for now.
+(-> the parameter module), ``loss_fn(model, batch)``,
+``forward(model, batch, last_only=False)`` (-> logits) and, for the dense
+family, ``decode_init(batch, max_seq, device=None)`` (-> a contiguous
+cache) and ``decode_step(model, token, cache, index)`` (-> logits, cache).
+The port holds three families of the reference: ``dense``
+(``transformer``), ``ssm`` (rwkv6, ``rwkv``) and ``hybrid`` (Mamba2 +
+shared attention, ``hybrid``); the ssm and hybrid families run forward
+only for now, so their ``decode_init``/``decode_step`` are ``None``.
 
 :func:`param_leaves` is the reference's ``jax.tree.leaves`` order — sorted
 keys at every level of the parameter tree, each leaf holding all ``L``
@@ -15,7 +18,7 @@ data-parallel shard boundaries compare element for element.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -46,17 +49,25 @@ class ModelApi:
     init: Callable
     loss_fn: Callable
     forward: Callable
+    decode_init: Optional[Callable] = None
+    decode_step: Optional[Callable] = None
 
 
 def build_model(cfg: ModelConfig) -> ModelApi:
     fam, _ = _family(cfg)
-    return ModelApi(
+    api = ModelApi(
         cfg,
         init=lambda seed=0, device=None: fam.init_lm(cfg, seed, resolve_device(device)),
         loss_fn=lambda m, b, dist=None: fam.loss_fn(m, b, cfg),
         forward=lambda m, b, dist=None, last_only=False: fam.forward(
             m, b["tokens"], cfg, last_only=last_only),
     )
+    if cfg.family == "dense":
+        api.decode_init = lambda batch, max_seq, device=None: transformer.init_cache(
+            cfg, batch, max_seq, device=device)
+        api.decode_step = lambda m, tok, cache, idx, dist=None: transformer.decode_step(
+            m, tok, cache, idx, cfg)
+    return api
 
 
 def param_leaves(model: nn.Module) -> list[tuple[str, nn.Parameter]]:

@@ -9,15 +9,23 @@ flat vector can follow the reference's leaf order.
 
 The reference scans the layers with optional rematerialisation; neither
 changes a number, and here the layers run in a Python loop.
+
+Serving: :func:`prefill` and :func:`decode_step` run on a contiguous
+cache (:func:`init_cache`); :func:`prefill_chunk_paged` and
+:func:`decode_step_paged` run on the paged slab (:func:`init_paged_cache`)
+through per-request block tables.  Caches hold bfloat16 unless asked
+otherwise, as in the reference, and are written in place.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
 
-from .attention import attention, attention_shapes
+from ..runtime.device import resolve_device
+from .attention import KVCache, attention, attention_paged, attention_shapes, init_kv_cache
 from .common import (
     ParamBlock,
     dense_init_,
@@ -77,26 +85,121 @@ def init_lm(cfg, seed: int, device) -> TransformerLM:
     return model
 
 
+def _trunk(model: TransformerLM, tokens: torch.Tensor, cfg, attend) -> torch.Tensor:
+    """Embed ``tokens`` and run every layer: pre-norm attention, then the
+    pre-norm MLP, each added to the residual.  ``attend(p, h, l)`` is layer
+    ``l``'s attention on its normed input (the forward's, a contiguous
+    cache's or the pages'); returns the hidden state before the final norm."""
+    x = embed_tokens(model.embed.tok, tokens, dtype_of(cfg.compute_dtype))
+    lay = model.layers
+    for l in range(cfg.num_layers):
+        x = x + attend(lay.attn.layer(l), norm(lay.ln1.layer(l), x, cfg.norm), l)
+        x = x + mlp(lay.mlp.layer(l), norm(lay.ln2.layer(l), x, cfg.norm), cfg.activation)
+    return x
+
+
+def _logits(model: TransformerLM, x: torch.Tensor, cfg) -> torch.Tensor:
+    x = norm(model.final_norm.layer(), x, cfg.norm)
+    return unembed(model.embed.layer(), x, cfg.tie_embeddings)
+
+
+def _positions(start, n: int, batch: int, device) -> torch.Tensor:
+    """(batch, n) int32 positions ``start .. start+n``."""
+    return (int(start) + torch.arange(n, dtype=torch.int32, device=device))[None, :].expand(
+        batch, n)
+
+
 def forward(model: TransformerLM, tokens: torch.Tensor, cfg,
             last_only: bool = False) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, vocab), or (B, 1, vocab) with
     ``last_only``, which slices the residual to the final position before
     the final norm and the unembed (prefill needs one position)."""
-    cdt = dtype_of(cfg.compute_dtype)
     B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None, :].expand(B, S)
-    x = embed_tokens(model.embed.tok, tokens, cdt)
-    lay = model.layers
-    for l in range(cfg.num_layers):
-        h = norm(lay.ln1.layer(l), x, cfg.norm)
-        x = x + attention(lay.attn.layer(l), h, cfg, positions=positions, causal=True)
-        h2 = norm(lay.ln2.layer(l), x, cfg.norm)
-        x = x + mlp(lay.mlp.layer(l), h2, cfg.activation)
+    positions = _positions(0, S, B, tokens.device)
+    x = _trunk(model, tokens, cfg, lambda p, h, l: attention(p, h, cfg, positions=positions,
+                                                             causal=True))
     if last_only:
         x = x[:, -1:]
-    x = norm(model.final_norm.layer(), x, cfg.norm)
-    return unembed(model.embed.layer(), x, cfg.tie_embeddings)
+    return _logits(model, x, cfg)
 
 
 def loss_fn(model: TransformerLM, batch: dict, cfg) -> torch.Tensor:
     return softmax_cross_entropy(forward(model, batch["tokens"], cfg), batch["targets"])
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill fills the cache; decode appends one token
+# ---------------------------------------------------------------------------
+def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, device=None) -> KVCache:
+    """The contiguous cache, (L, batch, max_seq, kv_heads, head_dim) per side."""
+    return init_kv_cache(cfg, batch, max_seq, dtype, resolve_device(device),
+                         layers=cfg.num_layers)
+
+
+def _run_cached(model: TransformerLM, tokens: torch.Tensor, cache: KVCache, index: int,
+                positions: torch.Tensor, cfg) -> torch.Tensor:
+    """The layers over a contiguous cache, writing from position ``index``."""
+    return _trunk(model, tokens, cfg, lambda p, h, l: attention(
+        p, h, cfg, positions=positions, causal=True,
+        kv_cache=KVCache(cache.k[l], cache.v[l]), cache_index=index)[0])
+
+
+def decode_step(model: TransformerLM, token: torch.Tensor, cache: KVCache, index: int,
+                cfg) -> tuple:
+    """token: (B, 1) int; ``index``: the position it is written at.
+    Returns (logits (B, vocab), cache)."""
+    B = token.shape[0]
+    positions = torch.full((B, 1), int(index), dtype=torch.int32, device=token.device)
+    x = _run_cached(model, token, cache, int(index), positions, cfg)
+    return _logits(model, x, cfg)[:, 0, :], cache
+
+
+def prefill(model: TransformerLM, tokens: torch.Tensor, cfg,
+            max_seq: Optional[int] = None) -> tuple:
+    """Run the prompt (B, S) into a fresh cache of ``max_seq`` positions
+    (default the config's); returns (last logits (B, vocab), cache, S)."""
+    B, S = tokens.shape
+    cache = init_cache(cfg, B, max_seq or cfg.max_seq_len, device=tokens.device)
+    x = _run_cached(model, tokens, cache, 0, _positions(0, S, B, tokens.device), cfg)
+    return _logits(model, x[:, -1:, :], cfg)[:, 0, :], cache, S
+
+
+# ---------------------------------------------------------------------------
+# paged serving: decode and chunked prefill through per-request block tables
+# (serve/ owns the allocator; this is the model side)
+# ---------------------------------------------------------------------------
+def init_paged_cache(cfg, num_blocks: int, block_size: int, dtype=torch.bfloat16,
+                     device=None) -> KVCache:
+    """The paged slab, (L, num_blocks, block_size, kv_heads, head_dim) per
+    side.  Block 0 is the serving tier's reserved null block."""
+    return init_kv_cache(cfg, num_blocks, block_size, dtype, resolve_device(device),
+                         layers=cfg.num_layers)
+
+
+def _run_paged(model: TransformerLM, tokens: torch.Tensor, pages: KVCache,
+               block_tables: torch.Tensor, positions: torch.Tensor, cfg) -> torch.Tensor:
+    return _logits(model, _trunk(model, tokens, cfg, lambda p, h, l: attention_paged(
+        p, h, cfg, pages.k[l], pages.v[l], block_tables, positions)), cfg)
+
+
+def decode_step_paged(model: TransformerLM, token: torch.Tensor, pages: KVCache,
+                      block_tables: torch.Tensor, lengths: torch.Tensor, cfg) -> tuple:
+    """One decode step: ``token`` (B, 1); ``block_tables`` (B, W) physical
+    block ids; ``lengths`` (B,) tokens already cached per request — the new
+    token is written at position ``lengths[b]`` and attends to
+    ``0..lengths[b]``.  Inactive rows carry the null table and length 0.
+    Returns (logits (B, vocab), pages)."""
+    positions = lengths[:, None].to(torch.int32)
+    return _run_paged(model, token, pages, block_tables, positions, cfg)[:, 0, :], pages
+
+
+def prefill_chunk_paged(model: TransformerLM, tokens: torch.Tensor, pages: KVCache,
+                        block_tables: torch.Tensor, start: int, cfg) -> tuple:
+    """One prefill chunk: ``tokens`` (B, C) are positions ``start ..
+    start+C`` of the prompt.  The last chunk may carry pad tokens past the
+    prompt; their K/V land at positions that decode writes before its mask
+    exposes them (each layer writes a position, then reads it), so padding
+    needs no mask.  Returns (logits (B, C, vocab), pages)."""
+    B, C = tokens.shape
+    positions = _positions(start, C, B, tokens.device)
+    return _run_paged(model, tokens, pages, block_tables, positions, cfg), pages
