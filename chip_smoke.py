@@ -598,10 +598,12 @@ FA_CHECKS = (
     (2, 65, 4, 2, 64, True, "bfloat16", BF16_ROUNDINGS),      # S=65
     (1, 333, 7, 7, 64, False, "bfloat16", BF16_ROUNDINGS),    # group 1, non-causal, ragged S
     (1, 333, 14, 2, 80, False, "bfloat16", BF16_ROUNDINGS),   # group 7, non-causal, ragged S
+    (4, 2048, 16, 16, 256, True, "bfloat16", BF16_ROUNDINGS),  # GEMMA_ATTN, [forward-gemma]'s
 )
 FWD_BATCH, FWD_SEQ = 4, 2048                        # [forward]'s batch and sequence
 FULL_ATTN = (FWD_BATCH, FWD_SEQ, 14, 2, 64)         # qwen2-0.5b's heads at that batch
 HYBRID_ATTN = (FWD_BATCH, FWD_SEQ, 32, 32, 80)      # zamba2-2.7b's shared block
+GEMMA_ATTN = (FWD_BATCH, FWD_SEQ, 16, 16, 256)      # gemma-7b's heads (D=256)
 
 
 def _qkv(B, S, H, Hkv, D, dtype, gen):
@@ -663,7 +665,7 @@ def phase_time_flash() -> dict:
     """Kernel, plain version and ``scaled_dot_product_attention`` at the
     main path's shape, in bf16 (the tensor-core kernel, the record) and f32
     (the CUDA-core kernel), and the bf16 kernel and library at
-    [forward-hybrid]'s shape.  Bound: the causal FLOPs (QK^T and PV over
+    [forward-hybrid]'s shape (D=80) and [forward-gemma]'s (D=256).  Bound: the causal FLOPs (QK^T and PV over
     the S(S+1)/2 pairs) over the peak for the inputs' type, or q, k, v read
     and o written once over the memory bandwidth, whichever is longer;
     achieved TFLOP/s: those FLOPs over the kernel's time."""
@@ -676,7 +678,8 @@ def phase_time_flash() -> dict:
     for name, (B, S, H, Hkv, D), dtype, rate in (
             ("float32", FULL_ATTN, "float32", F32_FLOP_PER_S),
             ("bfloat16", FULL_ATTN, "bfloat16", BF16_FLOP_PER_S),
-            ("hybrid", HYBRID_ATTN, "bfloat16", BF16_FLOP_PER_S)):
+            ("hybrid", HYBRID_ATTN, "bfloat16", BF16_FLOP_PER_S),
+            ("gemma", GEMMA_ATTN, "bfloat16", BF16_FLOP_PER_S)):
         flops = 4 * B * H * D * S * (S + 1) / 2
         q, k, v = _qkv(B, S, H, Hkv, D, dtype, gen)
         nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
@@ -698,7 +701,7 @@ def phase_time_flash() -> dict:
         out[name] = t
         del q, k, v, q4, k4, v4
     record = dict(out["bfloat16"])
-    record.update({f"{name}_{key}": out[name][key] for name in ("float32", "hybrid")
+    record.update({f"{name}_{key}": out[name][key] for name in ("float32", "hybrid", "gemma")
                    for key in ("ms", "library_ms", "bound_ms", "tflops")})
     return {"flash_attention": record}
 
@@ -845,6 +848,117 @@ def phase_main_int8(uncompressed) -> dict:
         raise AssertionError(f"int8 launches at dp=1: {c}")
     return c
 
+
+SWAP_IMPLS = ("paxi", "minimal", "ompix", "muk:paxi")
+SWAP_STEPS, SWAP_BUCKETS = 3, 2
+#: the layer's cost: blocking allreduce calls of one float32 per round
+MSG_CALLS, MSG_WARMUP, MSG_ROUNDS = 2000, 200, 5
+
+
+def _us_per_call(calls: dict, comm: int, dev) -> dict:
+    """impl -> µs per blocking ``allreduce`` of one float32 on ``comm``,
+    one per round: ``MSG_ROUNDS`` rounds of ``MSG_CALLS`` calls after
+    ``MSG_WARMUP`` warm-up calls, each round ended by a sync, the backends
+    in turns."""
+    import torch
+    from repro_torch.core import PAX_SUM
+
+    x = torch.ones(1, device=dev)
+    for fn in calls.values():
+        for _ in range(MSG_WARMUP):
+            fn(x, PAX_SUM, comm)
+    torch.cuda.synchronize(dev)
+    us = {impl: [] for impl in calls}
+    for _ in range(MSG_ROUNDS):
+        for impl, fn in calls.items():
+            t0 = time.perf_counter()
+            for _ in range(MSG_CALLS):
+                fn(x, PAX_SUM, comm)
+            torch.cuda.synchronize(dev)
+            us[impl].append((time.perf_counter() - t0) / MSG_CALLS * 1e6)
+    return us
+
+
+def phase_abi_swap(card: str) -> dict:
+    """The paper's backend swap on the card: full-width qwen2-0.5b (the
+    [main] phase's batch 8 and sequence 128, one batch, seed 0), 3 ZeRO-1
+    steps at two buckets under each of ``SWAP_IMPLS`` on NCCL, in turns
+    (the order, then the reverse order), through ``launch.abi_swap``.  Each
+    run must launch the wire kernels (``pack_transposed`` and
+    ``unpack_transposed`` 3 times each, counts zeroed just before it), give
+    finite losses and grad norms bitwise equal to the first ``paxi`` run's
+    (at one rank every collective of the step is an identity), and leave no
+    request in flight.  Then the layer's cost, the paper's Table 1 on the
+    card, a record with no gate: µs per blocking ``allreduce`` of one
+    float32 (``_us_per_call``) on ``PAX_COMM_WORLD`` (an NCCL group of one)
+    and on ``PAX_COMM_SELF`` (no group: the dispatch and translation
+    alone)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as tdist
+    from repro_torch import configs
+    from repro_torch.core import PAX_COMM_SELF, PAX_COMM_WORLD
+    from repro_torch.launch import abi_swap
+    from repro_torch.runtime.dist import init_world, make_dist
+
+    cfg = configs.get_config(ARCH)
+    cfg = dataclasses.replace(cfg, parallelism=dataclasses.replace(
+        cfg.parallelism, zero1_buckets=SWAP_BUCKETS))
+    batch = abi_swap.first_batch(cfg, 8, 128)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    started = init_world(dev)
+    try:
+        ref, step_ms = None, {impl: [] for impl in SWAP_IMPLS}
+        for impl in SWAP_IMPLS + SWAP_IMPLS[::-1]:
+            _zero_counts()
+            run = abi_swap.run_one(cfg, impl, batch, SWAP_STEPS, dev)
+            counts = _counts()
+            torch.cuda.empty_cache()
+            ref = ref or run
+            step_ms[impl].extend(run.step_ms[1:])
+            log(f"[abi-swap] {impl}: losses {run.losses} grad norms {run.grad_norms} "
+                f"wire_kernel={run.wire_kernel} pack_transposed {counts['pack_transposed']} "
+                f"unpack_transposed {counts['unpack_transposed']} outstanding before shutdown "
+                f"{run.outstanding}; sources {run.sources}; ms/step (steps 2-3) "
+                f"{', '.join(f'{t:.1f}' for t in run.step_ms[1:])} on {card}")
+            if run.wire_kernel != "cuda":
+                raise AssertionError(f"[abi-swap] {impl} wire kernel {run.wire_kernel!r}")
+            if (counts["pack_transposed"], counts["unpack_transposed"]) != (SWAP_STEPS,
+                                                                           SWAP_STEPS):
+                raise AssertionError(f"[abi-swap] {impl} launched {counts}")
+            if not all(math.isfinite(v) for v in run.losses + run.grad_norms):
+                raise AssertionError(f"[abi-swap] {impl} non-finite: {run.losses}")
+            if run.outstanding:
+                raise AssertionError(f"[abi-swap] {impl} left {run.outstanding} requests")
+            if (run.losses, run.grad_norms) != (ref.losses, ref.grad_norms):
+                raise AssertionError(f"[abi-swap] {impl} differs from {ref.impl}: "
+                                     f"{run.losses} {run.grad_norms}")
+        log(f"[abi-swap] {', '.join(SWAP_IMPLS)}, twice in turns: losses and grad norms "
+            f"bitwise equal over {SWAP_STEPS} steps; median ms/step (steps 2-3 of both turns) "
+            + "; ".join(f"{impl} {statistics.median(t):.1f}" for impl, t in step_ms.items()))
+        dists = {impl: make_dist(impl=impl, device=dev) for impl in SWAP_IMPLS}
+        try:
+            calls = {impl: d.abi.allreduce for impl, d in dists.items()}
+            us = {name: _us_per_call(calls, comm, dev) for name, comm in
+                  (("PAX_COMM_WORLD", PAX_COMM_WORLD), ("PAX_COMM_SELF", PAX_COMM_SELF))}
+        finally:
+            for d in dists.values():
+                d.shutdown()
+        med = {}
+        for name, rows in us.items():
+            med[name] = m = {impl: statistics.median(t) for impl, t in rows.items()}
+            log(f"[abi-swap] blocking allreduce of one float32 on {name}, us per call (median "
+                f"of {MSG_ROUNDS} rounds of {MSG_CALLS} after {MSG_WARMUP} warm-up calls, "
+                f"backends in turns) on {card}: "
+                + "; ".join(f"{impl} {m[impl]:.2f} (rounds "
+                            f"{', '.join(f'{t:.2f}' for t in rows[impl])})" for impl in rows))
+            log(f"[abi-swap] {name} ratios to paxi: "
+                + ", ".join(f"{impl} {m[impl] / m['paxi']:.3f}" for impl in SWAP_IMPLS[1:]))
+    finally:
+        if started and tdist.is_initialized():
+            tdist.destroy_process_group()
+    return {"step_ms": step_ms, "us_per_call": med}
 
 FWD_ITERS = 3
 F32_LOGIT_TOL = 1e-3
@@ -1012,6 +1126,42 @@ def phase_forward(card: str) -> int:
     del model
     torch.cuda.empty_cache()
     return launches
+
+
+GEMMA_ARCH = "gemma-7b"
+
+
+def phase_forward_gemma(card: str) -> int:
+    """gemma-7b at full width (28 layers, d=3072, 16/16 heads at D=256,
+    vocabulary 256,000, bf16, seed 0), B=4, S=2048, under
+    ``attention_impl="flash"``: the wgmma kernel's D=256 path (one consumer
+    warpgroup) on a model's main path, one launch per layer, the last
+    call's output held to ``attention_ref`` on its own activations.
+    Returns the flash launches of one forward."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(configs.get_config(GEMMA_ARCH), attention_impl="flash")
+    api = build_model(cfg)
+    model = _init_timed(api, "forward-gemma")
+    batch = _tokens(cfg)
+    with torch.no_grad():
+        with _FlashSpy() as spy:
+            logits, counts = _forward_check(api, model, batch, cfg, "forward-gemma",
+                                            {"flash_attention": cfg.num_layers})
+        spy.check("forward-gemma")
+        del logits
+        ms = _time_ms(lambda: api.forward(model, batch), FWD_ITERS)
+    log(f"[forward-gemma] {GEMMA_ARCH} full width ({cfg.num_layers} layers, D="
+        f"{cfg.head_dim}), B={FWD_BATCH} S={FWD_SEQ} bf16 on {card}: flash_attention "
+        f"{counts['flash_attention']} of {cfg.num_layers} layers; {ms:.2f} ms per forward "
+        f"(median of {FWD_ITERS} after 3 warm-ups)")
+    del model
+    torch.cuda.empty_cache()
+    return counts["flash_attention"]
 
 
 # ---------------------------------------------------------------------------
@@ -1984,10 +2134,11 @@ KERNELS = {
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("check", "ring4", "serve"), default=None,
+    ap.add_argument("--only", choices=("check", "ring4", "serve", "swap"), default=None,
                     help="check: stop after building and checking the kernels; "
                          "ring4: build, then only the four-card int8 ring; "
-                         "serve: only [serve], which launches no kernel (no build)")
+                         "serve: only [serve], which launches no kernel (no build); "
+                         "swap: build, then only [abi-swap]")
     ap.add_argument("--baseline", action="append", default=[], metavar="NAME=PATH",
                     help="an earlier source of the scan NAME (wkv6 or ssd; entry point "
                          "pax_NAME) to time in turns with the current kernel in [time]")
@@ -2033,6 +2184,10 @@ def main() -> int:
             phase_ring4()
             log("[only] ring4: the int8 ring launched its hop kernels; no result line")
             return 0
+        if args.only == "swap":
+            phase_abi_swap(card)
+            log("[only] swap: every backend trained bitwise alike; no result line")
+            return 0
         worst = phase_check(n_full)
         worst.update(phase_check_ring(n_full))
         worst.update(phase_check_flash())
@@ -2050,7 +2205,9 @@ def main() -> int:
         launches["pack_transposed_ef"] = phase_main_bf16()["pack_transposed_ef"]
         int8 = phase_main_int8(uncompressed)
         launches.update({k: int8[k] for k in HOPS})
+        phase_abi_swap(card)
         launches["flash_attention"] = phase_forward(card)
+        phase_forward_gemma(card)
         launches["wkv6"] = phase_forward_ssm(card)
         launches["ssd"] = phase_forward_hybrid(card)["ssd"]
         phase_card_vs_cpu()

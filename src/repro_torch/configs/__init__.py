@@ -1,8 +1,9 @@
 """Config registry: ``get_config("<arch>")`` + reduced smoke variants.
 
-The port holds three architectures of the reference's ten: the dense
-``qwen2-0.5b``, the ssm ``rwkv6-7b`` and the hybrid ``zamba2-2.7b``; the
-others arrive with their model families.  ``smoke_config`` makes
+The port holds five architectures of the reference's ten: the dense
+``qwen2-0.5b``, ``chatglm3-6b`` and ``gemma-7b``, the ssm ``rwkv6-7b`` and
+the hybrid ``zamba2-2.7b``; the others arrive with their model families.
+``smoke_config`` makes
 the same reduction the reference makes, so both packages build identical
 small models.
 """
@@ -23,10 +24,11 @@ from .base import (  # noqa: F401
     shapes_for,
 )
 
-from . import qwen2_0_5b, rwkv6_7b, zamba2_2_7b
+from . import chatglm3_6b, gemma_7b, qwen2_0_5b, rwkv6_7b, zamba2_2_7b
 
 _REGISTRY: dict[str, ModelConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (qwen2_0_5b, rwkv6_7b, zamba2_2_7b)}
+    m.CONFIG.name: m.CONFIG
+    for m in (qwen2_0_5b, chatglm3_6b, gemma_7b, rwkv6_7b, zamba2_2_7b)}
 
 ARCH_NAMES = tuple(_REGISTRY)
 

@@ -1,0 +1,17 @@
+"""Gemma-7B  [arXiv:2403.08295] — GeGLU, head_dim=256, tied embeddings."""
+from .base import ModelConfig, ParallelismConfig
+
+CONFIG = ModelConfig(
+    name="gemma-7b",
+    family="dense",
+    num_layers=28,
+    d_model=3072,
+    d_ff=24576,
+    vocab_size=256000,
+    num_heads=16,
+    num_kv_heads=16,
+    head_dim=256,
+    activation="geglu",
+    tie_embeddings=True,
+    parallelism=ParallelismConfig(microbatch=4, remat="full"),
+)

@@ -421,6 +421,7 @@ class PaxABI:
             ienv = dict(env)
             ienv["_impl"] = self._istart(entry)
             ienv["_new_request"] = self._new_request
+            ienv["_backend"] = self.backend
             ifn = _compile_cached(
                 _SPEC_NONBLOCKING_SRC, (entry.name, tooled),
                 lambda: _spec_src(entry, tooled, nonblocking=True),
@@ -842,24 +843,36 @@ class PaxABI:
 
     # -- identity / registration (not per-collective dispatch) -------------
     def comm_from_axes(self, axes: Sequence[str], name: str = "") -> int:
-        return self.comms.comm_from_axes(axes, name)
+        h = self.comms.comm_from_axes(axes, name)
+        if self.backend.convention == "foreign":
+            self.backend.register_comm(h, axes)
+        return h
 
     def comm_dup(self, comm: int) -> int:
-        return self.comms.comm_dup(comm)
+        h = self.comms.comm_dup(comm)
+        if self.backend.convention == "foreign":
+            self.backend.register_comm(h, self.comms.info(h).axes)
+        return h
 
     def comm_free(self, comm: int) -> None:
         self.comms.comm_free(comm)
 
     # -- datatypes ----------------------------------------------------------
     def type_contiguous(self, count: int, base: int) -> int:
-        return self.datatypes.type_contiguous(count, base)
+        h = self.datatypes.type_contiguous(count, base)
+        if self.backend.convention == "foreign":
+            self.backend.register_datatype(h, count, base)
+        return h
 
     def type_from_array(self, x) -> int:
         return self.datatypes.from_array(x)
 
     # -- user ops (callback registration) -----------------------------------
     def op_create(self, fn: Callable, *, commutative: bool = True, name: str = "") -> int:
-        return self.ops.op_create(fn, commutative=commutative, name=name)
+        h = self.ops.op_create(fn, commutative=commutative, name=name)
+        if self.backend.convention == "foreign":
+            self.backend.register_op(h)
+        return h
 
     def op_free(self, op: int) -> None:
         self.ops.op_free(op)
@@ -1139,11 +1152,15 @@ def _blocking_src(entry: abi_spec.AbiEntry) -> str:
 def _nonblocking_src(entry: abi_spec.AbiEntry) -> str:
     params = abi_spec.signature_src(entry)
     call_args = abi_spec.call_args_src(entry)
-    return (
-        f"def i{entry.name}(self, {params}):\n"
-        f"    return self._new_request(self.{entry.name}({call_args}), "
-        f"'i{entry.name}')\n"
-    )
+    lines = [f"def i{entry.name}(self, {params}):",
+             f"    _value = self.{entry.name}({call_args})"]
+    if entry.temps:
+        # converted handle vectors stay alive until completion (§6.2)
+        lines.append(f"    _temp = getattr(self.backend, {entry.temps_attr!r}, None)")
+    else:
+        lines.append("    _temp = None")
+    lines.append(f"    return self._new_request(_value, 'i{entry.name}', temp_state=_temp)")
+    return "\n".join(lines) + "\n"
 
 
 def _spec_src(entry: abi_spec.AbiEntry, tooled: bool, nonblocking: bool) -> str:
@@ -1165,7 +1182,12 @@ def _spec_src(entry: abi_spec.AbiEntry, tooled: bool, nonblocking: bool) -> str:
         lines.append(f"    _res = _impl({call_args})")
         lines.append("    for _t in _rtools:")
         lines.append(f"        _res = _t.after({entry.name!r}, _args, _info, _res)")
-    if nonblocking:
+    if nonblocking and entry.temps:
+        # the request map: the backend's converted handle vectors ride the
+        # request until wait drops them (§6.2)
+        lines.append(f"    _temp = getattr(_backend, {entry.temps_attr!r}, None)")
+        lines.append(f"    return _new_request(_res, 'i{entry.name}', temp_state=_temp)")
+    elif nonblocking:
         lines.append(f"    return _new_request(_res, 'i{entry.name}')")
     else:
         lines += _status_lines(entry)

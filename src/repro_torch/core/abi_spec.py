@@ -33,7 +33,7 @@ entry point four times:
   methods (with a precompiled zero-tool fast path);
 * :mod:`repro_torch.core.backends.base` generates unsupported-operation
   placeholders, so ``supports()`` can report a backend's capabilities;
-* the Mukautuva layer (a later slice) generates the WRAP_* translation
+* :mod:`repro_torch.core.mukautuva` generates the WRAP_* translation
   wrappers;
 * ``PaxABI.__init__`` performs dlsym-style *negotiation*: every entry is
   resolved against the backend once at init, so a missing entry point is a

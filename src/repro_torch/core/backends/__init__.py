@@ -9,8 +9,14 @@
   of point-to-point hops, with the optional compressed wire (``ring-bf16``,
   ``ring-int8``) on the ring-wire hop kernels.
 
-The reference's ``minimal`` and foreign ``ompix`` backends come with later
-port slices (see ``src/repro_torch/README.md``).
+* :mod:`minimal` — a deliberately-partial native implementation (handle
+  queries + sendrecv/reduce_scatter/allgather); negotiation emulates the
+  rest from the spec's recipes.
+
+* :mod:`ompix` — a *foreign-convention* library (the Open MPI analogue):
+  object handles, its own error codes and status layout, ``(code,
+  result)`` returns.  The ABI never calls it directly; the Mukautuva layer
+  (:mod:`repro_torch.core.mukautuva`) adapts it.
 """
-from . import paxi, ring  # noqa: F401
+from . import minimal, ompix, paxi, ring  # noqa: F401
 from .base import Backend  # noqa: F401

@@ -136,6 +136,13 @@ class CommTable:
                 mine = (g, ranks)
         return mine
 
+    def group_for(self, axes: Sequence[str]):
+        """(group, member ranks) of this rank's group over ``axes`` from
+        this table's cache: the lookup a foreign library behind the ABI
+        binds (``OmpixLib.bind_groups``), so a communicator it builds over
+        registered axes reuses the group here and never creates another."""
+        return self._group_for(tuple(axes))
+
     def axis_group(self, axis: str):
         """(group, member ranks) of this rank along one mesh axis: the
         per-axis ring of a hierarchical schedule over a multi-axis

@@ -1,20 +1,44 @@
-"""Emulation recipes — what ``abi_spec.py`` and the native backend import.
+"""Emulation recipe builders — synthesizing missing entry points from present ones.
 
-The reference (``repro.core.emulation``) compiles every OPTIONAL entry a
-partial backend lacks out of entries it does export.  This module carries:
+The counterpart of the reference's ``repro.core.emulation``: every builder
+here compiles one missing function-table entry out of entries the backend
+*does* resolve, so a partial implementation (``minimal``, or a foreign
+library behind Mukautuva that exports no ``Reduce``/``Gather``/ULFM symbol)
+is admitted behind the same standard table.  Each ``build_*`` function
+receives an :class:`EmulationContext` and returns a closure with the entry's
+backend-method signature; the closure captures the **resolved** dependency
+callables (native methods or earlier emulations, in ``EMULATION_ORDER``), so
+recipes chain: on ``minimal``, ``scatter`` resolves as ``scatter -> bcast
+-> allreduce -> (reduce_scatter, allgather)``.
 
-* the recipe *declarations* the function table names (``build_*``,
-  ``plan_*``, ``plan_group_*``), so the port's ``ABI_TABLE`` equals the
-  reference row for row.  The ``allreduce`` recipes have their bodies —
-  the ring backend drops its native ``allreduce`` and negotiation composes
-  it from the ring reduce-scatter and all-gather, with the padding rounded
-  up to the backend's wire granule (:meth:`PlanContext.wire_block`).  The
-  other bodies raise ``PAX_ERR_UNSUPPORTED_OPERATION`` until the partial
-  (``minimal``) backend arrives, because ``paxi`` and ``ring`` resolve every
-  other entry natively;
-* the shared kernels that native and emulated paths must not diverge on:
-  :func:`prefix_fold` (scan/exscan), :func:`masked_agree_fold`,
-  :func:`comm_failure_view` and :func:`agree_value` (the ULFM tier).
+The persistent builders (``plan_*``) take the plan's bound arguments with
+payloads as :class:`~repro_torch.core.abi.TensorSpec` and return a run
+closure; every chain decision (padding geometry, slice bounds, dependency
+plans, this rank's index) is taken once at plan time.  A run closure may
+return a ``_dist.Pending`` (its collective still in flight) where it does
+no work after the last leg; the plan's ``wait`` completes it.  The
+plan-group builders (``plan_group_*``) fuse a whole stage of members.
+
+One process is one rank, so a rank query is a plain int: the reference's
+``jnp.where(rank == root, ...)`` and ``lax.dynamic_slice_in_dim`` at a
+traced rank become a Python branch and ``narrow``.  Wire-semantics notes
+(the reference's):
+
+* ``allreduce`` pads the leading axis to a multiple of the communicator
+  width and composes reduce-scatter with all-gather; padding rows are
+  reduced and sliced off, which is right for any reduction op;
+* ``barrier`` is an all-reduce of a one-element buffer;
+* ``scan``/``exscan`` gather every rank's contribution in rank order and
+  fold locally (:func:`prefix_fold`, the convention shared with the native
+  lowering: rank 0 keeps its input under exscan);
+* ``alltoallv`` keeps the SPMD-uniform contract (non-uniform counts raise
+  ``ValueError``);
+* the fault tier (ULFM) recipes act on the communicator table directly,
+  since every plain entry raises ``PAX_ERR_REVOKED`` on a revoked
+  communicator by design.
+
+The reference's drop sentinel (``IncompleteValue``) belongs to the
+transport tier, which a later slice brings; nothing here produces one.
 """
 from __future__ import annotations
 
@@ -22,7 +46,8 @@ from typing import Callable
 
 import torch
 
-from .errors import PAX_ERR_PROC_FAILED, PAX_ERR_UNSUPPORTED_OPERATION, PaxError
+from . import handles as H
+from .errors import PAX_ERR_PROC_FAILED, PaxError
 
 
 class EmulationContext:
@@ -48,8 +73,29 @@ class EmulationContext:
         return self._abi.datatypes
 
     @property
+    def device(self) -> torch.device:
+        """The device recipe-made buffers (a barrier's one element) live on."""
+        mesh = self._abi.mesh
+        return mesh.device if mesh is not None else torch.device("cpu")
+
+    # -- fault-tier accessors (ULFM recipes): the one recipe family that
+    # reaches past the entry table into the shared CommTable, because the
+    # fault entries must act on *revoked* communicators
+    @property
     def comms(self):
         return self._abi.comms
+
+    def local_failed(self, comm: int) -> tuple:
+        """Ranks the backend knows dead on ``comm`` (fault injection hook)."""
+        return tuple(self._abi.backend.local_failed(comm))
+
+    def register_shrunk(self, parent: int, excludes, name: str = "") -> int:
+        """Register the shrink survivor comm; mirror it into foreign libs."""
+        new = self._abi.comms.register_shrunk(parent, excludes, name)
+        reg = getattr(self._abi.backend, "register_comm", None)
+        if reg is not None:  # foreign convention: keep the impl table in sync
+            reg(new, self._abi.comms.info(new).axes)
+        return new
 
 
 class PlanContext(EmulationContext):
@@ -137,6 +183,85 @@ def _pad_rows(x, pad: int):
     return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
 
 
+def _then(value, fn: Callable):
+    """``fn`` of a run's result: at once for a completed value, at the
+    plan's wait for a collective still in flight."""
+    from .backends._dist import Pending
+
+    if value.__class__ is Pending:
+        return Pending(None, value, lambda p: fn(p.result()))
+    return fn(value)
+
+
+# ---------------------------------------------------------------------------
+# Fault tier (ULFM) recipes: one failure model with paxi's native hooks
+# (comm_failure_view, agree_value, masked_agree_fold).
+# ---------------------------------------------------------------------------
+def build_comm_revoke(ctx: EmulationContext) -> Callable:
+    comms = ctx.comms
+
+    def comm_revoke(comm):
+        comms.revoke(comm)
+        return None
+
+    return _tag(comm_revoke, "comm_revoke", ())
+
+
+def build_comm_failure_ack(ctx: EmulationContext) -> Callable:
+    comms, local_failed = ctx.comms, ctx.local_failed
+
+    def comm_failure_ack(comm):
+        _, failed, acked = comm_failure_view(comms, local_failed, comm)
+        comms.acked[comm] = acked | failed
+        return None
+
+    return _tag(comm_failure_ack, "comm_failure_ack", ())
+
+
+def build_comm_get_failed(ctx: EmulationContext) -> Callable:
+    comms, local_failed = ctx.comms, ctx.local_failed
+
+    def comm_get_failed(comm):
+        _, failed, _ = comm_failure_view(comms, local_failed, comm)
+        return tuple(sorted(failed))
+
+    return _tag(comm_get_failed, "comm_get_failed", ())
+
+
+def build_comm_agree(ctx: EmulationContext) -> Callable:
+    comms, local_failed = ctx.comms, ctx.local_failed
+
+    def comm_agree(flag, comm):
+        return agree_value(comms, local_failed, flag, comm)
+
+    return _tag(comm_agree, "comm_agree", ())
+
+
+def build_comm_shrink(ctx: EmulationContext) -> Callable:
+    agree, get_failed = ctx.dep("comm_agree"), ctx.dep("comm_get_failed")
+    comms, local_failed = ctx.comms, ctx.local_failed
+
+    def comm_shrink(comm):
+        # ULFM shrink = implicit ack of the known failures, agreement on the
+        # failure set (a rank bitmask through agree's AND fold), then the
+        # survivor communicator's registration
+        _, failed, acked = comm_failure_view(comms, local_failed, comm)
+        comms.acked[comm] = acked | failed
+        mask = 0
+        for r in failed:
+            mask |= 1 << r
+        agreed = agree(mask, comm)
+        info = comms.info(comm, allow_revoked=True)
+        excludes = [r for r in range(info.full_size) if (agreed >> r) & 1]
+        assert sorted(excludes) == sorted(get_failed(comm))
+        return ctx.register_shrunk(comm, excludes)
+
+    return _tag(comm_shrink, "comm_shrink", ("comm_agree", "comm_get_failed"))
+
+
+# ---------------------------------------------------------------------------
+# Blocking recipes
+# ---------------------------------------------------------------------------
 def build_allreduce(ctx: EmulationContext) -> Callable:
     """allreduce = allgather(reduce_scatter(x)), the leading axis padded to
     a multiple of the communicator width and sliced back."""
@@ -157,6 +282,145 @@ def build_allreduce(ctx: EmulationContext) -> Callable:
     return _tag(allreduce, "allreduce", ("reduce_scatter", "allgather", "comm_size"))
 
 
+def build_reduce(ctx: EmulationContext) -> Callable:
+    ar = ctx.dep("allreduce")
+
+    def reduce(x, op, root, comm):
+        # SPMD: computed everywhere, defined at root (the MPI contract)
+        return ar(x, op, comm)
+
+    return _tag(reduce, "reduce", ("allreduce",))
+
+
+def build_bcast(ctx: EmulationContext) -> Callable:
+    ar, rank = ctx.dep("allreduce"), ctx.dep("comm_rank")
+
+    def bcast(x, root, comm):
+        return ar(x if rank(comm) == root else torch.zeros_like(x), H.PAX_SUM, comm)
+
+    return _tag(bcast, "bcast", ("allreduce", "comm_rank"))
+
+
+def build_barrier(ctx: EmulationContext) -> Callable:
+    ar, device = ctx.dep("allreduce"), ctx.device
+
+    def barrier(comm):
+        ar(torch.zeros((1,), dtype=torch.float32, device=device), H.PAX_SUM, comm)
+        return None
+
+    return _tag(barrier, "barrier", ("allreduce",))
+
+
+def _build_scan(ctx: EmulationContext, inclusive: bool, name: str) -> Callable:
+    ag, rank, size = ctx.dep("allgather"), ctx.dep("comm_rank"), ctx.dep("comm_size")
+    op_fn = ctx.op_fn
+
+    def scan(x, op, comm):
+        if size(comm) <= 1:
+            return x
+        g = ag(x.unsqueeze(0), comm)  # (S, *x.shape), rank order
+        return prefix_fold(g, rank(comm), op_fn(op), x, inclusive)
+
+    return _tag(scan, name, ("allgather", "comm_rank", "comm_size"))
+
+
+def build_scan(ctx: EmulationContext) -> Callable:
+    return _build_scan(ctx, inclusive=True, name="scan")
+
+
+def build_exscan(ctx: EmulationContext) -> Callable:
+    return _build_scan(ctx, inclusive=False, name="exscan")
+
+
+def build_alltoall(ctx: EmulationContext) -> Callable:
+    ag, rank, size = ctx.dep("allgather"), ctx.dep("comm_rank"), ctx.dep("comm_size")
+
+    def alltoall(x, comm, split_axis=0, concat_axis=0):
+        S = size(comm)
+        if S <= 1:
+            return x
+        if x.shape[split_axis] % S:
+            raise ValueError(
+                f"alltoall split axis {split_axis} (length "
+                f"{x.shape[split_axis]}) not divisible by comm size {S}")
+        blk = x.shape[split_axis] // S
+        g = ag(x.unsqueeze(0), comm)  # (S, *x.shape)
+        mine = g.narrow(split_axis + 1, rank(comm) * blk, blk)
+        return torch.cat([mine[j] for j in range(S)], dim=concat_axis)
+
+    return _tag(alltoall, "alltoall", ("allgather", "comm_rank", "comm_size"))
+
+
+def build_alltoallv(ctx: EmulationContext) -> Callable:
+    a2a, size = ctx.dep("alltoall"), ctx.dep("comm_size")
+
+    def alltoallv(x, sendcounts, recvcounts, comm):
+        sendcounts = tuple(int(c) for c in sendcounts)
+        recvcounts = tuple(int(c) for c in recvcounts)
+        if len(sendcounts) != len(recvcounts):
+            raise ValueError("sendcounts and recvcounts must have equal length")
+        if len(set(sendcounts) | set(recvcounts)) != 1:
+            raise ValueError(
+                "SPMD alltoallv requires uniform counts (one static trace "
+                "cannot express per-rank-varying counts); got "
+                f"sendcounts={sendcounts}, recvcounts={recvcounts}")
+        c = sendcounts[0]
+        P = len(sendcounts)
+        if x.shape[0] != P * c:
+            raise ValueError(f"payload has {x.shape[0]} rows, counts promise {P}x{c}")
+        S = size(comm)
+        if S <= 1:
+            if P != 1:
+                raise ValueError("group-of-one alltoallv takes exactly one count")
+            return x
+        if P != S:
+            raise ValueError(f"{P} counts for a size-{S} communicator")
+        if c == 0:
+            return x[:0]
+        out = a2a(x.reshape((P, c) + tuple(x.shape[1:])), comm, 0, 0)
+        return out.reshape((P * c,) + tuple(x.shape[1:]))
+
+    return _tag(alltoallv, "alltoallv", ("alltoall", "comm_size"))
+
+
+def build_alltoallw(ctx: EmulationContext) -> Callable:
+    a2a = ctx.dep("alltoall")
+    to_dtype = ctx.datatypes.to_dtype
+
+    def alltoallw(blocks, sendtypes, recvtypes, comm):
+        out = a2a(blocks, comm, 0, 0)
+        return [out[i].to(to_dtype(recvtypes[i])) for i in range(out.shape[0])]
+
+    return _tag(alltoallw, "alltoallw", ("alltoall",))
+
+
+def build_gather(ctx: EmulationContext) -> Callable:
+    ag = ctx.dep("allgather")
+
+    def gather(x, root, comm, axis=0):
+        # SPMD gather == allgather (defined at root, replicated elsewhere)
+        return ag(x, comm, axis)
+
+    return _tag(gather, "gather", ("allgather",))
+
+
+def build_scatter(ctx: EmulationContext) -> Callable:
+    bc, rank, size = ctx.dep("bcast"), ctx.dep("comm_rank"), ctx.dep("comm_size")
+
+    def scatter(x, root, comm, axis=0):
+        y = bc(x, root, comm)
+        S = size(comm)
+        if S <= 1:
+            return y
+        chunk = y.shape[axis] // S
+        return y.narrow(axis, rank(comm) * chunk, chunk)
+
+    return _tag(scatter, "scatter", ("bcast", "comm_rank", "comm_size"))
+
+
+# ---------------------------------------------------------------------------
+# Persistent-plan recipes (MPI-4 ``<name>_init``)
+# ---------------------------------------------------------------------------
 def plan_allreduce(ctx: PlanContext, x, op, comm) -> Callable:
     """The persistent recipe: the padding geometry and both legs' plans are
     fixed here; the padding rounds up to ``S * wire_block`` so the
@@ -185,6 +449,61 @@ def plan_allreduce(ctx: PlanContext, x, op, comm) -> Callable:
     return run
 
 
+def plan_reduce(ctx: PlanContext, x, op, root, comm) -> Callable:
+    # SPMD: computed everywhere, defined at root (the MPI contract)
+    return ctx.plan_dep("allreduce", x, op, comm)
+
+
+def plan_bcast(ctx: PlanContext, x, root, comm) -> Callable:
+    ar = ctx.plan_dep("allreduce", x, H.PAX_SUM, comm)
+    if ctx.dep("comm_rank")(comm) == root:
+        return ar
+    return lambda x: ar(torch.zeros_like(x))
+
+
+def plan_barrier(ctx: PlanContext, comm) -> Callable:
+    from .abi import TensorSpec
+
+    ar = ctx.plan_dep("allreduce", TensorSpec((1,), torch.float32), H.PAX_SUM, comm)
+    device = ctx.device
+
+    def run():
+        return _then(ar(torch.zeros((1,), dtype=torch.float32, device=device)),
+                     lambda _: None)
+
+    return run
+
+
+def _plan_scan(ctx: PlanContext, x, op, comm, inclusive: bool) -> Callable:
+    from .abi import TensorSpec
+
+    if ctx.dep("comm_size")(comm) <= 1:
+        return lambda x: x
+    ag = ctx.plan_dep("allgather", TensorSpec((1,) + tuple(x.shape), x.dtype), comm, 0)
+    r, fn = ctx.dep("comm_rank")(comm), ctx.op_fn(op)
+
+    def run(x):
+        return _then(ag(x.unsqueeze(0)), lambda g: prefix_fold(g, r, fn, x, inclusive))
+
+    return run
+
+
+def plan_scan(ctx: PlanContext, x, op, comm) -> Callable:
+    return _plan_scan(ctx, x, op, comm, inclusive=True)
+
+
+def plan_exscan(ctx: PlanContext, x, op, comm) -> Callable:
+    return _plan_scan(ctx, x, op, comm, inclusive=False)
+
+
+def plan_gather(ctx: PlanContext, x, root, comm, axis=0) -> Callable:
+    # SPMD gather == allgather (defined at root, replicated elsewhere)
+    return ctx.plan_dep("allgather", x, comm, axis)
+
+
+# ---------------------------------------------------------------------------
+# Plan-group recipes (MPI ``Startall``): fused per stage
+# ---------------------------------------------------------------------------
 def plan_group_allreduce(ctx: PlanContext, bounds) -> Callable:
     """The group recipe, fused per stage: every member's reduce-scatter leg
     runs as one group stage before one all-gather stage, each through the
@@ -225,28 +544,7 @@ def plan_group_allreduce(ctx: PlanContext, bounds) -> Callable:
     return run
 
 
-def _deferred(kind: str, name: str) -> Callable:
-    """A recipe declaration whose body arrives with the partial backend."""
-
-    def recipe(ctx, *args, **kwargs):
-        raise PaxError(
-            PAX_ERR_UNSUPPORTED_OPERATION,
-            f"emulation {kind} for {name!r} is not ported yet (it arrives "
-            "with the minimal backend)",
-        )
-
-    recipe.__name__ = f"{kind}_{name}"
-    recipe.__qualname__ = f"{kind}_{name}"
-    return recipe
-
-
-for _name in ("reduce", "bcast", "barrier", "scan", "exscan",
-              "alltoall", "alltoallv", "alltoallw", "gather", "scatter",
-              "comm_revoke", "comm_failure_ack", "comm_get_failed",
-              "comm_agree", "comm_shrink"):
-    globals()[f"build_{_name}"] = _deferred("build", _name)
-for _name in ("reduce", "bcast", "barrier", "scan", "exscan", "gather"):
-    globals()[f"plan_{_name}"] = _deferred("plan", _name)
-for _name in ("reduce",):
-    globals()[f"plan_group_{_name}"] = _deferred("plan_group", _name)
-del _name
+def plan_group_reduce(ctx: PlanContext, bounds) -> Callable:
+    # SPMD: computed everywhere, defined at root (the MPI contract)
+    return ctx.plan_group_dep(
+        "allreduce", [(x, op, comm) for x, op, root, comm in bounds])
