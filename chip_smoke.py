@@ -5,6 +5,8 @@
     python3 chip_smoke.py --only check  # build + [check] only (a first run)
     python3 chip_smoke.py --only ring4  # build + [ring4] only, four cards
     python3 chip_smoke.py --only serve  # [serve] only (no kernel to build)
+    python3 chip_smoke.py --only fault  # build + [fault] only
+    python3 chip_smoke.py --only fault4 # build + [fault4] only, four cards
     python3 chip_smoke.py --baseline wkv6=build/wkv6_parent.cu  # [time] also an earlier wkv6
 
 ``--baseline NAME=PATH`` (repeatable; NAME ``wkv6`` or ``ssd``) builds an
@@ -53,7 +55,10 @@ Phases (any failure exits non-zero and prints no result line):
    from it than twice the plain form), plus both kernels' edges (N, P and
    chunk not multiples of 8, chunk 1, a single chunk, N=3, chunk 64, and
    views at a misaligned base), each row logging the entry point it
-   launched; where the plain form is finite, so is the kernel;
+   launched; where the plain form is finite, so is the kernel; and, a
+   record, ``ssd`` at full width with one NaN in x, dt, B or C (its TF32
+   split is unscreened: a screen spills its registers, which the build
+   refuses for ``ssd``);
 3. [time] time each kernel, its plain version and, where one exists, one
    PyTorch call computing the same function, with CUDA events, beside the
    least time the card allows: bytes over its memory bandwidth for the
@@ -78,6 +83,13 @@ Phases (any failure exits non-zero and prints no result line):
    rank the ring is the identity, so no hop kernel launches and both
    steps' losses and grad norms equal the uncompressed run's bitwise (same
    seed, one bucket);
+7b. [abi-swap] the backend swap (see :func:`phase_abi_swap`), then [fault]
+   (:func:`phase_fault`): full-width qwen2-0.5b at two buckets resumed from
+   a checkpoint and from a torn one bitwise, a corrupted reduce-scatter
+   retried bitwise on ``faulty:paxi``, ``faulty:minimal`` and
+   ``faulty:ompix`` with integrity on, a dropped one timed out and reset, a
+   delayed step restarted bitwise by the watchdog, and the [serve] engine's
+   tokens under a ``ServeSupervisor``;
 8. [forward] the dense transformer's full-sequence forward under
    ``attention_impl="flash"``: full-width qwen2-0.5b (bf16, random weights
    from seed 0), batch 4, sequence 2048, through ``build_model(cfg).forward``
@@ -122,6 +134,12 @@ Each main path zeroes the launch counts just before it and reads them just
 after.  Needs one CUDA device and the repository's ``src/`` beside this
 file.
 
+``--only fault4`` (four cards, :func:`phase_fault4`) kills rank 3 of a
+dp=4 run of full-width qwen2-0.5b on ``faulty:paxi`` before step 3 of 4;
+the survivors shrink, rebuild a dp=2 world (their groups created by them
+alone) and resume from the step-2 checkpoint, bitwise equal to a dp=2
+oracle restored from the same checkpoint.
+
 ``--only ring4`` runs the one path a single card cannot: [ring4] starts
 ``launch.train`` as four ranks, one per card, on NCCL, for 2 ZeRO-1 steps
 of full-width qwen2-0.5b (global batch 32) on the f32 wire and then on the
@@ -139,6 +157,7 @@ import json
 import math
 import multiprocessing
 import os
+import re
 import socket
 import statistics
 import subprocess
@@ -216,13 +235,20 @@ def phase_build():
         load()
     log(f"[build] {len(libs)} libraries in parallel in {time.perf_counter() - t0:.1f} s: "
         + ", ".join(f"{p.relative_to(HERE)} ({dt:.1f} s)" for p, dt in built))
-    for path, _ in built:
+    spills = []
+    for (name, _), (path, _) in zip(libs, built):
         log_file = path.with_suffix(".log")
         if log_file.exists():
             for line in log_file.read_text().splitlines():
                 if ("registers" in line and "GMMA" not in line) or "spill" in line \
                         or "Compiling entry" in line:
                     log(f"[build]   {line.strip()}")
+                # ssd keeps its state in registers: a spill is a regression
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if name == "ssd" and spill and spill.groups() != ("0", "0"):
+                    spills.append(line.strip())
+    if spills:
+        raise AssertionError(f"[build] ssd spills registers: {spills}")
     for (name, _), (path, _) in zip(libs, built):
         if name in TENSOR_CORE_LIBS:
             hgmma = _hgmma(path)
@@ -1355,8 +1381,50 @@ def phase_check_scans() -> dict:
                                      f"more than twice the plain f32 form's {e_p}")
             del f64
         del args, got, plain
+    _check_ssd_nan(gen)
     torch.cuda.empty_cache()
     return worst
+
+
+#: (input, index) of the one NaN each [check] NaN row puts into ``ssd``'s
+#: full-width inputs (x, dt, B, C at (Bb, T, H, P), (Bb, T, H), (Bb, T, N))
+SSD_NAN = (("x", 0, (0, 1027, 5, 7)), ("dt", 1, (1, 683, 11)), ("B", 3, (2, 100, 9)),
+           ("C", 4, (3, 1500, 20)))
+
+
+def _check_ssd_nan(gen) -> None:
+    """``ssd`` at full width with one NaN in x, dt, B or C, a record: the
+    kernel's TF32 split is unscreened (a screen spills its registers,
+    ROADMAP queue 3), so the card's NaN (0x7fffffff) rounds to -0 where it
+    is split and the kernel may be finite where the plain form is not; it
+    is held to the gate at the outputs where both are finite."""
+    import torch
+    from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
+    from repro_torch.kernels.mamba2_ssd import ref as ssd_ref
+
+    *dims, chunk = SSD_FULL
+    base = _ssd_inputs(*dims, "model", gen)
+    for name, i, at in SSD_NAN:
+        args = list(base)
+        args[i] = args[i].clone()
+        args[i][at] = float("nan")
+        before = ssd_ops.ssd_apply.launches
+        got = ssd_ops.ssd_apply(*args, chunk=chunk)
+        plain = ssd_ref.ssd(*args, chunk=chunk)
+        torch_sync()
+        ok = torch.isfinite(plain)
+        both = ok & torch.isfinite(got)
+        bad = int((~ok).sum())
+        hidden = int((ok ^ torch.isfinite(got)).sum())
+        over = _excess(got[both], plain[both], CHUNKED_TOL)
+        log(f"[check] ssd {SSD_FULL} one NaN in {name} at {at} (a record): the plain form is not "
+            f"finite at {bad} of {plain.numel()} outputs, the kernel at "
+            f"{int((~torch.isfinite(got)).sum())}; they differ at {hidden}; max abs err vs plain "
+            f"where both are finite {_max_err(got[both], plain[both]):.3e} (gate {CHUNKED_TOL})")
+        if over > 0 or ssd_ops.ssd_apply.launches != before + 1:
+            raise AssertionError(f"ssd with a NaN in {name}: {over} past the gate where both "
+                                 "are finite")
+        del args, got, plain, ok
 
 
 def _check_misaligned(name, shape, ops, ref, make, oracle_fn, entry, gen) -> None:
@@ -2028,6 +2096,507 @@ def _serve_card_vs_cpu() -> dict:
             "stopped_at": None if stop is None else stop[0]}
 
 
+# ---------------------------------------------------------------------------
+# [fault]: the fault and transport tiers with the checkpointer
+# ---------------------------------------------------------------------------
+FAULT_ARGS = COMMON + ["--zero1-buckets", "2"]
+#: ABI collective calls one ZeRO-1 step makes at dp=1 and two buckets (the
+#: fault schedule's count): the two reduce-scatter members, the grad-norm
+#: all-reduce, the two all-gather members, the loss all-reduce; `minimal`'s
+#: all-reduce recipe is the identity at width 1 (no call)
+FAULT_CALLS = {"faulty:paxi": 6, "faulty:minimal": 4, "faulty:ompix": 6}
+FAULT_TIMEOUT_S = 0.2
+FAULT_DELAY_S = 0.5
+#: the watchdog flags a straggler from its ninth observed step on
+FAULT_STEPS = 10
+FAULT_SERVE = dict(requests=4, prompt=64, new_tokens=16)
+FAULT_PROBE_CALLS = 1000
+FAULT_DEVICE = "cuda"
+
+
+class _FaultTrainer:
+    """The launcher's ZeRO-1 world (``launch.train``'s config, schedule,
+    optimizer, seed and batch stream) built from the port's API, for the
+    scenarios the launcher has no flag for: a wait deadline, a watchdog."""
+
+    def __init__(self, impl: str, *, integrity: bool = False):
+        import dataclasses
+
+        from repro_torch import configs
+        from repro_torch.core.backends.faulty import fault_schedule_of
+        from repro_torch.data.pipeline import DataPipeline, SyntheticSource
+        from repro_torch.models import build_model
+        from repro_torch.optim.adamw import AdamWConfig, warmup_cosine
+        from repro_torch.runtime.dist import make_dist
+        from repro_torch.train import train_loop
+
+        cfg = configs.get_config(ARCH)
+        cfg = dataclasses.replace(cfg, parallelism=dataclasses.replace(
+            cfg.parallelism, zero1_buckets=2))
+        api = build_model(cfg)
+        self.tl = train_loop
+        self.dist = make_dist(impl=impl, device=FAULT_DEVICE, integrity=integrity)
+        self.sched = fault_schedule_of(self.dist.abi.backend)
+        self.state = train_loop.init_state(api, 0, self.dist)
+        # the launcher's schedule: warmup 20 steps, so these runs never reach
+        # the part that depends on the run's length
+        self.step_fn = train_loop.make_train_step(
+            api, self.dist, AdamWConfig(lr=3e-4),
+            schedule=lambda s: warmup_cosine(s, warmup=20, total=FAULT_STEPS))
+        self.pipe = DataPipeline(SyntheticSource(cfg.vocab_size, seed=0), global_batch=8,
+                                 seq_len=128)
+        self.drawn: list = []
+        self.grad_norms: dict = {}
+
+    def batch(self, i: int) -> dict:
+        while len(self.drawn) <= i:
+            self.drawn.append(next(self.pipe))
+        return self.tl.local_batch(self.drawn[i], self.dist)
+
+    def step(self, state, batch):
+        state, metrics = self.step_fn(state, batch)
+        self.grad_norms[int(state.step)] = float(metrics.grad_norm)
+        return state, metrics
+
+    def close(self):
+        self.pipe.close()
+        self.dist.shutdown()
+
+
+def _fault_check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(f"[fault] {what}")
+
+
+def _flip_byte(path: Path) -> None:
+    blob = bytearray(path.read_bytes())
+    blob[len(blob) // 2] ^= 0x40
+    path.write_bytes(bytes(blob))
+
+
+def phase_fault(card: str) -> dict:
+    """[fault]: full-width qwen2-0.5b (bf16, seed 0), batch 8, sequence 128,
+    two buckets, one card, through the port's fault and transport tiers:
+
+    * resume: ``launch.train --ckpt-dir D --ckpt-every 2 --steps 4``, then
+      ``--steps 6`` on D resumes from step 4; its steps 5-6 and final
+      parameters (SHA-256) equal an uninterrupted 6-step run's, bitwise;
+      the checkpoint's bytes, the save's and the restore's ms by phase;
+    * torn checkpoint: one byte of the newest shard flipped; the restore
+      falls back to step 4 (one integrity event) and the replay ends bitwise;
+    * corrupt → retry: ``faulty:paxi``, ``faulty:minimal`` and ``faulty:ompix``
+      with integrity on, step 3's reduce-scatter corrupted once on rank 0:
+      one retry, losses, grad norms and parameters equal to the disarmed run
+      with integrity on; the wire kernels' launches; ms/step with integrity
+      off and on (a record);
+    * drop → timeout: a dropped reduce-scatter's group wait raises
+      ``PAX_ERR_TIMEOUT`` after at least 0.2 s with the request active, the
+      reset re-arms the group and the next step is bitwise the unfailed
+      one; a sticky drop under ``RetryPolicy(max_retries=2)`` exhausts and
+      propagates ``PAX_ERR_TIMEOUT`` (a record);
+    * delay → restart: a ``delay`` schedule on step 9 flags a straggler,
+      the watchdog answers ``restart``, the supervisor saves, restores and
+      ends bitwise equal to the unfailed 10-step run;
+    * serving: a ``ServeSupervisor`` (integrity on, a 5 s wait deadline)
+      over the [serve] engine gives the engine's own greedy tokens; the µs
+      of its two additions per step, the ``comm_agree`` probe and
+      ``verify_clean``.
+
+    Returns the numbers it logs."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core.errors import PAX_ERR_TIMEOUT, PaxError, error_string
+    from repro_torch.launch import train
+    from repro_torch.launch.train import params_sha256
+    from repro_torch.runtime.fault import RetryPolicy, StepWatchdog, run_supervised
+
+    out = {}
+    root = HERE / "build"
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="fault-", dir=root))
+    try:
+        # -- resume, bitwise ----------------------------------------------------
+        ck = tmp / "ckpt"
+        ck_args = ["--ckpt-dir", str(ck), "--ckpt-every", "2", "--ckpt-keep", "2", "--digest"]
+        first = train.main(FAULT_ARGS + ["--steps", "4"] + ck_args)
+        torch.cuda.empty_cache()
+        resumed = train.main(FAULT_ARGS + ["--steps", "6"] + ck_args)
+        torch.cuda.empty_cache()
+        whole = train.main(FAULT_ARGS + ["--steps", "6", "--digest"])
+        torch.cuda.empty_cache()
+        same = ((resumed.losses, resumed.grad_norms, resumed.params_sha256)
+                == (whole.losses[4:], whole.grad_norms[4:], whole.params_sha256))
+        log(f"[fault] resume: run 1 steps 1-4 losses {first.losses}; run 2 resumed from step "
+            f"{resumed.resumed_from}: steps 5-6 losses {resumed.losses} grad norms "
+            f"{resumed.grad_norms}; uninterrupted {whole.losses[4:]} {whole.grad_norms[4:]}; "
+            f"parameters sha256 {resumed.params_sha256[:16]} vs {whole.params_sha256[:16]}: "
+            f"{'bitwise equal' if same else 'DIFFER'} on {card}")
+        _fault_check(resumed.resumed_from == 4 and same, "resume differs from the "
+                     "uninterrupted run")
+        s, r = resumed.ckpt_save, resumed.ckpt_restore
+        out["ckpt"] = {"bytes": s["bytes"], "save": s, "restore": r}
+        log(f"[fault] checkpoint (f32 wire, bf16 parameters): {s['bytes']} bytes "
+            f"({s['bytes'] / 1e9:.2f} GB); save of step {s['step']}: host copy "
+            f"{s['host_copy_ms']:.0f} ms, write {s['write_ms']:.0f} ms, CRC32 {s['crc_ms']:.0f} "
+            f"ms; restore of step {r['step']}: CRC32 {r['crc_ms']:.0f} ms, load "
+            f"{r['load_ms']:.0f} ms, copy to the card {r['copy_ms']:.0f} ms on {card}")
+
+        # -- a torn checkpoint falls back --------------------------------------
+        _flip_byte(ck / "step_0000000006" / "shard_0.npz")
+        torn = train.main(FAULT_ARGS + ["--steps", "6"] + ck_args)
+        torch.cuda.empty_cache()
+        same = ((torn.losses, torn.grad_norms, torn.params_sha256)
+                == (whole.losses[4:], whole.grad_norms[4:], whole.params_sha256))
+        log(f"[fault] torn: one byte of step 6's shard flipped; integrity events "
+            f"{torn.checkpoint_fallbacks}; resumed from step {torn.resumed_from}, steps 5-6 "
+            f"losses {torn.losses}: {'bitwise equal' if same else 'DIFFER'} on {card}")
+        _fault_check(len(torn.checkpoint_fallbacks) == 1 and torn.resumed_from == 4
+                     and torn.checkpoint_fallbacks[0]["fell_back_to"] == 4 and same,
+                     "the torn checkpoint did not fall back to step 4 bitwise")
+
+        # -- corrupt -> retry, on three backends -----------------------------
+        runs = {}
+        for impl, calls in FAULT_CALLS.items():
+            args = FAULT_ARGS + ["--steps", "4", "--impl", impl, "--retries", "2", "--digest"]
+            got = {}
+            os.environ["PAX_WIRE_INTEGRITY"] = "1"
+            for armed in (True, False):
+                os.environ["PAX_FAULT_SCHEDULE"] = (
+                    f"rank=0,at={2 * calls},mode=corrupt" if armed else "")
+                _zero_counts()
+                rep = train.main(args)
+                got[armed] = (rep, dict(_counts()))
+                torch.cuda.empty_cache()
+            os.environ.pop("PAX_FAULT_SCHEDULE", None)
+            os.environ.pop("PAX_WIRE_INTEGRITY", None)
+            (f, cf), (c, cc) = got[True], got[False]
+            same = ((f.losses, f.grad_norms, f.params_sha256)
+                    == (c.losses, c.grad_norms, c.params_sha256))
+            log(f"[fault] {impl} integrity on, step 3's reduce-scatter corrupted on rank 0 "
+                f"(at={2 * calls}): transport retries {f.transport_retries}, losses "
+                f"{f.losses}, grad norms {f.grad_norms} vs disarmed {c.losses} "
+                f"{c.grad_norms}: {'bitwise equal' if same else 'DIFFER'}; launches armed "
+                f"pack {cf['pack_transposed']} unpack {cf['unpack_transposed']}, disarmed "
+                f"pack {cc['pack_transposed']} unpack {cc['unpack_transposed']} on {card}")
+            _fault_check(f.transport_retries == 1 and c.transport_retries == 0 and same,
+                         f"{impl}: the corrupted step was not retried bitwise")
+            _fault_check((cc["pack_transposed"], cc["unpack_transposed"]) == (4, 4)
+                         and (cf["pack_transposed"], cf["unpack_transposed"]) == (5, 5),
+                         f"{impl}: wire kernel launches {cf} {cc}")
+            _fault_check(c.losses == whole.losses[:4], f"{impl}: integrity on changed the "
+                         "losses")
+            runs[impl] = c
+        os.environ["PAX_FAULT_SCHEDULE"] = ""
+        off = train.main(FAULT_ARGS + ["--steps", "4", "--impl", "faulty:paxi"])
+        os.environ.pop("PAX_FAULT_SCHEDULE", None)
+        torch.cuda.empty_cache()
+        on_ms = statistics.median(runs["faulty:paxi"].step_ms[1:])
+        off_ms = statistics.median(off.step_ms[1:])
+        out["integrity_ms"] = {"off": off_ms, "on": on_ms}
+        log(f"[fault] faulty:paxi ms/step (steps 2-4, median): integrity off {off_ms:.1f} "
+            f"({', '.join(f'{t:.1f}' for t in off.step_ms[1:])}), on {on_ms:.1f} "
+            f"({', '.join(f'{t:.1f}' for t in runs['faulty:paxi'].step_ms[1:])}), "
+            f"ratio {on_ms / off_ms:.3f} on {card}")
+
+        # -- the unfailed 10-step oracle (integrity off) -----------------------
+        t = _FaultTrainer("faulty:paxi")
+        try:
+            rep = run_supervised(t.step, t.state, t.batch, total_steps=FAULT_STEPS,
+                                 max_restarts=0)
+            oracle = (rep.losses, [t.grad_norms[i] for i in range(1, FAULT_STEPS + 1)],
+                      params_sha256(rep.final_state.params))
+        finally:
+            t.close()
+        torch.cuda.empty_cache()
+        _fault_check(oracle[0][:6] == whole.losses and oracle[1][:6] == whole.grad_norms,
+                     "the API-built world differs from the launcher's")
+
+        # -- drop -> timeout -> reset; a sticky drop exhausts its retries ------
+        t = _FaultTrainer("faulty:paxi")
+        try:
+            state, m1 = t.step(t.state, t.batch(0))
+            t.dist.wait_timeout_s = FAULT_TIMEOUT_S
+            t.sched.arm(0, after=0, mode="drop")
+            t0 = time.perf_counter()
+            try:
+                t.step(state, t.batch(1))
+                raise AssertionError("[fault] the dropped reduce-scatter did not time out")
+            except PaxError as e:
+                waited = time.perf_counter() - t0
+                code = e.code
+            active = not t.dist.zero1_plans.rs_group.request.done
+            t.tl.plan_resetter(t.dist)()
+            t.sched.kill_rank, t.sched.dropping = -1, False   # the link heals
+            state, m2 = t.step(state, t.batch(1))
+            clean = [float(m1.loss), float(m2.loss)] == oracle[0][:2]
+            log(f"[fault] drop: the zero1-rs group wait raised {error_string(code)} "
+                f"after {waited:.3f} s (deadline {FAULT_TIMEOUT_S} s), request active "
+                f"{active}; after reset() the next step's loss {float(m2.loss)!r} "
+                f"{'bitwise equal to' if clean else 'DIFFERS from'} the unfailed "
+                f"{oracle[0][1]!r} on {card}")
+            _fault_check(code == PAX_ERR_TIMEOUT and waited >= FAULT_TIMEOUT_S and active
+                         and clean, "drop/timeout/reset")
+            t.sched.arm(0, after=0, mode="drop")
+            pol = RetryPolicy(max_retries=2, reset=t.tl.plan_resetter(t.dist))
+            t0 = time.perf_counter()
+            try:
+                pol.run(lambda: t.step(state, t.batch(2)), what="sticky drop")
+                raise AssertionError("[fault] a sticky drop completed")
+            except PaxError as e:
+                log(f"[fault] sticky drop under RetryPolicy(max_retries=2): "
+                    f"{error_string(e.code)} propagated after {pol.retries} retries and {pol.escalations} "
+                    f"escalation in {time.perf_counter() - t0:.3f} s (the reference's "
+                    f"contract with no survivor to escalate to; a record) on {card}")
+                _fault_check(e.code == PAX_ERR_TIMEOUT and pol.retries == 2, "sticky drop")
+            t.tl.plan_resetter(t.dist)()
+            t.sched.kill_rank, t.sched.dropping = -1, False
+        finally:
+            t.close()
+        torch.cuda.empty_cache()
+
+        # -- delay -> straggler -> restart, bitwise ----------------------------
+        t = _FaultTrainer("faulty:paxi")
+        try:
+            wd = StepWatchdog(on_straggler=lambda s, dt: "restart")
+            ck2 = Checkpointer(tmp / "ckpt-delay", keep=2, dist=t.dist)
+
+            def batch(i, _t=t):
+                if i == FAULT_STEPS - 2 and _t.sched.kill_rank < 0:
+                    _t.sched.delay_s = FAULT_DELAY_S
+                    _t.sched.arm(0, after=0, mode="delay")
+                return _t.batch(i)
+
+            rep = run_supervised(t.step, t.state, batch, checkpointer=ck2,
+                                 total_steps=FAULT_STEPS, checkpoint_every=10 ** 6,
+                                 max_restarts=2, watchdog=wd, state_like=t.state)
+            got = (rep.losses, [t.grad_norms[i] for i in range(1, FAULT_STEPS + 1)],
+                   params_sha256(rep.final_state.params))
+            log(f"[fault] delay ({FAULT_DELAY_S} s a call from step 9): stragglers "
+                f"{[(s, round(d, 3)) for s, d in wd.stragglers]}, restarts {rep.restarts}; "
+                f"sync save {ck2.last_save.get('write_ms', 0):.0f} ms write, restore "
+                f"{ck2.last_restore.get('crc_ms', 0) + ck2.last_restore.get('load_ms', 0):.0f} "
+                f"ms; losses {'bitwise equal to' if got == oracle else 'DIFFER from'} the "
+                f"unfailed run's on {card}")
+            _fault_check(rep.restarts == 1 and wd.stragglers and got == oracle,
+                         "the delay restart differs from the unfailed run")
+        finally:
+            t.sched.kill_rank = -1
+            t.close()
+        torch.cuda.empty_cache()
+        out.update(phase_fault_serve(card))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def phase_fault_serve(card: str) -> dict:
+    """[fault] serving: the [serve] engine on an integrity-on context, its
+    greedy tokens alone and under a ``ServeSupervisor(wait_timeout_s=5.0)``;
+    µs per supervisor step above the engine step, and of its two
+    additions: the ``comm_agree`` probe and ``verify_clean``."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    from repro_torch.runtime.dist import make_dist
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.supervisor import ServeSupervisor
+
+    cfg = configs.get_config(ARCH)
+    api = build_model(cfg)
+    model = _init_timed(api, "fault")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, FAULT_SERVE["prompt"]).astype(np.int32)
+               for _ in range(FAULT_SERVE["requests"])]
+
+    def reqs():
+        return [Request(i, p, max_new_tokens=FAULT_SERVE["new_tokens"])
+                for i, p in enumerate(prompts)]
+
+    with make_dist(device=FAULT_DEVICE, integrity=True) as dist:
+        eng = ServeEngine(api, model, dist=dist, seed=0, **SERVE_ENGINE)
+        alone = reqs()
+        _, eng_ms = _drain_timed(eng, alone)
+        sup = ServeSupervisor(eng, wait_timeout_s=5.0)
+        supervised = reqs()
+        for r in supervised:
+            eng.submit(r)
+        sup_ms = []
+        while eng.has_work:
+            t0 = time.perf_counter()
+            sup.step()
+            sup_ms.append((time.perf_counter() - t0) * 1e3)
+        same = [r.out_tokens for r in supervised] == [r.out_tokens for r in alone]
+        ds = eng.decode_sync
+        tok = np.zeros(SERVE_ENGINE["max_batch"], np.int32)
+        t0 = time.perf_counter()
+        for _ in range(FAULT_PROBE_CALLS):
+            ds.abi.comm_agree(1, ds.comm)
+        agree_us = (time.perf_counter() - t0) / FAULT_PROBE_CALLS * 1e6
+        t0 = time.perf_counter()
+        for _ in range(FAULT_PROBE_CALLS):
+            ds.abi.verify_clean((tok, tok), "probe")
+        verify_us = (time.perf_counter() - t0) / FAULT_PROBE_CALLS * 1e6
+        rep = sup.report
+        log(f"[fault] serving, integrity on, wait deadline 5.0 s: {len(alone)} greedy "
+            f"requests ({FAULT_SERVE['prompt']}-token prompts, {FAULT_SERVE['new_tokens']} "
+            f"new tokens) under the supervisor {'equal' if same else 'DIFFER from'} the "
+            f"engine's own tokens; failures {rep.failures}, transport retries "
+            f"{rep.transport_retries}; median ms per step: engine {statistics.median(eng_ms):.3f}, "
+            f"supervisor {statistics.median(sup_ms):.3f}; comm_agree probe {agree_us:.2f} us, "
+            f"verify_clean {verify_us:.2f} us per call (mean of {FAULT_PROBE_CALLS}) on {card}")
+        _fault_check(same and rep.failures == 0 and rep.transport_retries == 0,
+                     "the supervised engine's tokens differ")
+        rep.assert_consistent()
+    del model
+    torch.cuda.empty_cache()
+    return {"serve_step_ms": {"engine": statistics.median(eng_ms),
+                              "supervisor": statistics.median(sup_ms)},
+            "agree_us": agree_us, "verify_us": verify_us}
+
+
+FAULT4 = 4
+FAULT4_TOTAL, FAULT4_EVERY, FAULT4_KILL_AT, FAULT4_KILL_RANK = 4, 2, 2, 3
+
+
+def _fault4_rank(rank: int, world: int, init_method: str, out_dir: str,
+                 device: str = "cuda") -> None:
+    """One rank of [fault4]: ZeRO-1 at dp=4 on ``faulty:paxi``, rank 3
+    declared dead before step 3; the survivors resume at dp=2 and an oracle
+    over the same two cards restores the same checkpoint.  ``device="cpu"``
+    rehearses it on gloo at the smoke size."""
+    sys.path.insert(0, str(SRC))
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core.backends.faulty import fault_schedule_of
+    from repro_torch.data.pipeline import DataPipeline, SyntheticSource
+    from repro_torch.launch.train import params_sha256
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig, warmup_cosine
+    from repro_torch.runtime.dist import make_dist
+    from repro_torch.runtime.fault import run_supervised
+    from repro_torch.train import train_loop as tl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    on_card = device != "cpu"
+    if not on_card:
+        torch.set_num_threads(1)
+    cfg = configs.get_config(ARCH) if on_card else configs.smoke_config(ARCH)
+    cfg = dataclasses.replace(cfg, parallelism=dataclasses.replace(
+        cfg.parallelism, zero1_buckets=2))
+    api = build_model(cfg)
+    opt = AdamWConfig(lr=3e-4)
+    sched_fn = lambda s: warmup_cosine(s, warmup=20, total=FAULT4_TOTAL)  # noqa: E731
+    pipe = DataPipeline(SyntheticSource(cfg.vocab_size, seed=0), global_batch=32, seq_len=128)
+    drawn = [next(pipe) for _ in range(FAULT4_TOTAL)]
+    pipe.close()
+    ckdir = Path(out_dir) / "ckpt"
+    rec = {}
+    with make_dist(device=f"cuda:{rank}" if on_card else "cpu", world_size=world, rank=rank,
+                   init_method=init_method, impl="faulty:paxi") as dist:
+        sched = fault_schedule_of(dist.abi.backend)
+        state = tl.init_state(api, 0, dist)
+        step = tl.global_batch_step(dist, tl.make_train_step(api, dist, opt, schedule=sched_fn))
+        policy = tl.elastic_recovery_policy(api, opt, dist, 0, impl="paxi", schedule=sched_fn)
+
+        def batch(i):
+            if i == FAULT4_KILL_AT and sched.kill_rank < 0:
+                sched.kill_rank, sched.dead = FAULT4_KILL_RANK, True
+            return drawn[i]
+
+        t0 = time.perf_counter()
+        rep = run_supervised(step, state, batch, checkpointer=Checkpointer(ckdir, keep=2,
+                                                                          dist=dist),
+                             total_steps=FAULT4_TOTAL, checkpoint_every=FAULT4_EVERY,
+                             max_restarts=2, recover=policy)
+        rec.update(left=rep.left_world, restarts=rep.restarts, steps=rep.steps_completed,
+                   losses=rep.losses, seconds=time.perf_counter() - t0,
+                   failed=list(dist.abi.comm_get_failed(dist.dp_comm)))
+        if not rep.left_world:
+            new = policy.dist
+            st = rep.final_state
+            rec.update(dp=new.dp_size, ranks=list(new.mesh.world_ranks),
+                       got=[params_sha256(st.params), _sha(st.opt.m), _sha(st.opt.v)])
+            with make_dist(mesh=new.mesh, impl="paxi") as oracle:
+                like = tl.init_state(api, 0, oracle)
+                ost, at = Checkpointer(ckdir, dist=oracle).restore(like, step=FAULT4_EVERY)
+                ostep = tl.global_batch_step(oracle, tl.make_train_step(
+                    api, oracle, opt, schedule=sched_fn))
+                for s in range(at, FAULT4_TOTAL):
+                    ost, _ = ostep(ost, drawn[s])
+                rec.update(want=[params_sha256(ost.params), _sha(ost.opt.m), _sha(ost.opt.v)],
+                           oracle_from=at)
+            new.shutdown()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def _sha(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def phase_fault4(card: str, out_dir: Path = HERE / "build" / "fault4",
+                 device: str = "cuda") -> None:
+    """[fault4] (four cards): dp=4 full-width qwen2-0.5b on ``faulty:paxi``
+    over NCCL, rank 3 dead before step 3 of 4; revoke → ack → agree →
+    shrink on every rank, the survivors' dp=2 world (its groups created by
+    them alone) resumes from the step-2 checkpoint, bitwise equal to a dp=2
+    oracle restored from the same checkpoint; ranks 2 (the power-of-two
+    trim) and 3 leave."""
+    import shutil
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_fault4_rank, args=(r, FAULT4, f"tcp://localhost:{port}",
+                                                   str(out_dir), device))
+             for r in range(FAULT4)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 600
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 1))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    codes = [p.exitcode for p in procs]
+    try:
+        if codes != [0] * FAULT4:
+            raise RuntimeError(f"[fault4] rank exit codes {codes}")
+        recs = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(FAULT4)]
+        for r, rec in enumerate(recs):
+            log(f"[fault4] rank {r}: left {rec['left']}, restarts {rec['restarts']}, steps "
+                f"{rec['steps']}, losses {rec['losses']}, failed {rec['failed']}, "
+                f"{rec['seconds']:.1f} s"
+                + (f", dp {rec['dp']} over ranks {rec['ranks']}, oracle from step "
+                   f"{rec['oracle_from']}: params/m/v sha256 "
+                   f"{'bitwise equal' if rec['got'] == rec['want'] else 'DIFFER'}"
+                   if not rec["left"] else "") + f" on {card}")
+        for r in (0, 1):
+            rec = recs[r]
+            if rec["left"] or rec["dp"] != 2 or rec["got"] != rec["want"] \
+                    or rec["restarts"] != 1 or rec["steps"] != FAULT4_TOTAL:
+                raise AssertionError(f"[fault4] survivor {r} did not resume bitwise: {rec}")
+        for r in (2, 3):
+            if not recs[r]["left"] or recs[r]["failed"] != [FAULT4_KILL_RANK]:
+                raise AssertionError(f"[fault4] rank {r} did not leave: {recs[r]}")
+    finally:
+        shutil.rmtree(out_dir / "ckpt", ignore_errors=True)
+
+
 RING4 = 4
 RING4_ARGS = ["--arch", ARCH, "--global-batch", "32", "--seq-len", "128", "--log-every", "1",
               "--steps", "2", "--zero1-buckets", "1"]
@@ -2134,11 +2703,14 @@ KERNELS = {
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("check", "ring4", "serve", "swap"), default=None,
+    ap.add_argument("--only", choices=("check", "ring4", "serve", "swap", "fault", "fault4"),
+                    default=None,
                     help="check: stop after building and checking the kernels; "
                          "ring4: build, then only the four-card int8 ring; "
                          "serve: only [serve], which launches no kernel (no build); "
-                         "swap: build, then only [abi-swap]")
+                         "swap: build, then only [abi-swap]; "
+                         "fault: build, then only [fault]; "
+                         "fault4: build, then only the four-card elastic shrink")
     ap.add_argument("--baseline", action="append", default=[], metavar="NAME=PATH",
                     help="an earlier source of the scan NAME (wkv6 or ssd; entry point "
                          "pax_NAME) to time in turns with the current kernel in [time]")
@@ -2188,6 +2760,17 @@ def main() -> int:
             phase_abi_swap(card)
             log("[only] swap: every backend trained bitwise alike; no result line")
             return 0
+        if args.only == "fault":
+            phase_fault(card)
+            log("[only] fault: every fault scenario recovered bitwise; no result line")
+            return 0
+        if args.only == "fault4":
+            if torch.cuda.device_count() < FAULT4:
+                raise RuntimeError(f"[fault4] needs {FAULT4} cards, found "
+                                   f"{torch.cuda.device_count()}")
+            phase_fault4(card)
+            log("[only] fault4: the survivors resumed bitwise at dp=2; no result line")
+            return 0
         worst = phase_check(n_full)
         worst.update(phase_check_ring(n_full))
         worst.update(phase_check_flash())
@@ -2206,6 +2789,7 @@ def main() -> int:
         int8 = phase_main_int8(uncompressed)
         launches.update({k: int8[k] for k in HOPS})
         phase_abi_swap(card)
+        phase_fault(card)
         launches["flash_attention"] = phase_forward(card)
         phase_forward_gemma(card)
         launches["wkv6"] = phase_forward_ssm(card)

@@ -32,18 +32,32 @@ entries, and exposes the standard functions.
   classification bits, so use-after-wait is an exactly detected
   ``PAX_ERR_REQUEST`` forever and the handle space never exhausts.
 
-The reference's integrity envelope, wait timeouts and the plan reset on
-``comm_revoke`` belong to the fault and transport tiers, which a later port
-slice brings.  ``shard_region`` has no counterpart: one process is one rank,
-so the code a ``shard_map`` region holds in the reference simply runs.
+* **The transport tier.**  ``PaxABI(integrity=True)`` (or
+  ``PAX_WIRE_INTEGRITY=1``) wraps each plan's and plan group's run in a
+  checksum envelope built at plan time; a failed check folds the poison
+  fill into the result and :meth:`PaxABI.verify_clean` raises
+  ``PAX_ERR_DATA_CORRUPTION`` where the values are read.  With integrity
+  off the closures are the ones a context without the tier compiles.  The
+  ``wait`` family takes ``timeout_s``: a dropped operation (the
+  :class:`~repro_torch.core.errors.IncompleteValue` a loss-capable backend
+  plants) raises ``PAX_ERR_TIMEOUT`` after the deadline and leaves the
+  request active for ``reset``.  ``comm_revoke`` resets every plan and
+  group bound to the revoked communicator.
+
+``shard_region`` has no counterpart: one process is one rank, so the code a
+``shard_map`` region holds in the reference simply runs.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 import weakref
 from typing import Any, Callable, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
+import torch.distributed as tdist
 
 from . import abi_spec
 from . import emulation
@@ -54,9 +68,12 @@ from .communicator import CommTable
 from .constants import PAX_ANY_SOURCE, PAX_ANY_TAG
 from .datatypes import DatatypeRegistry
 from .errors import (
+    PAX_ERR_DATA_CORRUPTION,
     PAX_ERR_REQUEST,
+    PAX_ERR_TIMEOUT,
     PAX_ERR_UNSUPPORTED_OPERATION,
     PAX_SUCCESS,
+    IncompleteValue,
     PaxError,
 )
 from .ops import OpRegistry
@@ -215,18 +232,34 @@ class PlanGroup:
         self.start = self.wait = _dead(f"plan group {self.name!r} was freed")
 
 
-def _make_wait(req: Request) -> Callable:
+def _make_wait(req: Request, can_drop: bool, what: str) -> Callable:
     """A plan's or group's wait: on an inactive request it returns at once
     (MPI semantics); otherwise it completes the started collective and
-    deactivates the slot without retiring it."""
-
-    def wait(_req=req):
-        if _req.done:
-            return None
-        _req.done = True
-        v = _req.value
-        _req.value = None
-        return _complete(v)
+    deactivates the slot without retiring it.  Only a loss-capable backend
+    (``can_drop``) gets the drop-sentinel guard: a dropped operation never
+    completes, so the wait sleeps out ``timeout_s`` and raises
+    ``PAX_ERR_TIMEOUT`` with the request still active (``reset`` aborts
+    it), or blocks for good without a deadline.  Elsewhere ``timeout_s``
+    is accepted and unreachable."""
+    if can_drop:
+        def wait(timeout_s=None, _req=req, _scan=_first_incomplete):
+            if _req.done:
+                return None
+            iv = _scan(_req.value)
+            if iv is not None:
+                _await_incomplete(iv, timeout_s, what)
+            _req.done = True
+            v = _req.value
+            _req.value = None
+            return _complete(v)
+    else:
+        def wait(timeout_s=None, _req=req):
+            if _req.done:
+                return None
+            _req.done = True
+            v = _req.value
+            _req.value = None
+            return _complete(v)
 
     return wait
 
@@ -302,13 +335,224 @@ def _lazy_entry(abi: "PaxABI", entry: abi_spec.AbiEntry):
     return lazy
 
 
+def _comm_arg_index(entry: abi_spec.AbiEntry) -> Optional[int]:
+    for i, a in enumerate(entry.args):
+        if a.kind == abi_spec.COMM:
+            return i
+    return None
+
+
+def _wrap_revoke(abi: "PaxABI", inner: Callable) -> Callable:
+    """The ``comm_revoke`` entry point with its ABI-layer consequence: once
+    the (native or emulated) revoke lands, plans and groups bound to the
+    communicator are reset, so their frozen closures never start again."""
+
+    def comm_revoke(comm):
+        out = inner(comm)
+        abi._after_revoke(comm)
+        return out
+
+    comm_revoke.__wrapped__ = inner
+    comm_revoke.__name__ = "comm_revoke"
+    if hasattr(inner, "__generated_src__"):
+        comm_revoke.__generated_src__ = inner.__generated_src__
+    return comm_revoke
+
+
+# ---------------------------------------------------------------------------
+# Transport tier.
+#
+# * Checksum envelope (opt-in: ``PaxABI(integrity=True)`` /
+#   ``PAX_WIRE_INTEGRITY=1``).  The plan and group compilers wrap each run
+#   closure with one checksum reduction decided at plan time; disabled, the
+#   wrap returns the closure unchanged.  A failed check folds the poison
+#   fill into the result (NaN for floats, the most negative integer for
+#   ints; a bitwise pass-through ``torch.where`` when clean, no host sync),
+#   and :meth:`PaxABI.verify_clean` raises ``PAX_ERR_DATA_CORRUPTION`` where
+#   the value is read.  Rules (``abi_spec.AbiEntry.integrity``):
+#   ``replicated`` (allreduce, bcast, allgather: every member holds the
+#   same bits) and ``conserved`` (reduce_scatter under SUM: the value total
+#   survives the scatter).  The checks' own reductions run directly on the
+#   communicator's process group, outside the function table, as the
+#   reference's ``psum`` does.
+# * Wait timeouts: see :func:`_make_wait` and :meth:`PaxABI.wait`.
+# ---------------------------------------------------------------------------
+
+INTEGRITY_ENV_VAR = "PAX_WIRE_INTEGRITY"
+
+#: checksums stay below 2**20, so the agreement arithmetic over the members
+#: (sums, mean, deviations) is exact in float32
+_CK_MOD = 1048573  # the largest prime below 2**20
+
+#: the integer view each element width is reduced through, and its mask
+#: (the reference's zero-extending bitcast to uint8/16/32)
+_BITS = {1: (torch.uint8, 0xFF), 2: (torch.int16, 0xFFFF), 4: (torch.int32, 0xFFFFFFFF)}
+
+
+def _tensor_leaves(x) -> list:
+    return [t for t in _leaves(x) if isinstance(t, torch.Tensor)]
+
+
+def _bits_checksum(x) -> torch.Tensor:
+    """Exact bit-pattern checksum of a payload (tensor or member list), the
+    reference's: every element's bits reduced mod ``_CK_MOD`` before the
+    sum wraps mod 2**32, then folded mod ``_CK_MOD`` into a float32 scalar.
+    Computed in int64 (``torch.uint32`` has no ``%`` or ``sum`` on the
+    card); the int64 temporary is 8 bytes an element."""
+    total = None
+    for leaf in _tensor_leaves(x):
+        if leaf.dtype == torch.bool:
+            u = leaf.to(torch.int64)
+        elif leaf.element_size() in _BITS:
+            view, mask = _BITS[leaf.element_size()]
+            u = leaf.contiguous().view(view).to(torch.int64)
+            u.bitwise_and_(mask)
+        else:  # 8-byte lanes: fold the value, as the reference does
+            u = leaf.to(torch.int64)
+            u.bitwise_and_(0xFFFFFFFF)
+        u.remainder_(_CK_MOD)
+        part = u.sum()
+        total = part if total is None else total + part
+    if total is None:
+        return torch.zeros((), dtype=torch.float32)
+    return (total.remainder(1 << 32).remainder(_CK_MOD)).to(torch.float32)
+
+
+def _value_checksum(x) -> torch.Tensor:
+    """Value checksum for the conservation rule: the float32 sum over every
+    leaf (reassociation noise is inside :func:`_conservation_bad`'s
+    relative tolerance)."""
+    total = None
+    for leaf in _tensor_leaves(x):
+        part = leaf.to(torch.float32).sum()
+        total = part if total is None else total + part
+    return total if total is not None else torch.zeros((), dtype=torch.float32)
+
+
+def _psum(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum over the communicator's process group (the integrity checks' own
+    reduction, outside the function table)."""
+    if group is not None:
+        tdist.all_reduce(t, group=group)
+    return t
+
+
+def _agreement_bad(ck: torch.Tensor, group, n_members: int) -> torch.Tensor:
+    """Replicated rule: every member must hold the same checksum — the
+    mean over the members, then the summed deviation (exact in float32 by
+    the ``_CK_MOD`` bound: 0.0 iff all agree)."""
+    mean = _psum(ck.clone(), group) / n_members
+    dev = _psum((ck - mean).abs(), group)
+    return dev > 0.25
+
+
+def _conservation_bad(ck_in: torch.Tensor, ck_out: torch.Tensor, group) -> torch.Tensor:
+    """Conserved rule (reduce_scatter under SUM): what went onto the wire
+    comes off it — one sum of the (in, out) pair, a relative tolerance."""
+    s = _psum(torch.stack([ck_in, ck_out]), group)
+    return (s[0] - s[1]).abs() > 1e-3 * (s[0].abs() + 1.0)
+
+
+def _poison_where(bad: torch.Tensor, out):
+    """Fold the verdict into the payload: bitwise pass-through when clean,
+    the whole-payload poison fill when not (bools pass through)."""
+    if isinstance(out, (list, tuple)):
+        return type(out)(_poison_where(bad, o) for o in out)
+    if not isinstance(out, torch.Tensor):
+        return out
+    if out.dtype.is_floating_point:
+        fill = float("nan")
+    elif out.dtype == torch.bool or out.dtype.is_complex:
+        return out
+    else:
+        fill = torch.iinfo(out.dtype).min
+    return torch.where(bad.to(out.device), torch.tensor(fill, dtype=out.dtype,
+                                                        device=out.device), out)
+
+
+_then = emulation._then  # a run's result, now or at its wait; drops pass
+
+
+#: poll period of a deadline-less wait on a dropped operation (a real hang,
+#: interruptible from the keyboard)
+_HANG_POLL_S = 0.05
+
+
+def _await_incomplete(iv: IncompleteValue, timeout_s, what: str):
+    """A wait met a dropped operation's sentinel: with a deadline, sleep it
+    out and raise ``PAX_ERR_TIMEOUT`` (the caller has not touched the
+    request: it stays active); without one, block for good, as a dropped
+    message does."""
+    if timeout_s is None:
+        while True:
+            time.sleep(_HANG_POLL_S)
+    time.sleep(max(0.0, float(timeout_s)))
+    raise PaxError(PAX_ERR_TIMEOUT,
+                   f"{what} did not complete within {timeout_s}s: {iv.detail}")
+
+
+def _first_incomplete(value) -> Optional[IncompleteValue]:
+    """The drop sentinel in a wait's value, if any: the value itself, a
+    member of a group's list, or inside a group's reassembly ``Pending``."""
+    cls = value.__class__
+    if cls is IncompleteValue:
+        return value
+    if cls is Pending:
+        return _first_incomplete(value.value)
+    if cls is list or cls is tuple:
+        for x in value:
+            iv = _first_incomplete(x)
+            if iv is not None:
+                return iv
+    return None
+
+
+def _any_poisoned(outs) -> torch.Tensor:
+    """Whether a member's output already carries the poison fill (its own
+    per-call check failed): the group's verdict then poisons every member,
+    as one fused check would.  A device bool, no host sync."""
+    flags = [f for f in (_poisoned(o) for o in _tensor_leaves(outs))
+             if isinstance(f, torch.Tensor)]
+    if not flags:
+        return torch.zeros((), dtype=torch.bool)
+    return torch.stack([f.to(flags[0].device) for f in flags]).any()
+
+
+def _poisoned(leaf) -> Optional[bool]:
+    """Whether a materialized leaf is the poison fill (None: not checkable)."""
+    if isinstance(leaf, torch.Tensor):
+        if leaf.numel() == 0 or leaf.dtype == torch.bool or leaf.dtype.is_complex:
+            return None
+        if leaf.dtype.is_floating_point:
+            return torch.isnan(leaf).all()
+        return (leaf == torch.iinfo(leaf.dtype).min).all()
+    a = np.asarray(leaf) if isinstance(leaf, np.ndarray) else None
+    if a is None or a.size == 0:
+        return None
+    if np.issubdtype(a.dtype, np.floating):
+        return bool(np.isnan(a).all())
+    if np.issubdtype(a.dtype, np.integer):
+        return bool((a == np.iinfo(a.dtype).min).all())
+    return None
+
+
 class PaxABI:
     """One initialized ABI context (``MPI_Init`` .. ``MPI_Finalize``)."""
 
     def __init__(self, backend, mesh=None, tools: Sequence = (),
-                 req_slot_bits: Optional[int] = None) -> None:
+                 req_slot_bits: Optional[int] = None,
+                 integrity: Optional[bool] = None) -> None:
         self.backend = backend
         self.mesh = mesh if mesh is not None else backend.mesh
+        # the transport tier's opt-in, decided once: plans and groups read
+        # the flag at compile time, and the off path compiles exactly the
+        # closures of a context without the tier
+        if integrity is None:
+            integrity = os.environ.get(INTEGRITY_ENV_VAR, "").lower() in ("1", "true", "on")
+        self.integrity = bool(integrity)
+        # only a loss-capable backend (the faulty: wrapper) can plant the
+        # drop sentinel, so only its plan and group waits carry the guard
+        self._can_drop = bool(getattr(backend, "can_lose_messages", False))
         self.comms: CommTable = getattr(backend, "comms", None) or CommTable(self.mesh)
         self.ops: OpRegistry = getattr(backend, "ops", None) or OpRegistry()
         self.datatypes: DatatypeRegistry = getattr(backend, "datatypes", None) or DatatypeRegistry()
@@ -352,6 +596,14 @@ class PaxABI:
                 self._table[name] = _unavailable_entry(entry, backend.name, reason)
                 self._source[name] = "unavailable"
                 self._unavailable_reasons[name] = reason
+        if self.integrity:
+            # the envelope on every native entry with a rule, per call: the
+            # blocking collectives, and the ground calls emulation recipes
+            # and generic plans compose, are checked where they run
+            for entry in abi_spec.ABI_TABLE:
+                if self._source[entry.name] == "native":
+                    self._table[entry.name] = self._wrap_call_integrity(
+                        entry, self._table[entry.name])
         bits = _REQ_SLOT_BITS if req_slot_bits is None else int(req_slot_bits)
         if not 1 <= bits <= H._USER_KIND_SHIFT:
             raise ValueError(
@@ -416,6 +668,8 @@ class PaxABI:
             lambda: _spec_src(entry, tooled, nonblocking=False), entry.name, env,
         )
         self._entry_envs[entry.name] = env
+        if entry.name == "comm_revoke":
+            fn = _wrap_revoke(self, fn)
         object.__setattr__(self, entry.name, fn)
         if entry.nonblocking:
             ienv = dict(env)
@@ -532,11 +786,135 @@ class PaxABI:
             )
         return _freeze_run(entry, impl, bound)
 
+    # ------------------------------------------------------------------
+    # the checksum envelope (plan-time decisions)
+    # ------------------------------------------------------------------
+    def _integrity_rule(self, entry: abi_spec.AbiEntry, bound: tuple):
+        """``(rule, group, members)`` when a plan of ``entry`` bound to
+        ``bound`` (or a call with those arguments) gets the envelope, else
+        ``None``: integrity on, a declared rule, one payload, a communicator
+        with a process group (there is no wire on a group of one without
+        one), a SUM op for conservation."""
+        if not self.integrity:
+            return None
+        rule = entry.integrity
+        ci = _comm_arg_index(entry)
+        if rule is None or ci is None or len(entry.payload_args) != 1 or ci >= len(bound):
+            return None
+        # a revoked comm is the call's own error to raise (after it counts)
+        info = self.comms.info(bound[ci], allow_revoked=True)
+        if not info.axes or info.group is None:
+            return None
+        if rule == "conserved":
+            oi = next((i for i, a in enumerate(entry.args) if a.kind == abi_spec.OP), None)
+            if oi is None or bound[oi] != H.PAX_SUM:
+                return None
+        return rule, info.group, info.size
+
+    def _wrap_plan_integrity(self, entry: abi_spec.AbiEntry, bound: tuple,
+                             run: Callable) -> Callable:
+        """``run`` with the envelope, or ``run`` itself when the plan does
+        not qualify (the off path's closure is unchanged)."""
+        q = self._integrity_rule(entry, bound)
+        if q is None:
+            return run
+        rule, group, n = q
+        if rule == "replicated":
+            def check(out):
+                return _poison_where(_agreement_bad(_bits_checksum(out), group, n), out)
+
+            def checked(x, _run=run):
+                return _then(_run(x), check)
+        else:  # conserved
+            def checked(x, _run=run):
+                ck_in = _value_checksum(x)
+                return _then(_run(x), lambda out: _poison_where(
+                    _conservation_bad(ck_in, _value_checksum(out), group), out))
+        return checked
+
+    def _wrap_call_integrity(self, entry: abi_spec.AbiEntry, impl: Callable) -> Callable:
+        """The per-call edition of :meth:`_wrap_plan_integrity` for a
+        resolved native entry (integrity on only): the rule is decided from
+        the call's own arguments."""
+        if entry.integrity is None or len(entry.payload_args) != 1:
+            return impl
+        rule_of = self._integrity_rule
+
+        def checked(*args, _impl=impl):
+            q = rule_of(entry, args)
+            if q is None:
+                return _impl(*args)
+            rule, group, n = q
+            if rule == "replicated":
+                return _then(_impl(*args), lambda out: _poison_where(
+                    _agreement_bad(_bits_checksum(out), group, n), out))
+            ck_in = _value_checksum(args[0])
+            return _then(_impl(*args), lambda out: _poison_where(
+                _conservation_bad(ck_in, _value_checksum(out), group), out))
+
+        checked.__name__ = getattr(impl, "__name__", entry.backend_method)
+        checked.__wrapped__ = impl
+        return checked
+
+    def _wrap_group_integrity(self, entry: abi_spec.AbiEntry, bounds,
+                              run: Callable) -> Callable:
+        """The group edition: one checksum over the whole fused segment
+        (its members share entry, op and communicator), one verdict folded
+        into every member's output."""
+        q = self._integrity_rule(entry, tuple(bounds[0]))
+        if q is None:
+            return run
+        rule, group, n = q
+        if rule == "replicated":
+            def check(outs):
+                bad = _agreement_bad(_bits_checksum(outs), group, n) | _any_poisoned(outs)
+                return [_poison_where(bad, o) for o in outs]
+
+            def checked(xs, _run=run):
+                return _then(_run(xs), check)
+        else:  # conserved
+            def checked(xs, _run=run):
+                ck_in = _value_checksum(xs)
+
+                def check(outs):
+                    bad = (_conservation_bad(ck_in, _value_checksum(outs), group)
+                           | _any_poisoned(outs))
+                    return [_poison_where(bad, o) for o in outs]
+
+                return _then(_run(xs), check)
+        return checked
+
+    def verify_clean(self, value, what: str = "payload") -> None:
+        """Raise ``PAX_ERR_DATA_CORRUPTION`` if any leaf of the materialized
+        ``value`` (tensors, numpy arrays, lists or tuples of them) is the
+        poison fill; a no-op with integrity off.  The device leaves' verdicts
+        come to the host in one transfer."""
+        if not self.integrity:
+            return
+        flags = []
+        for leaf in _leaves(value):
+            f = _poisoned(leaf)
+            if f is None:
+                continue
+            if isinstance(f, torch.Tensor):
+                flags.append(f.reshape(1))
+            elif f:
+                flags.append(True)
+        dev = [f for f in flags if isinstance(f, torch.Tensor)]
+        bad = any(f is True for f in flags) or (
+            bool(torch.cat([f.to(dev[0].device) for f in dev]).any()) if dev else False)
+        if bad:
+            raise PaxError(
+                PAX_ERR_DATA_CORRUPTION,
+                f"{what}: checksummed collective disagreed across the "
+                "communicator (payload carries the poison fill)")
+
     def _compile_plan(self, plan: Plan) -> None:
         """(Re)compile a plan's start/wait closures (at creation, and again
         when the tool chain changes)."""
         entry = plan.entry
         run = self._plan_run(entry.name, plan.bound)
+        run = self._wrap_plan_integrity(entry, plan.bound, run)
         if self.tools:
             tools = tuple(self.tools)
             rtools = tuple(reversed(tools))
@@ -591,7 +969,7 @@ class PaxABI:
                 return _req
 
         plan.start = start
-        plan.wait = _make_wait(req)
+        plan.wait = _make_wait(req, self._can_drop, f"persistent {ename!r} wait")
 
     def _new_persistent_request(self, kind: str) -> Request:
         """Allocate the restartable pool slot backing one plan or group:
@@ -688,7 +1066,9 @@ class PaxABI:
         segments = []
         for (ename, _), idxs in clusters.items():
             bnds = [plans[i].bound for i in idxs]
-            segments.append((tuple(idxs), self._plan_group_run(ename, bnds)))
+            seg_run = self._wrap_group_integrity(
+                abi_spec.ENTRY_BY_NAME[ename], bnds, self._plan_group_run(ename, bnds))
+            segments.append((tuple(idxs), seg_run))
 
         if len(segments) == 1 and segments[0][0] == tuple(range(n)):
             run = segments[0][1]  # homogeneous group: no reassembly layer
@@ -759,7 +1139,7 @@ class PaxABI:
             return _req
 
         group.start = start
-        group.wait = _make_wait(req)
+        group.wait = _make_wait(req, self._can_drop, f"plan group {gname!r} wait")
 
     # ------------------------------------------------------------------
     # capability report (what tiered negotiation resolved, per entry)
@@ -857,6 +1237,21 @@ class PaxABI:
     def comm_free(self, comm: int) -> None:
         self.comms.comm_free(comm)
 
+    def _after_revoke(self, comm: int) -> None:
+        """Every live plan or plan group bound to the revoked ``comm`` is
+        forced inactive (``reset``); plans on other communicators are
+        untouched."""
+        for plan in list(self._plans):
+            ci = _comm_arg_index(plan.entry)
+            if ci is not None and plan.bound[ci] == comm:
+                plan.reset()
+        for group in list(self._plan_groups):
+            for member in group.plans:
+                ci = _comm_arg_index(member.entry)
+                if ci is not None and member.bound[ci] == comm:
+                    group.reset()
+                    break
+
     # -- datatypes ----------------------------------------------------------
     def type_contiguous(self, count: int, base: int) -> int:
         h = self.datatypes.type_contiguous(count, base)
@@ -923,7 +1318,12 @@ class PaxABI:
             pooled.value = pooled.temp_state = pooled.on_complete = None
 
     # -- completion -----------------------------------------------------------
-    def wait(self, request: Request, status: Optional[Status] = None):
+    def wait(self, request: Request, status: Optional[Status] = None, *,
+             timeout_s: Optional[float] = None):
+        """Complete ``request``.  A dropped operation never completes: with
+        ``timeout_s`` the wait raises ``PAX_ERR_TIMEOUT`` after the deadline
+        and the request stays active (``Plan.reset``/``PlanGroup.reset``
+        abort a persistent one); without it the wait blocks for good."""
         if request.handle == H.PAX_REQUEST_NULL:
             return None
         if not request.done:
@@ -935,6 +1335,9 @@ class PaxABI:
                         PAX_ERR_REQUEST,
                         "stale persistent request (its plan was freed)",
                     )
+                iv = _first_incomplete(request.value)
+                if iv is not None:
+                    _await_incomplete(iv, timeout_s, "persistent wait")
                 request.done = True
                 value = _complete(request.value)
                 request.value = None
@@ -947,6 +1350,10 @@ class PaxABI:
                     "stale, unknown or already-completed request "
                     "(use-after-wait is detected by the generation check)",
                 )
+            iv = _first_incomplete(request.value)
+            if iv is not None:
+                # before retiring: the request stays live for a later wait
+                _await_incomplete(iv, timeout_s, "wait")
             value = _complete(request.value)
             request.done = True  # mark first: _retire must see the twin live
             self._retire(request.handle)
@@ -965,8 +1372,10 @@ class PaxABI:
             raise PaxError(PAX_ERR_REQUEST, "unknown request")
         return True, self.wait(request, status)
 
-    def waitall(self, requests: Sequence[Request], statuses=None):
-        return [self.wait(r, None if statuses is None else statuses[i])
+    def waitall(self, requests: Sequence[Request], statuses=None, *,
+                timeout_s: Optional[float] = None):
+        return [self.wait(r, None if statuses is None else statuses[i],
+                          timeout_s=timeout_s)
                 for i, r in enumerate(requests)]
 
     def _scan_ready(self, requests: Sequence[Request]) -> bool:

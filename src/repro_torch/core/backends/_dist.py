@@ -223,7 +223,9 @@ def ppermute(x: torch.Tensor, perm, group, ranks: Sequence[int]) -> Pending:
     receives src's payload; ranks no pair targets receive zeros."""
     if group is None:
         return done(x)
-    me = rank(group)
+    # ``perm`` speaks the communicator's rank space (a survivor
+    # communicator keeps its parent's), so this rank is its place in ``ranks``
+    me = ranks.index(dist.get_rank())
     out = torch.zeros_like(x)
     ops = []
     x = x.contiguous()

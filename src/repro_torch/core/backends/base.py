@@ -2,7 +2,7 @@
 
 This is what the paper calls "the implementation": the paxi backend speaks
 the ABI handle convention natively; foreign backends speak their own
-convention and are adapted by the Mukautuva layer (a later slice).
+convention and are adapted by the Mukautuva layer (:mod:`repro_torch.core.mukautuva`).
 
 The methods take *backend-domain* handles.  For paxi those ARE the ABI ints;
 for ompix they are its own objects.  The ABI layer never calls a foreign
@@ -123,10 +123,18 @@ class Backend(abc.ABC):
         The failure-detector hook of the fault tier: the default backend
         never observes failures (an empty report keeps every fault entry a
         cheap no-op), while fault-injecting wrappers
-        (the fault-injection backend, a later slice) report the killed rank here.
+        (:mod:`repro_torch.core.backends.faulty`) report the killed rank here.
         Both the native paxi fault hooks and the emulation recipes read
         failures exclusively through this method.
         """
+        return ()
+
+    def heartbeat_silent(self, comm: Any) -> tuple:
+        """Ranks whose transport stopped carrying heartbeats on ``comm``:
+        an observation about traffic, not a declaration of death
+        (:class:`repro_torch.runtime.liveness.HeartbeatMonitor` still runs
+        its miss-threshold state machine).  The default wire never goes
+        quiet; fault-injecting wrappers report the scheduled corpse."""
         return ()
 
     # -- nonblocking starts (i<name>) --------------------------------------

@@ -16,6 +16,16 @@ CPU) built once, when the handle is registered.
 
 Ranks are linearized row-major over the mesh axes, the reference's
 convention, so a communicator rank here equals ``comm_rank_traced`` there.
+
+**Survivors.**  An ULFM shrink (:meth:`CommTable.register_shrunk`) that
+excludes ranks gives the survivor communicator a process group of its own
+over the survivors, and a survivor mesh (``Mesh.ranks``: the world ranks a
+rebuilt context runs on) builds only the groups this rank belongs to.  Both
+create their groups with ``use_local_synchronization=True``: only the
+members take part, so a rank that has left (or is about to) is never
+waited for.  A survivor communicator keeps the parent's rank space (the
+reference's): its ``ranks`` list every parent position, the excluded ones
+included, and its rank is this process's position there.
 """
 from __future__ import annotations
 
@@ -39,6 +49,9 @@ class Mesh:
     axis_names: tuple[str, ...]
     sizes: tuple[int, ...]
     device: torch.device
+    #: the world ranks at the mesh positions, row-major (None: 0..size-1,
+    #: the whole world); a survivor mesh names the ranks it kept
+    ranks: Optional[tuple[int, ...]] = None
 
     @property
     def shape(self) -> dict[str, int]:
@@ -47,6 +60,10 @@ class Mesh:
     @property
     def size(self) -> int:
         return math.prod(self.sizes)
+
+    @property
+    def world_ranks(self) -> tuple[int, ...]:
+        return tuple(range(self.size)) if self.ranks is None else tuple(self.ranks)
 
     def coords(self, rank: int) -> tuple[int, ...]:
         out = []
@@ -66,7 +83,8 @@ class CommInfo:
     excludes: tuple[int, ...] = ()
     #: the process group collectives run on (None: a group of one)
     group: Any = None
-    #: global ranks of the members, in communicator-rank order
+    #: global ranks of the members, in communicator-rank order (a survivor
+    #: communicator keeps the parent's positions, the excluded ones too)
     ranks: tuple[int, ...] = ()
 
     @property
@@ -103,12 +121,15 @@ class CommTable:
     def mesh(self) -> Optional[Mesh]:
         return self._mesh
 
-    def _group(self, ranks: tuple[int, ...]):
+    def _group(self, ranks: tuple[int, ...], local: bool = False):
+        """The process group over ``ranks`` (world ranks), created once.
+        ``local``: only the members create it (the survivor groups)."""
         if len(ranks) == dist.get_world_size():
             return dist.group.WORLD
         g = self._groups.get(ranks)
         if g is None:
-            g = self._groups[ranks] = dist.new_group(list(ranks))
+            g = self._groups[ranks] = dist.new_group(
+                list(ranks), use_local_synchronization=local)
         return g
 
     def _group_for(self, axes: tuple[str, ...]):
@@ -123,15 +144,20 @@ class CommTable:
                 PAX_ERR_COMM,
                 f"communicator axes {axes} must follow mesh order {names} "
                 "(communicator rank = sorted process-group rank)")
+        world = self._mesh.world_ranks
+        # a survivor mesh: the ranks it left out never join its groups
+        local = self._mesh.ranks is not None
         siblings: dict[tuple, list[int]] = {}
         for r in range(self._mesh.size):
             c = self._mesh.coords(r)
             key = tuple(v for i, v in enumerate(c) if i not in idx)
-            siblings.setdefault(key, []).append(r)
+            siblings.setdefault(key, []).append(world[r])
         mine = None
         for key in sorted(siblings):
             ranks = tuple(siblings[key])
-            g = self._group(ranks)
+            if local and self.rank not in ranks:
+                continue
+            g = self._group(ranks, local)
             if self.rank in ranks:
                 mine = (g, ranks)
         return mine
@@ -209,6 +235,9 @@ class CommTable:
         self._groups.clear()
 
     # -- fault tier (ULFM) --------------------------------------------------
+    def is_revoked(self, handle: int) -> bool:
+        return handle in self.revoked
+
     def revoke(self, handle: int) -> None:
         """Mark ``handle`` revoked.  Idempotent.  The handle leaves the hot
         lookup, so every collective on it lands in :meth:`info`, which
@@ -218,14 +247,24 @@ class CommTable:
         self.info_by_handle.pop(handle, None)
 
     def register_shrunk(self, parent: int, excludes, name: str = "") -> int:
-        """Register the survivor communicator of an ULFM shrink (the parent's
-        group and axes, ``excludes`` recorded)."""
+        """Register the survivor communicator of an ULFM shrink: the
+        parent's axes and rank space, ``excludes`` recorded.  When the
+        exclusions grow, the survivors get a process group of their own
+        (created by the survivors alone); a rank that is itself excluded
+        gets none — it leaves."""
         info = self.info(parent, allow_revoked=True)
         handle = H.make_user_handle(H.HandleKind.COMM, self._next_index)
         self._next_index += 1
+        merged = tuple(sorted(set(info.excludes) | set(excludes)))
+        group = info.group
+        survivors = tuple(g for i, g in enumerate(info.ranks) if i not in merged)
+        if survivors != tuple(g for i, g in enumerate(info.ranks)
+                              if i not in info.excludes):
+            group = (self._group(survivors, local=True)
+                     if self.rank in survivors else None)
         child = dataclasses.replace(
             info, handle=handle, name=name or (info.name + "+shrink"),
-            excludes=tuple(sorted(set(info.excludes) | set(excludes))))
+            excludes=merged, group=group)
         self._table[handle] = child
         self.info_by_handle[handle] = child
         return handle
@@ -233,7 +272,10 @@ class CommTable:
 
 def comm_rank(info: CommInfo) -> int:
     """This process's rank within the communicator (row-major over its
-    axes — the reference's ``comm_rank_traced``)."""
+    axes — the reference's ``comm_rank_traced``; on a survivor
+    communicator, its position in the parent's rank space)."""
     if info.group is None:
         return 0
+    if info.excludes:
+        return info.ranks.index(dist.get_rank())
     return dist.get_rank(info.group)

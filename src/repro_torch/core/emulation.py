@@ -37,17 +37,36 @@ traced rank become a Python branch and ``narrow``.  Wire-semantics notes
   since every plain entry raises ``PAX_ERR_REVOKED`` on a revoked
   communicator by design.
 
-The reference's drop sentinel (``IncompleteValue``) belongs to the
-transport tier, which a later slice brings; nothing here produces one.
+A dropped dependency (the transport tier's ``drop`` mode) yields the
+:class:`~repro_torch.core.errors.IncompleteValue` sentinel instead of a
+tensor; every later stage of a chain hands it on untouched
+(:func:`_incomplete_passthrough` on each dependency, and the guards where a
+recipe reads a dependency's result), so it reaches the wait that times it
+out.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
 
 from . import handles as H
-from .errors import PAX_ERR_PROC_FAILED, PaxError
+from .errors import PAX_ERR_PROC_FAILED, IncompleteValue, PaxError
+
+
+def _incomplete_passthrough(fn: Callable) -> Callable:
+    """Propagate the drop sentinel through recipe composition: a call that
+    receives one returns it and never reaches the wire."""
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        for a in args:
+            if a.__class__ is IncompleteValue:
+                return a
+        return fn(*args, **kwargs)
+
+    return run
 
 
 class EmulationContext:
@@ -57,16 +76,16 @@ class EmulationContext:
         self._abi = abi
 
     def dep(self, name: str) -> Callable:
-        return self._abi._ensure_built(name)
+        return _incomplete_passthrough(self._abi._ensure_built(name))
 
     def op_fn(self, op: int) -> Callable:
         return self._abi.backend.op_fn(op)
 
     def lowering_width(self, comm: int) -> int:
-        """The width a recipe splits ``comm``'s payloads by: the full rank
-        space of its axes (a shrunk communicator keeps its parent's group,
-        so a split by the membership count would not match the wire)."""
-        return self._abi.comms.info(comm).full_size
+        """The width a recipe splits ``comm``'s payloads by: the members of
+        its process group (a survivor communicator's own group holds the
+        survivors only)."""
+        return self._abi.comms.info(comm).size
 
     @property
     def datatypes(self):
@@ -102,7 +121,7 @@ class PlanContext(EmulationContext):
     """What a recipe *plan* builder may close over."""
 
     def plan_dep(self, name: str, *bound) -> Callable:
-        return self._abi._plan_run(name, bound)
+        return _incomplete_passthrough(self._abi._plan_run(name, bound))
 
     def plan_group_dep(self, name: str, bounds) -> Callable:
         return self._abi._plan_group_run(name, bounds)
@@ -121,6 +140,8 @@ def prefix_fold(g, r: int, fn: Callable, x, inclusive: bool):
     The exscan convention — rank 0 keeps its input ``x`` unchanged (MPI:
     undefined) — is the reference's.  One process is one rank, so ``r`` is
     a plain int and the fold stops at this rank's prefix."""
+    if g.__class__ is IncompleteValue:  # a dropped gather stays incomplete
+        return g
     acc = g[0]
     if r == 0:
         return acc if inclusive else x
@@ -190,6 +211,8 @@ def _then(value, fn: Callable):
 
     if value.__class__ is Pending:
         return Pending(None, value, lambda p: fn(p.result()))
+    if value.__class__ is IncompleteValue:
+        return value
     return fn(value)
 
 
@@ -345,6 +368,8 @@ def build_alltoall(ctx: EmulationContext) -> Callable:
                 f"{x.shape[split_axis]}) not divisible by comm size {S}")
         blk = x.shape[split_axis] // S
         g = ag(x.unsqueeze(0), comm)  # (S, *x.shape)
+        if g.__class__ is IncompleteValue:
+            return g
         mine = g.narrow(split_axis + 1, rank(comm) * blk, blk)
         return torch.cat([mine[j] for j in range(S)], dim=concat_axis)
 
@@ -378,6 +403,8 @@ def build_alltoallv(ctx: EmulationContext) -> Callable:
         if c == 0:
             return x[:0]
         out = a2a(x.reshape((P, c) + tuple(x.shape[1:])), comm, 0, 0)
+        if out.__class__ is IncompleteValue:
+            return out
         return out.reshape((P * c,) + tuple(x.shape[1:]))
 
     return _tag(alltoallv, "alltoallv", ("alltoall", "comm_size"))
@@ -389,6 +416,8 @@ def build_alltoallw(ctx: EmulationContext) -> Callable:
 
     def alltoallw(blocks, sendtypes, recvtypes, comm):
         out = a2a(blocks, comm, 0, 0)
+        if out.__class__ is IncompleteValue:
+            return out
         return [out[i].to(to_dtype(recvtypes[i])) for i in range(out.shape[0])]
 
     return _tag(alltoallw, "alltoallw", ("alltoall",))
@@ -410,7 +439,7 @@ def build_scatter(ctx: EmulationContext) -> Callable:
     def scatter(x, root, comm, axis=0):
         y = bc(x, root, comm)
         S = size(comm)
-        if S <= 1:
+        if S <= 1 or y.__class__ is IncompleteValue:
             return y
         chunk = y.shape[axis] // S
         return y.narrow(axis, rank(comm) * chunk, chunk)

@@ -97,6 +97,9 @@ class MukBackend(Backend):
         super().__init__(mesh if mesh is not None else lib.mesh)
         self.lib = lib
         self.name = f"muk:{lib.name}"
+        # loss capability crosses the layer with the library (a wrapped
+        # FaultyLib can drop): it decides the ABI's drop-sentinel guard
+        self.can_lose_messages = bool(getattr(lib, "can_lose_messages", False))
         # ABI-domain tables owned by the context; Mukautuva keeps its own so
         # it can translate without asking the implementation anything.
         self.comms = CommTable(self.mesh)
@@ -151,6 +154,17 @@ class MukBackend(Backend):
     def release(self) -> None:
         self._comm_table.clear()
         self.lib.release()
+
+    # -- fault model: the failure detector lives in the foreign library (a
+    # fault-injecting one reports its killed rank); a quiet library reports
+    # nothing and the fault tier stays a set of cheap no-ops
+    def local_failed(self, comm: int) -> tuple:
+        fn = getattr(self.lib, "local_failed", None)
+        return tuple(fn(comm)) if fn is not None else ()
+
+    def heartbeat_silent(self, comm: int) -> tuple:
+        fn = getattr(self.lib, "heartbeat_silent", None)
+        return tuple(fn(comm)) if fn is not None else ()
 
     # ------------------------------------------------------------------
     # predefined-handle maps (the compile-time knowledge of both ABIs)
@@ -286,6 +300,11 @@ class MukBackend(Backend):
     def register_comm(self, abi_handle: int, axes: Sequence[str]) -> None:
         code, impl = self.lib.Comm_from_axes(tuple(axes))
         self._rc(code)
+        info = self.comms.info(abi_handle, allow_revoked=True)
+        if info.excludes:
+            # an ULFM survivor communicator: the foreign library knows only
+            # axes, so it runs on the survivors' group the ABI table made
+            impl.group, impl.ranks = info.group, info.ranks
         self._comm_table[abi_handle] = impl
 
     def register_op(self, abi_handle: int) -> None:

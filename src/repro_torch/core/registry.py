@@ -21,8 +21,14 @@ Names (the reference's set):
   queries + sendrecv/reduce_scatter/allgather); every other entry point is
   synthesized by tiered negotiation from the spec's emulation recipes.
 
-Any other name raises ``ValueError`` listing what exists.  The reference's
-``faulty:<inner>`` prefix belongs to the fault tier, a later slice.
+Any other name raises ``ValueError`` listing what exists.
+
+``faulty:<inner>`` wraps any of them in the fault-injection layer
+(:mod:`repro_torch.core.backends.faulty`, armed from ``PAX_FAULT_SCHEDULE``):
+any inner backend in a ``FaultyBackend``, except ``ompix``, whose library
+is wrapped as a ``FaultyLib`` under Mukautuva, so the failure crosses the
+translation layer as a foreign rc.  The prefix is never among
+:func:`available_backends`: a sweep over them meets no injected faults.
 """
 from __future__ import annotations
 
@@ -69,6 +75,13 @@ register_backend("minimal", lambda mesh: MinimalBackend(mesh))
 
 
 def get_backend(name: str, mesh: Optional[Mesh] = None) -> Backend:
+    if name.startswith("faulty:"):
+        from .backends.faulty import FaultyBackend, FaultyLib
+
+        inner = name[len("faulty:"):]
+        if inner == "ompix":
+            return MukBackend(FaultyLib(OmpixLib(mesh)), mesh)
+        return FaultyBackend(get_backend(inner, mesh))
     try:
         factory = _FACTORIES[name]
     except KeyError:
@@ -83,16 +96,17 @@ def pax_init(
     impl=None,
     tools: Sequence = (),
     req_slot_bits: Optional[int] = None,
+    integrity: Optional[bool] = None,
 ) -> PaxABI:
     """``MPI_Init`` analogue: resolve the implementation, build the context.
 
     ``mesh`` is the process grid (``communicator.Mesh``) over an initialized
     ``torch.distributed`` world; ``None`` gives a context with only
     ``PAX_COMM_SELF``/``PAX_COMM_WORLD`` as groups of one.  ``impl`` may be
-    a backend name or a prebuilt :class:`Backend` instance.
+    a backend name or a prebuilt :class:`Backend` instance.  ``integrity``
+    opts into the checksummed wire (default: ``PAX_WIRE_INTEGRITY``).
     """
-    if isinstance(impl, Backend):
-        return PaxABI(impl, mesh=mesh, tools=tools, req_slot_bits=req_slot_bits)
-    name = impl or os.environ.get(ENV_VAR, DEFAULT_IMPL)
-    backend = get_backend(name, mesh)
-    return PaxABI(backend, mesh=mesh, tools=tools, req_slot_bits=req_slot_bits)
+    if not isinstance(impl, Backend):
+        impl = get_backend(impl or os.environ.get(ENV_VAR, DEFAULT_IMPL), mesh)
+    return PaxABI(impl, mesh=mesh, tools=tools, req_slot_bits=req_slot_bits,
+                  integrity=integrity)

@@ -10,10 +10,20 @@ gradient wire (``parallelism.grad_compression``), and
 ``--world-size``/``--rank``/``--init-method``
 place this process in a multi-rank world (one process per rank, each given
 the same rendezvous, e.g. ``tcp://localhost:<port>``; a world of one needs
-none of them).  The step loop runs directly: the reference's fault
-supervisor and checkpointer arrive with the fault slice, so
-``--ckpt-dir``/``--ckpt-every`` raise ``PAX_ERR_UNSUPPORTED_OPERATION``.
-The run ends with ``DistContext.shutdown``, whether or not a step raised.
+none of them).
+
+The loop runs under ``runtime.fault.run_supervised``, as the reference's
+does: ``--ckpt-dir D --ckpt-every N`` saves every N steps (async) in the
+reference's format, and a second run on the same directory resumes from
+its latest checkpoint; the batch of step ``i`` is the ``i``-th of the
+synthetic stream (earlier batches are drawn and kept), so a resumed or
+replayed step reads the batch the uninterrupted run read.  Without
+``--ckpt-dir`` nothing is saved and a failure propagates (the step writes
+its parameters in place, so there is no state to restart from).
+``--impl faulty:<inner>`` injects the ``PAX_FAULT_SCHEDULE`` fault,
+``PAX_WIRE_INTEGRITY=1`` checksums the wire, and ``--retries N`` retries a
+corrupted or timed-out step in place.  The run
+ends with ``DistContext.shutdown``, whether or not a step raised.
 """
 from __future__ import annotations
 
@@ -24,11 +34,12 @@ import time
 import torch
 
 from .. import configs as cfgs
-from ..core.errors import PAX_ERR_UNSUPPORTED_OPERATION, PaxError
+from ..checkpoint.checkpointer import Checkpointer
 from ..data.pipeline import DataPipeline, SyntheticSource
-from ..models import build_model
+from ..models import build_model, param_leaves
 from ..optim.adamw import AdamWConfig, warmup_cosine
 from ..runtime.dist import dp_comm_of, make_dist
+from ..runtime.fault import RetryPolicy, run_supervised
 from ..train import train_loop
 
 
@@ -44,6 +55,19 @@ class TrainReport:
     wire_impl: str = ""
     dist_backend: str = ""
     allreduce_source: str = ""
+    #: the supervisor's accounting: restarts from a checkpoint, in-place
+    #: retries of a transport fault, the step this run resumed from
+    restarts: int = 0
+    transport_retries: int = 0
+    resumed_from: int = 0
+    #: the checkpointer's last save and restore (bytes, ms by phase), and
+    #: each corrupt checkpoint a restore fell back from
+    ckpt_save: dict = dataclasses.field(default_factory=dict)
+    ckpt_restore: dict = dataclasses.field(default_factory=dict)
+    checkpoint_fallbacks: list = dataclasses.field(default_factory=list)
+    #: SHA-256 of the final parameters' bytes in ``param_leaves`` order
+    #: (``--digest``), for bitwise comparisons across runs
+    params_sha256: str = ""
 
 
 def _reference_numerics() -> None:
@@ -62,8 +86,13 @@ def main(argv=None) -> TrainReport:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--impl", default=None, help="PAX ABI backend")
-    ap.add_argument("--ckpt-dir", default=None, help="not ported yet: raises")
-    ap.add_argument("--ckpt-every", type=int, default=None, help="not ported yet: raises")
+    ap.add_argument("--ckpt-dir", default=None, help="checkpoint directory (none: no saves)")
+    ap.add_argument("--ckpt-every", type=int, default=None, help="steps between saves (50)")
+    ap.add_argument("--ckpt-keep", type=int, default=3, help="checkpoints retained")
+    ap.add_argument("--retries", type=int, default=0,
+                    help="in-place retries of a corrupted or timed-out step")
+    ap.add_argument("--digest", action="store_true",
+                    help="report the final parameters' SHA-256")
     ap.add_argument("--model-axis", type=int, default=1)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
@@ -75,9 +104,8 @@ def main(argv=None) -> TrainReport:
     ap.add_argument("--rank", type=int, default=0)
     ap.add_argument("--init-method", default=None)
     args = ap.parse_args(argv)
-    if args.ckpt_dir is not None or args.ckpt_every is not None:
-        raise PaxError(PAX_ERR_UNSUPPORTED_OPERATION,
-                       "checkpointing (--ckpt-dir, --ckpt-every) is not ported yet")
+    if args.ckpt_every is not None and args.ckpt_dir is None:
+        raise ValueError("--ckpt-every needs --ckpt-dir (where the checkpoints go)")
 
     _reference_numerics()
     cfg = cfgs.smoke_config(args.arch) if args.smoke else cfgs.get_config(args.arch)
@@ -94,8 +122,9 @@ def main(argv=None) -> TrainReport:
                      init_method=args.init_method)
     with dist:  # shutdown on the way out, a failed one if a step raised
         report = _train(args, cfg, api, dist)
-    print(f"done: {report.steps_completed} steps; "
-          f"loss {report.losses[0]:.3f} -> {report.losses[-1]:.3f}")
+    if report.losses:
+        print(f"done: {report.steps_completed} steps; "
+              f"loss {report.losses[0]:.3f} -> {report.losses[-1]:.3f}")
     return report
 
 
@@ -125,34 +154,75 @@ def _train(args, cfg, api, dist) -> TrainReport:
     # every rank reads the same global batch and keeps its data-parallel rows
     pipe = DataPipeline(SyntheticSource(cfg.vocab_size, seed=0),
                         global_batch=args.global_batch, seq_len=args.seq_len)
-    dp, r = dist.dp_size, dist.abi.comm_rank(dist.dp_comm)
-    rows = args.global_batch // dp
     report = TrainReport(0, [], [], [], wire_kernel, wire_impl,
                          torch.distributed.get_backend(),
                          wire_abi.capabilities()["allreduce"]["source"])
+    drawn: list = []
+
+    def get_batch(i: int) -> dict:
+        # the i-th batch of the stream, whatever ran before: a resumed or
+        # replayed step reads what the uninterrupted run read
+        while len(drawn) <= i:
+            drawn.append(next(pipe))
+        return train_loop.local_batch(drawn[i], dist)
+
+    def logged_step(state, batch):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        loss, gnorm = float(metrics.loss), float(metrics.grad_norm)
+        dt = time.perf_counter() - t0
+        s = int(state.step)
+        record[s] = (loss, gnorm, dt * 1e3)  # a replayed step overwrites its record
+        if s % args.log_every == 0:
+            toks = args.global_batch * args.seq_len / max(dt, 1e-9)
+            print(f"step {s:5d} loss {loss:.4f} gnorm {gnorm:.3f} "
+                  f"{dt*1e3:.1f} ms/step ({toks:,.0f} tok/s)")
+        return state, metrics
+
+    record: dict = {}
+    ckpt = (Checkpointer(args.ckpt_dir, keep=args.ckpt_keep, dist=dist)
+            if args.ckpt_dir is not None else None)
+    retry = None
+    if args.retries:
+        retry = RetryPolicy(max_retries=args.retries,
+                            verify=train_loop.step_verifier(dist),
+                            reset=train_loop.plan_resetter(dist))
     try:
-        for _ in range(args.steps):
-            b = next(pipe)
-            batch = {k: torch.from_numpy(v[r * rows:(r + 1) * rows]).to(dev)
-                     for k, v in b.items()}
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            state, metrics = step_fn(state, batch)
-            loss, gnorm = float(metrics.loss), float(metrics.grad_norm)
-            dt = time.perf_counter() - t0
-            s = int(state.step)
-            report.steps_completed = s
-            report.losses.append(loss)
-            report.grad_norms.append(gnorm)
-            report.step_ms.append(dt * 1e3)
-            if s % args.log_every == 0:
-                toks = args.global_batch * args.seq_len / max(dt, 1e-9)
-                print(f"step {s:5d} loss {loss:.4f} gnorm {gnorm:.3f} "
-                      f"{dt*1e3:.1f} ms/step ({toks:,.0f} tok/s)")
+        sup = run_supervised(
+            logged_step, state, get_batch, checkpointer=ckpt, total_steps=args.steps,
+            checkpoint_every=args.ckpt_every or 50, state_like=state,
+            max_restarts=3 if ckpt is not None else 0, retry=retry)
     finally:
         pipe.close()
+    report.steps_completed = sup.steps_completed
+    report.restarts, report.resumed_from = sup.restarts, sup.resumed_from
+    for s in range(sup.resumed_from + 1, sup.steps_completed + 1):
+        loss, gnorm, ms = record[s]
+        report.losses.append(loss)
+        report.grad_norms.append(gnorm)
+        report.step_ms.append(ms)
+    report.transport_retries = sup.transport_retries
+    report.checkpoint_fallbacks = sup.checkpoint_fallbacks
+    if ckpt is not None:
+        report.ckpt_save, report.ckpt_restore = ckpt.last_save, ckpt.last_restore
+    if args.digest:
+        report.params_sha256 = params_sha256(sup.final_state.params)
     return report
+
+
+def params_sha256(model) -> str:
+    """SHA-256 of a parameter module's bytes, leaf by leaf in
+    ``param_leaves`` order (bfloat16 as its raw bits)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for _, p in param_leaves(model):
+        t = p.detach()
+        h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
 
 
 if __name__ == "__main__":

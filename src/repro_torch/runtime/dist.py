@@ -2,7 +2,11 @@
 
 Bundles the ABI context, the process mesh and the standard communicators
 (data-parallel group, tensor-parallel group).  Model and training code
-receive this object and never touch backend internals.  With a compressed
+receive this object and never touch backend internals.  After an elastic
+recovery, :func:`survivor_mesh` and ``make_dist(mesh=...)`` build the
+context over the surviving ranks (their groups created by the survivors
+alone, ``use_local_synchronization``), the counterpart of the reference's
+``survivor_mesh``.  With a compressed
 gradient wire it also carries a second context on ``ring-<compression>``,
 whose handles are allocated in the same order (:func:`dp_comm_of`).
 
@@ -57,6 +61,12 @@ class DistContext:
     owns_world: bool = False
     #: further ABI contexts built on this world, torn down with it
     extra_contexts: list = dataclasses.field(default_factory=list)
+    #: an elastic recovery shrank past this context: a member is gone, so
+    #: its teardown meets nobody (see :meth:`shutdown`)
+    degraded: bool = False
+    #: the deadline of the ZeRO-1 step's waits (None: a dropped collective
+    #: hangs, faithfully; a bound raises ``PAX_ERR_TIMEOUT`` instead)
+    wait_timeout_s: Optional[float] = None
 
     @property
     def device(self) -> torch.device:
@@ -88,20 +98,22 @@ class DistContext:
            context started the world, ``destroy_process_group`` — the
            groups are destroyed here, not at interpreter exit.
 
-        A rank leaving on an error (``failed``) skips steps 1 and 2 — the
-        other ranks may be blocked in a collective it will never join — and
-        only drops and destroys its groups.  The context answers no further
-        collective."""
+        A rank leaving on an error (``failed``), or a context an elastic
+        recovery left behind (``degraded``: a member is gone), skips steps 1
+        and 2 — the other ranks may be blocked in a collective it will never
+        join — and only drops and destroys its groups.  The context answers
+        no further collective."""
         contexts = [a for a in (self.abi, self.abi_compressed, *self.extra_contexts)
                     if a is not None]
-        if failed:
+        if failed or self.degraded:
             self.zero1_plans = None
         else:
             self.drop_zero1_plans()
             for abi in contexts:
                 abi.quiesce()
-            if dist.is_initialized():
-                dist.barrier()
+            world = self.abi.comms.info_by_handle.get(PAX_COMM_WORLD)
+            if dist.is_initialized() and world is not None and world.group is not None:
+                dist.barrier(group=world.group)
         for abi in contexts:
             abi.release(abandon=failed)
         self.extra_contexts.clear()
@@ -150,31 +162,40 @@ def init_world(device: torch.device, world_size: int = 1, rank: int = 0,
 def make_dist(
     *,
     model_axis: int = 1,
-    impl: Optional[str] = None,
+    impl=None,
     tools=(),
     compression: Optional[str] = None,
     device=None,
     world_size: int = 1,
     rank: int = 0,
     init_method: Optional[str] = None,
+    integrity: Optional[bool] = None,
+    mesh: Optional[Mesh] = None,
 ) -> DistContext:
     """Build the distributed context: start the world (see
     :func:`init_world`), lay it out as a ``(data, model)`` mesh with
     ``model_axis`` ranks on the model axis, and register the data- and
     tensor-parallel communicators.  ``compression`` (``"bf16"`` or
     ``"int8"``) adds the ``ring-<compression>`` context of the compressed
-    gradient wire.  ``device`` defaults to the card."""
+    gradient wire.  ``device`` defaults to the card.  ``impl`` is a backend
+    name or a prebuilt backend (a ``faulty:`` wrapper with its schedule);
+    ``integrity`` opts into the checksummed wire (default:
+    ``PAX_WIRE_INTEGRITY``).  ``mesh`` (a :func:`survivor_mesh` of the
+    running world) builds the context over those ranks only."""
     if compression not in (None, "bf16", "int8"):
         raise ValueError(f"unknown gradient compression {compression!r}")
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    if world_size % model_axis:
-        raise ValueError(f"world size {world_size} is not a multiple of "
-                         f"model_axis={model_axis}")
-    started = init_world(dev, world_size, rank, init_method)
-    mesh = Mesh(("data", "model"), (world_size // model_axis, model_axis), dev)
-    abi = pax_init(mesh, impl=impl, tools=tools)
+    if mesh is not None:
+        started = False
+    else:
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if world_size % model_axis:
+            raise ValueError(f"world size {world_size} is not a multiple of "
+                             f"model_axis={model_axis}")
+        started = init_world(dev, world_size, rank, init_method)
+        mesh = Mesh(("data", "model"), (world_size // model_axis, model_axis), dev)
+    abi = pax_init(mesh, impl=impl, tools=tools, integrity=integrity)
     tp_axis = "model"
     dp_axes = ("data",)
     dp_comm = abi.comm_from_axes(dp_axes, "dp")
@@ -185,6 +206,28 @@ def make_dist(
         abi_c.comm_from_axes(dp_axes, "dp")  # mirror the handle allocation order
     return DistContext(abi, mesh, dp_axes, tp_axis, dp_comm, tp_comm,
                        abi_compressed=abi_c, owns_world=started)
+
+
+def survivor_mesh(mesh: Mesh, failed_ranks, keep: Optional[int] = None) -> Mesh:
+    """The mesh over the ranks that survive ``failed_ranks`` (positions of
+    ``mesh``, the ABI's rank convention): the data axis shrinks by the
+    casualties, the model axis keeps its extent, so the failure set must be
+    whole model-parallel groups.  ``keep`` trims the data axis to its first
+    ``keep`` rows (the elastic policy's power-of-two trim)."""
+    failed = frozenset(failed_ranks)
+    names = tuple(mesh.axis_names)
+    tail = math.prod(mesh.sizes[1:])
+    world = mesh.world_ranks
+    ranks = tuple(world[r] for r in range(mesh.size) if r not in failed)
+    if not ranks or len(ranks) % tail:
+        raise ValueError(
+            f"cannot shrink mesh {mesh.shape} by ranks {sorted(failed)}: "
+            f"{len(ranks)} survivors do not fill the non-data axes {list(mesh.sizes[1:])}")
+    rows = len(ranks) // tail if keep is None else keep
+    if not 1 <= rows <= len(ranks) // tail:
+        raise ValueError(f"cannot keep {rows} data rows of {len(ranks) // tail}")
+    return Mesh(names, (rows,) + tuple(mesh.sizes[1:]), mesh.device,
+                ranks=ranks[:rows * tail])
 
 
 def dp_comm_of(dist_ctx: DistContext, compressed: bool) -> tuple[PaxABI, int]:

@@ -28,10 +28,15 @@ token step (the port of the reference's ``serve/engine.py``).
   attached with ``attach_tool`` counts one ``decode-tp`` call per decode
   step.
 
-What the reference has and the port does not yet: the transport tier, so
-:class:`DecodeSync` takes no wait timeout and verifies no payload; and the
-ssm and hybrid families' static-batch serving path, so :meth:`ServeEngine.run`
-raises for them.
+The transport tier rides the decode sync as in the reference:
+``DecodeSync(wait_timeout_s=...)`` bounds its group and pooled waits (a
+dropped broadcast raises ``PAX_ERR_TIMEOUT`` instead of hanging),
+:meth:`DecodeSync.step` holds the synced tokens and mask to the integrity
+verdict (``verify_clean``), and :meth:`DecodeSync.reset` aborts a
+timed-out start; ``serve/supervisor.py`` retries, escalates and recovers.
+What the reference has and the port does not yet: the ssm and hybrid
+families' static-batch serving path, so :meth:`ServeEngine.run` raises for
+them.
 """
 from __future__ import annotations
 
@@ -41,7 +46,6 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..core.errors import PAX_ERR_UNSUPPORTED_OPERATION, PaxError
 from ..models import transformer
 from .kv_cache import BlockAllocator
 from .sampling import request_key, sample
@@ -61,7 +65,9 @@ class Request:
     #: (None: no deadline); measured against ``stats["steps"]``
     deadline_steps: Optional[int] = None
     submit_step: Optional[int] = None  # stamped by ServeEngine.submit
+    retries: int = 0                   # replay count (supervisor recovery)
     expired: bool = False              # deadline passed; done, no more tokens
+    failed: bool = False               # dropped after max_retries replays
 
 
 class DecodeSync:
@@ -76,17 +82,17 @@ class DecodeSync:
     :meth:`step_pooled` runs the same two broadcasts as pooled ``ibcast``
     requests and one ``waitall``, the reference the group is held to.
 
-    ``wait_timeout_s`` must be None: timed waits arrive with the transport
-    tier, and any other value raises ``PAX_ERR_UNSUPPORTED_OPERATION``.
+    ``wait_timeout_s`` bounds the group and pooled waits: None blocks for
+    good on a dropped broadcast (the faithful hang); a bound turns the drop
+    into ``PAX_ERR_TIMEOUT``, which the serving supervisor retries and
+    escalates.  It is read per call, so a change applies to the next step.
     """
 
     NAME = "decode-tp"
 
     def __init__(self, abi, comm: int, max_batch: int, device=None, *,
                  wait_timeout_s: Optional[float] = None) -> None:
-        if wait_timeout_s is not None:
-            raise PaxError(PAX_ERR_UNSUPPORTED_OPERATION,
-                           "DecodeSync wait_timeout_s is not ported yet (the transport tier)")
+        self.wait_timeout_s = wait_timeout_s
         self.abi = abi
         self.comm = comm
         self.device = torch.device(device) if device is not None else abi.mesh.device
@@ -100,22 +106,30 @@ class DecodeSync:
                 for a in (tokens, active)]
 
     def reset(self) -> None:
-        """Force the group and its member plans inactive (an aborted start)."""
+        """Abort a start whose wait timed out (the post-timeout contract):
+        force the group and its member plans inactive."""
         self.group.reset()
         self._p_tok.reset()
         self._p_act.reset()
 
     def step(self, tokens: np.ndarray, active: np.ndarray) -> tuple:
-        """ONE group start/wait for the whole token step."""
-        tok, act = self.abi.wait(self.group.start(self._payloads(tokens, active)))
-        return tok.cpu().numpy(), act.cpu().numpy()
+        """ONE group start/wait for the whole token step; a corruption the
+        envelope folded into the payload raises here (integrity on)."""
+        tok, act = self.abi.wait(self.group.start(self._payloads(tokens, active)),
+                                 timeout_s=self.wait_timeout_s)
+        tok, act = tok.cpu().numpy(), act.cpu().numpy()
+        self.abi.verify_clean((tok, act), "decode-tp sync")
+        return tok, act
 
     def step_pooled(self, tokens: np.ndarray, active: np.ndarray) -> tuple:
         """The pooled ``ibcast`` reference path (two requests, one waitall)."""
         tok, act = self._payloads(tokens, active)
         tok, act = self.abi.waitall([self.abi.ibcast(tok, 0, self.comm),
-                                     self.abi.ibcast(act, 0, self.comm)])
-        return tok.cpu().numpy(), act.cpu().numpy()
+                                     self.abi.ibcast(act, 0, self.comm)],
+                                    timeout_s=self.wait_timeout_s)
+        tok, act = tok.cpu().numpy(), act.cpu().numpy()
+        self.abi.verify_clean((tok, act), "decode-tp pooled sync")
+        return tok, act
 
     def free(self) -> None:
         self.group.free()

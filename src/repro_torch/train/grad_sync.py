@@ -175,6 +175,8 @@ class PendingShard:
     mode: str       # "group" | "pooled"
     pending: object  # group Request | list[Request]
     dp: int
+    #: the wait's deadline (``DistContext.wait_timeout_s``; None: no bound)
+    timeout_s: Optional[float] = None
 
 
 def reduce_scatter_grads_start(dist: DistContext, flat_g: torch.Tensor, *,
@@ -195,13 +197,15 @@ def reduce_scatter_grads_start(dist: DistContext, flat_g: torch.Tensor, *,
     if plans is not None and plans.matches(n, dp, buckets, zero1_wire_dtype(compression),
                                            compression):
         parts, new_ef = plans.pack(flat_g, ef)
-        return PendingShard(abi, "group", plans.rs_group.start(parts), dp), new_ef
+        return (PendingShard(abi, "group", plans.rs_group.start(parts), dp,
+                             dist.wait_timeout_s), new_ef)
     b = max(buckets, 1)
     if n % (dp * b):
         raise ValueError("bucket count must divide the shard")
     parts, new_ef = _pack(flat_g, ef, dp, b, compression)
     return (PendingShard(abi, "pooled",
-                         [abi.ireduce_scatter(p, PAX_SUM, comm) for p in parts], dp),
+                         [abi.ireduce_scatter(p, PAX_SUM, comm) for p in parts], dp,
+                         dist.wait_timeout_s),
             new_ef)
 
 
@@ -209,9 +213,9 @@ def reduce_scatter_grads_finish(pending: PendingShard) -> torch.Tensor:
     """Complete an in-flight reduce-scatter leg; returns the dp-mean
     (padded_n/dp,) f32 shard."""
     if pending.mode == "group":
-        outs = pending.abi.wait(pending.pending)
+        outs = pending.abi.wait(pending.pending, timeout_s=pending.timeout_s)
     else:
-        outs = pending.abi.waitall(pending.pending)
+        outs = pending.abi.waitall(pending.pending, timeout_s=pending.timeout_s)
     shard = outs[0] if len(outs) == 1 else torch.cat(outs)
     return shard.float() / pending.dp
 
@@ -230,9 +234,10 @@ def allgather_params(dist: DistContext, shard: torch.Tensor, *, buckets: int = 1
                  and plans.padded == shard.shape[0] * plans.dp
                  and plans.buckets == b)
     if use_plans:
-        outs = abi.wait(plans.ag_group.start(parts))
+        outs = abi.wait(plans.ag_group.start(parts), timeout_s=dist.wait_timeout_s)
     else:
-        outs = abi.waitall([abi.iallgather(p, dist.dp_comm) for p in parts])
+        outs = abi.waitall([abi.iallgather(p, dist.dp_comm) for p in parts],
+                           timeout_s=dist.wait_timeout_s)
     if b == 1:
         return outs[0].float()
     if use_plans:

@@ -24,9 +24,15 @@ microseconds a step.  One
 process is one rank, so the code that the reference runs inside a
 ``shard_map`` region runs directly; the batch a step receives is this
 rank's rows.  The step updates the parameter module in place (the
-reference returns new arrays) — that keeps one copy of the weights.  The
-reference's ``gspmd`` step and its elastic-recovery policies wait for
-later slices.
+reference returns new arrays) — that keeps one copy of the weights.  Its
+one in-place write (the parameters, from the all-gathered vector) comes
+after every collective of the step; with the transport tier's integrity
+mode on, the step first verifies those collectives' results
+(``verify_clean``, one host sync), so a corrupted step raises
+``PAX_ERR_DATA_CORRUPTION`` with the state untouched and a retry from the
+same state is bitwise the unfailed step.  The elastic recovery policy
+(:func:`elastic_recovery_policy`) rebuilds the step on the survivors.  The
+reference's ``gspmd`` step waits for a later slice.
 """
 from __future__ import annotations
 
@@ -157,8 +163,9 @@ def make_train_step_abi(api: ModelApi, dist: DistContext, opt_cfg: AdamWConfig, 
         with torch.no_grad():
             new_p, new_opt, gnorm = adamw.update_tree(
                 opt_cfg, grads, state.opt, params, lr_at(state.step))
+            loss = dist.abi.allreduce(loss, PAX_SUM, dist.dp_comm) / dp
+            dist.abi.verify_clean((grads, loss), "ddp step")
         _assign(params, new_p)
-        loss = dist.abi.allreduce(loss, PAX_SUM, dist.dp_comm) / dp
         return TrainState(state.params, new_opt, state.step + 1), Metrics(loss, gnorm)
 
     def body_zero1(state: TrainState, batch: dict):
@@ -202,8 +209,11 @@ def make_train_step_abi(api: ModelApi, dist: DistContext, opt_cfg: AdamWConfig, 
             del flat_p, p_shard, g_shard, ef
         with torch.no_grad(), record_function("zero1.all_gather"):
             p_full = allgather_params(dist, new_p_shard, buckets=buckets, plans=plans)
-            _assign(params, adamw.unflatten_like(p_full[:n_flat], params))
             loss = dist.abi.allreduce(loss, PAX_SUM, dist.dp_comm) / dp
+            # every collective of the step is in: verify before the one
+            # in-place write (a no-op with integrity off)
+            dist.abi.verify_clean((gnorm, p_full, loss), "zero1 step")
+            _assign(params, adamw.unflatten_like(p_full[:n_flat], params))
         return TrainState(state.params, new_opt, state.step + 1), Metrics(loss, gnorm)
 
     def step_fn(state: TrainState, batch: dict):
@@ -221,3 +231,102 @@ def make_train_step(api: ModelApi, dist: DistContext, opt_cfg: AdamWConfig, **kw
         return make_train_step_abi(api, dist, opt_cfg, **kw)
     raise NotImplementedError(
         f"grad_sync={api.cfg.parallelism.grad_sync!r} is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# the fault tier's consumers: the retry hooks and elastic recovery
+# ---------------------------------------------------------------------------
+def step_verifier(dist: DistContext) -> Callable:
+    """A ``RetryPolicy.verify`` hook: the integrity verdict on a step's
+    metrics (the step itself verifies its collectives before it writes)."""
+    return lambda out: dist.abi.verify_clean(tuple(out[1]), "train step")
+
+
+def plan_resetter(dist: DistContext) -> Callable:
+    """A ``RetryPolicy.reset`` hook: abort the ZeRO-1 plan groups and
+    plans a timed-out wait left active."""
+
+    def reset() -> None:
+        plans = dist.zero1_plans
+        if plans is not None:
+            for p in (plans.rs_group, plans.ag_group, *plans.rs, *plans.ag):
+                p.reset()
+
+    return reset
+
+
+def rebalance_batch(batch: dict, dp: int) -> dict:
+    """Trim a global batch's leading dim to the largest multiple of ``dp``
+    (the tail rows go; the identity when ``dp`` divides it)."""
+    def trim(x):
+        b = (x.shape[0] // dp) * dp
+        if b == 0:
+            raise ValueError(f"batch dim {x.shape[0]} < dp={dp}: nothing to shard")
+        return x if b == x.shape[0] else x[:b]
+
+    return {k: trim(v) for k, v in batch.items()}
+
+
+def local_batch(batch: dict, dist: DistContext) -> dict:
+    """This rank's rows of a global (numpy or tensor) batch, on its device:
+    the rank-local half of the reference's ``P(dp_axes)`` batch spec."""
+    dp, r = dist.dp_size, dist.abi.comm_rank(dist.dp_comm)
+    rows = next(iter(batch.values())).shape[0] // dp
+    return {k: torch.as_tensor(v[r * rows:(r + 1) * rows]).to(dist.device)
+            for k, v in batch.items()}
+
+
+def global_batch_step(dist: DistContext, step_fn: Callable, *,
+                      uneven: bool = False) -> Callable:
+    """``step_fn`` fed the global batch: first the ULFM notification idiom
+    (the reference's ``with_failure_probe``: an agreement on the
+    data-parallel communicator, which raises ``PAX_ERR_PROC_FAILED`` while
+    the failure detector reports an unacknowledged death), then (with
+    ``uneven``) the trim to a dp multiple, then this rank's rows."""
+
+    def step(state, batch):
+        dist.abi.comm_agree(1, dist.dp_comm)
+        b = rebalance_batch(batch, dist.dp_size) if uneven else batch
+        return step_fn(state, local_batch(b, dist))
+
+    return step
+
+
+def elastic_recovery_policy(api: ModelApi, opt_cfg: AdamWConfig, dist: DistContext,
+                            seed: int = 0, *, impl=None, schedule=None, tools=(),
+                            uneven_shards: bool = False, integrity: Optional[bool] = None):
+    """The canonical ``RecoveryPolicy`` for elastic data-parallel training
+    (the reference's ``elastic_recovery_policy``).  After the shrink,
+    ``rebuild`` makes a :func:`~repro_torch.runtime.dist.survivor_mesh` over
+    the survivors, trimmed to the largest power-of-two data extent (8 − 1
+    dead → 4), or kept whole with ``uneven_shards`` (the global batch then
+    trimmed to a dp multiple each step, on the per-leaf layout); a fresh
+    ``DistContext`` over it on ``impl`` (the plain backend under the
+    injection wrapper), whose groups only the kept ranks create;
+    ``init_state`` there; and the global-batch step
+    (:func:`global_batch_step`).  A rank outside the rebuilt world (the
+    dead one, or one the trim left out) gets ``step_fn=None`` and leaves.
+    ``policy.dist`` becomes the rebuilt context; ``integrity`` carries the
+    checksummed wire into it (default: the original context's)."""
+    from ..runtime.dist import make_dist, survivor_mesh
+    from ..runtime.fault import RecoveryPolicy, RecoveryTarget
+
+    def rebuild(survivors: int, failed: tuple):
+        old = policy.dist
+        mesh = survivor_mesh(old.mesh, failed)
+        rows = mesh.sizes[0]
+        if not uneven_shards:
+            mesh = survivor_mesh(old.mesh, failed, keep=1 << (rows.bit_length() - 1))
+        if torch.distributed.get_rank() not in mesh.world_ranks:
+            return RecoveryTarget(None, None)
+        keep = old.abi.integrity if integrity is None else integrity
+        new = make_dist(mesh=mesh, impl=impl, tools=tools, integrity=keep,
+                        compression=api.cfg.parallelism.grad_compression)
+        state_like = init_state(api, seed, new)
+        step = make_train_step(api, new, opt_cfg, schedule=schedule)
+        policy.dist = new
+        return RecoveryTarget(global_batch_step(new, step, uneven=uneven_shards),
+                              state_like, dist=new)
+
+    policy = RecoveryPolicy(dist=dist, rebuild=rebuild)
+    return policy

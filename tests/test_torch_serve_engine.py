@@ -363,11 +363,51 @@ def test_decode_plan_group_counts(f32):
         assert dist.abi.outstanding_requests == 0
 
 
-def test_decode_sync_refuses_a_wait_timeout(f32):
+def test_decode_sync_refuses_a_wait_timeout(f32, mesh1):
+    """The wait timeout is the reference's: ``DecodeSync(wait_timeout_s=...)``
+    is accepted, and a dropped decode broadcast raises ``PAX_ERR_TIMEOUT``
+    after at least the deadline in both packages, instead of hanging (the
+    name is the earlier slice's, when the parameter was refused)."""
+    import time
+
+    import repro.core as R
+    from repro.core.backends.faulty import FaultSchedule as RSchedule
+    from repro.core.backends.faulty import FaultyBackend as RFaulty
+    from repro.serve.engine import DecodeSync as JDecodeSync
+    from repro_torch.core import get_backend, pax_init
+    from repro_torch.core.backends.faulty import FaultSchedule, FaultyBackend
+    from repro_torch.core.errors import PAX_ERR_TIMEOUT
+
     _, (_, tapi, model) = f32
+    tok, act = np.arange(2, dtype=np.int32), np.ones(2, np.int32)
+    codes = []
+    rs = RSchedule()
+    rabi = R.pax_init(mesh1, impl=RFaulty(R.get_backend("paxi", mesh1), rs))
+    rsync = JDecodeSync(rabi, rabi.comm_from_axes(("model",), "tp"), 2, mesh1,
+                        wait_timeout_s=0.05)
+    assert (rsync.step(tok, act)[0] == tok).all()
+    rs.arm(0, after=0, mode="drop")
+    t0 = time.perf_counter()
+    with pytest.raises(Exception) as ei:
+        rsync.step(tok, act)
+    codes.append((ei.value.code, time.perf_counter() - t0 >= 0.05))
     with make_dist(impl="paxi", device="cpu") as dist:
-        with pytest.raises(PaxError, match="wait_timeout_s"):
-            DecodeSync(dist.abi, dist.tp_comm, 2, wait_timeout_s=1.0)
+        ts = FaultSchedule()
+        tabi = pax_init(dist.mesh, impl=FaultyBackend(get_backend("paxi", dist.mesh), ts))
+        dist.extra_contexts.append(tabi)
+        tsync = DecodeSync(tabi, tabi.comm_from_axes(("model",), "tp"), 2, "cpu",
+                           wait_timeout_s=0.05)
+        assert tsync.wait_timeout_s == 0.05 and (tsync.step(tok, act)[0] == tok).all()
+        ts.arm(0, after=0, mode="drop")
+        t0 = time.perf_counter()
+        with pytest.raises(PaxError) as ei:
+            tsync.step(tok, act)
+        codes.append((ei.value.code, time.perf_counter() - t0 >= 0.05))
+        tsync.reset()
+        ts.kill_rank, ts.dropping = -1, False
+        assert (tsync.step(tok, act)[0] == tok).all()
+        tsync.free()
+        assert codes == [(PAX_ERR_TIMEOUT, True)] * 2
         eng = _paged_engine(tapi, model, max_batch=2, dist=dist)
         eng.decode_sync.free()
         eng.rebuild_decode_sync(dist.abi, dist.tp_comm)
