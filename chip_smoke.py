@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only serve  # [serve] only (no kernel to build)
     python3 chip_smoke.py --only fault  # build + [fault] only
     python3 chip_smoke.py --only fault4 # build + [fault4] only, four cards
+    python3 chip_smoke.py --only ssm    # build + [train-ssm], [train-hybrid], [serve-ssm], [serve-hybrid]
     python3 chip_smoke.py --baseline wkv6=build/wkv6_parent.cu  # [time] also an earlier wkv6
 
 ``--baseline NAME=PATH`` (repeatable; NAME ``wkv6`` or ``ssd``) builds an
@@ -55,10 +56,12 @@ Phases (any failure exits non-zero and prints no result line):
    from it than twice the plain form), plus both kernels' edges (N, P and
    chunk not multiples of 8, chunk 1, a single chunk, N=3, chunk 64, and
    views at a misaligned base), each row logging the entry point it
-   launched; where the plain form is finite, so is the kernel; and, a
-   record, ``ssd`` at full width with one NaN in x, dt, B or C (its TF32
-   split is unscreened: a screen spills its registers, which the build
-   refuses for ``ssd``);
+   launched; where the plain form is finite, so is the kernel; and
+   ``ssd`` with one NaN in x, dt, B or C, at full width and at P = N = 16,
+   not finite at exactly the plain form's non-finite outputs (its TF32
+   split is unscreened, since a screen spills its registers, which the
+   build refuses for ``ssd``; the non-finite pass after the scan restores
+   them);
 3. [time] time each kernel, its plain version and, where one exists, one
    PyTorch call computing the same function, with CUDA events, beside the
    least time the card allows: bytes over its memory bandwidth for the
@@ -109,6 +112,22 @@ Phases (any failure exits non-zero and prints no result line):
    and 9 ``flash_attention`` launches) and ``"xla"`` (54 and 0) on the same
    weights: ms per forward for both and the host's time to enqueue one, the
    bf16 logits' max difference and top-1 agreement, ``last_only``;
+10b. [train-ssm] and [train-hybrid] (before the forwards, :func:`phase_train_recurrent`):
+   rwkv6-7b and zamba2-2.7b at full width and 2 and 12 layers, each
+   config's own ZeRO-1 step (f32 wire, microbatch 4, remat "full"), global
+   batch 8 of 1024 tokens, 2 + 5 steps: the scan launches 2 x layers x 4
+   times every step (the forward and the checkpoint's recompute), flash
+   never; finite losses, ms/step and peak memory; the step's gradients at
+   2 and 6 layers in f32 on the card and the CPU: the loss within 1e-3,
+   each leaf no farther from the CPU's than the card's own plain path is,
+   plus 1e-3 (rwkv6's gradient is ill-conditioned in float32).  [serve-ssm]
+   and [serve-hybrid] (after each forward, on its model,
+   :func:`phase_serve_recurrent`): the full-depth model behind
+   ``ServeEngine(max_batch=8, max_seq=320)``'s static path, 6 greedy and 2
+   sampled requests (prompts 32-256, 32 new tokens), no kernel launched,
+   ms per prefill and decode step, tokens/s, a decode step's launches,
+   the state's bytes, and a 2- or 6-layer f32 engine pair with equal
+   tokens on the card and the CPU;
 11. [card-vs-cpu] both families at full width and reduced depth (rwkv6 2
    layers, zamba2 6 so that the shared block fires once), float32, B=1,
    S=256, the same CPU-drawn weights: the card runs the kernels, the CPU
@@ -139,6 +158,10 @@ dp=4 run of full-width qwen2-0.5b on ``faulty:paxi`` before step 3 of 4;
 the survivors shrink, rebuild a dp=2 world (their groups created by them
 alone) and resume from the step-2 checkpoint, bitwise equal to a dp=2
 oracle restored from the same checkpoint.
+
+``--only ssm`` builds, then runs [train-ssm], [train-hybrid],
+[serve-ssm] and [serve-hybrid] alone (each serving phase draws its own
+full-depth weights).
 
 ``--only ring4`` runs the one path a single card cannot: [ring4] starts
 ``launch.train`` as four ranks, one per card, on NCCL, for 2 ZeRO-1 steps
@@ -1387,44 +1410,51 @@ def phase_check_scans() -> dict:
 
 
 #: (input, index) of the one NaN each [check] NaN row puts into ``ssd``'s
-#: full-width inputs (x, dt, B, C at (Bb, T, H, P), (Bb, T, H), (Bb, T, N))
+#: full-width inputs (x, dt, B, C at (Bb, T, H, P), (Bb, T, H), (Bb, T, N)),
+#: and the same at a shape off the P = N = chunk = 64 path
 SSD_NAN = (("x", 0, (0, 1027, 5, 7)), ("dt", 1, (1, 683, 11)), ("B", 3, (2, 100, 9)),
            ("C", 4, (3, 1500, 20)))
+SSD_NAN_EDGE = ((1, 128, 2, 16, 16, 32), (("x", 0, (0, 40, 1, 3)), ("dt", 1, (0, 70, 0)),
+                                          ("B", 3, (0, 33, 2)), ("C", 4, (0, 127, 15))))
 
 
 def _check_ssd_nan(gen) -> None:
-    """``ssd`` at full width with one NaN in x, dt, B or C, a record: the
-    kernel's TF32 split is unscreened (a screen spills its registers,
-    ROADMAP queue 3), so the card's NaN (0x7fffffff) rounds to -0 where it
-    is split and the kernel may be finite where the plain form is not; it
-    is held to the gate at the outputs where both are finite."""
+    """``ssd`` with one NaN in x, dt, B or C, at full width and at a shape
+    off the P = N = chunk = 64 path: the scan's TF32 split is unscreened
+    (a screen spills its registers), so the kernel's non-finite pass must
+    make its output not finite at exactly the plain form's non-finite
+    outputs (``ref.ssd_nonfinite_mask``'s rule), and equal to the plain
+    form within the gate everywhere else."""
     import torch
     from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
     from repro_torch.kernels.mamba2_ssd import ref as ssd_ref
 
-    *dims, chunk = SSD_FULL
-    base = _ssd_inputs(*dims, "model", gen)
-    for name, i, at in SSD_NAN:
-        args = list(base)
-        args[i] = args[i].clone()
-        args[i][at] = float("nan")
-        before = ssd_ops.ssd_apply.launches
-        got = ssd_ops.ssd_apply(*args, chunk=chunk)
-        plain = ssd_ref.ssd(*args, chunk=chunk)
-        torch_sync()
-        ok = torch.isfinite(plain)
-        both = ok & torch.isfinite(got)
-        bad = int((~ok).sum())
-        hidden = int((ok ^ torch.isfinite(got)).sum())
-        over = _excess(got[both], plain[both], CHUNKED_TOL)
-        log(f"[check] ssd {SSD_FULL} one NaN in {name} at {at} (a record): the plain form is not "
-            f"finite at {bad} of {plain.numel()} outputs, the kernel at "
-            f"{int((~torch.isfinite(got)).sum())}; they differ at {hidden}; max abs err vs plain "
-            f"where both are finite {_max_err(got[both], plain[both]):.3e} (gate {CHUNKED_TOL})")
-        if over > 0 or ssd_ops.ssd_apply.launches != before + 1:
-            raise AssertionError(f"ssd with a NaN in {name}: {over} past the gate where both "
-                                 "are finite")
-        del args, got, plain, ok
+    for shape, rows in ((SSD_FULL, SSD_NAN), SSD_NAN_EDGE):
+        *dims, chunk = shape
+        base = _ssd_inputs(*dims, "model", gen)
+        for name, i, at in rows:
+            args = list(base)
+            args[i] = args[i].clone()
+            args[i][at] = float("nan")
+            before = ssd_ops.ssd_apply.launches
+            got = ssd_ops.ssd_apply(*args, chunk=chunk)
+            plain = ssd_ref.ssd(*args, chunk=chunk)
+            torch_sync()
+            ok = torch.isfinite(plain)
+            differ = int((ok ^ torch.isfinite(got)).sum())
+            over = _excess(got[ok], plain[ok], CHUNKED_TOL)
+            rule = torch.equal(~ok, ssd_ref.ssd_nonfinite_mask(args[0], args[1], args[3],
+                                                                args[4], chunk))
+            log(f"[check] ssd {shape} one NaN in {name} at {at}: the plain form is not finite "
+                f"at {int((~ok).sum())} of {plain.numel()} outputs, the kernel at "
+                f"{int((~torch.isfinite(got)).sum())}; they differ at {differ}; max abs err vs "
+                f"plain where finite {_max_err(got[ok], plain[ok]):.3e} (gate {CHUNKED_TOL}); "
+                f"the mask rule holds: {rule}")
+            if differ or over > 0 or not rule or ssd_ops.ssd_apply.launches != before + 1:
+                raise AssertionError(f"ssd with a NaN in {name} at {shape}: not finite at "
+                                     f"{differ} outputs where the plain form differs, "
+                                     f"{over} past the gate, rule {rule}")
+            del args, got, plain, ok
 
 
 def _check_misaligned(name, shape, ops, ref, make, oracle_fn, entry, gen) -> None:
@@ -1499,7 +1529,9 @@ def phase_time_scans(card: str, baselines: dict) -> dict:
     there is no library time.  Each also logs its 3xTF32 tensor-core floor
     (three times its FLOPs at the TF32 rate) and its resident blocks per
     SM and, where ``baselines`` names one (``{"wkv6": path, "ssd": path}``),
-    an earlier source timed in turns with it."""
+    an earlier source timed in turns with it.  ``ssd`` is also timed in
+    turns without and with its non-finite pass (``ops.scan`` against
+    ``ops.launch_ssd``), the pass's cost a record."""
     import torch
     from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
     from repro_torch.kernels.mamba2_ssd import ref as ssd_ref
@@ -1528,6 +1560,19 @@ def phase_time_scans(card: str, baselines: dict) -> dict:
         log(f"[time] {name} as 3xTF32: {3 * flops:.3e} FLOP on the tensor cores, the kernel's "
             f"own floor {3 * flops / TF32_FLOP_PER_S * 1e3:.4f} ms; "
             f"{ops.blocks_per_sm()} resident blocks per SM")
+        if name == "ssd":
+            turns = ("scan", "scan + pass", "scan + pass", "scan")
+            ms = {}
+            for who in turns:
+                fn = ops.scan if who == "scan" else ops.launch_ssd
+                ms.setdefault(who, []).append(_time_ms(lambda: fn(*args, chunk=chunk)))
+            extra = statistics.mean(ms["scan + pass"]) - statistics.mean(ms["scan"])
+            t["nan_pass_ms"] = extra
+            log(f"[time] ssd {shape} f32 on {card}, in turns {', '.join(turns)}: the scan alone "
+                f"{', '.join(f'{v:.3f}' for v in ms['scan'])} ms, with the non-finite pass "
+                f"{', '.join(f'{v:.3f}' for v in ms['scan + pass'])} ms: the pass costs "
+                f"{extra:.3f} ms a launch, {54 * extra:.2f} ms of a zamba2-2.7b forward's 54 "
+                "launches")
         if baselines.get(name) is not None:
             path = baselines[name]
             old = _baseline(name, path)
@@ -1605,11 +1650,11 @@ def _tokens(cfg):
                                     generator=gen).cuda()}
 
 
-def phase_forward_ssm(card: str) -> int:
+def phase_forward_ssm(card: str) -> tuple:
     """rwkv6-7b at full width (bf16, random weights from seed 0), B=4,
     S=2048, through ``build_model(cfg).forward``: one ``wkv6`` launch per
     layer and nothing else.  Returns the ``wkv6`` launches counted in one
-    forward."""
+    forward and the model ([serve-ssm] serves it)."""
     import torch
     from repro_torch import configs
     from repro_torch.models import build_model
@@ -1630,16 +1675,15 @@ def phase_forward_ssm(card: str) -> int:
         f"{FWD_ITERS} after 3 warm-ups, twice)")
     log(f"[forward-ssm] host ms to enqueue one forward (median of {FWD_ITERS}, each on a "
         f"drained card): {enqueue:.2f}")
-    del model
-    torch.cuda.empty_cache()
-    return counts["wkv6"]
+    return counts["wkv6"], model
 
 
-def phase_forward_hybrid(card: str) -> dict:
+def phase_forward_hybrid(card: str) -> tuple:
     """zamba2-2.7b at full width (bf16, seed 0), B=4, S=2048, under
     ``attention_impl="flash"`` (one ``ssd`` launch per layer, one flash
     launch per firing of the shared block) and then ``"xla"`` on the same
-    weights (the ``ssd`` launches alone).  Returns the flash run's counts."""
+    weights (the ``ssd`` launches alone).  Returns the flash run's counts
+    and the model ([serve-hybrid] serves it)."""
     import dataclasses
 
     import torch
@@ -1679,9 +1723,7 @@ def phase_forward_hybrid(card: str) -> dict:
         + "; ".join(f"{impl} {t[0]:.2f}, {t[1]:.2f}" for impl, t in ms.items()))
     log(f"[forward-hybrid] host ms to enqueue one forward (median of {FWD_ITERS}, each on a "
         "drained card): " + "; ".join(f"{impl} {t:.2f}" for impl, t in enqueue.items()))
-    del model
-    torch.cuda.empty_cache()
-    return counts
+    return counts, model
 
 
 #: [card-vs-cpu]: both families at full width and reduced depth (the hybrid's
@@ -2680,6 +2722,331 @@ def phase_ring4(device: str = "cuda", argv=RING4_ARGS, out_dir: Path = HERE / "b
     return i8[0]["counts"]
 
 
+#: [train-ssm], [train-hybrid]: full width, reduced depth, the configs'
+#: own step (ZeRO-1 on the f32 wire, microbatch 4, remat "full")
+TRAIN_DEPTH = {SSM_ARCH: 2, HYBRID_ARCH: 12}
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+TRAIN_WARM, TRAIN_TIMED = 2, 5
+#: the card-vs-CPU gradient check: float32, the hybrid deep enough for one
+#: firing of the shared block, a short batch (the CPU computes it too)
+TRAIN_CPU_DEPTH = {SSM_ARCH: 2, HYBRID_ARCH: 6}
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 4, 128
+SCAN_OF = {SSM_ARCH: "wkv6", HYBRID_ARCH: "ssd"}
+
+
+def _scan_launches_per_step(cfg) -> int:
+    """The scan launches of one training step, derived from the code: each
+    of ``microbatch`` forwards launches one per layer, and under
+    ``remat="full"`` the non-reentrant checkpoint's recompute in the
+    backward runs each layer's forward again, scan included (the layer's
+    last saved tensors come after its scan, so the recompute reaches it);
+    the backward itself runs the plain chunked form, no kernel."""
+    par = cfg.parallelism
+    return cfg.num_layers * max(par.microbatch, 1) * (2 if par.remat == "full" else 1)
+
+
+def _leaf_dist(g, h) -> list:
+    """Per leaf, max |g - h| over the largest |h|."""
+    return [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(g, h)]
+
+
+def _train_grads_card_vs_cpu(arch: str) -> None:
+    """The step's gradient (``train_loop._microbatched_grads``, four
+    microbatches under remat) of the same CPU-drawn float32 weights and
+    batch three ways: on the CPU (the scans' plain versions), on the card
+    through the kernels (the kernel forward, the plain chunked form's
+    gradient backward), and on the card with the registry's ``cuda``
+    variant set to the plain version for the comparison (the card's own
+    float32 arithmetic).  The loss within 1e-3; the kernel path's grad norm
+    and every leaf's gradient (relative to the leaf's largest entry) no
+    farther from the CPU's than the card's plain path is, plus 1e-3.  The
+    plain path's own distance is the floor because the rwkv6 gradient is
+    ill-conditioned in float32: where a head's first-token WKV output
+    nearly cancels, its group norm (eps 1e-6) multiplies the rounding of
+    any two float32 evaluations: on this batch the card's plain path and
+    the CPU's differ by 2.2% of a leaf's scale (``PERF.md`` §6)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs, kernels
+    from repro_torch.kernels.mamba2_ssd import ref as ssd_ref
+    from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
+    from repro_torch.models import build_model, param_leaves
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train import train_loop as tl
+
+    tag = "train-" + ("ssm" if arch == SSM_ARCH else "hybrid")
+    depth = TRAIN_CPU_DEPTH[arch]
+    cfg = dataclasses.replace(configs.get_config(arch), num_layers=depth,
+                              param_dtype="float32", compute_dtype="float32")
+    api = build_model(cfg)
+    model = api.init(0, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    tok = torch.randint(0, cfg.vocab_size, (TRAIN_CPU_BATCH, TRAIN_CPU_SEQ), generator=gen)
+    batch = {"tokens": tok, "targets": torch.roll(tok, -1, 1)}
+    names = [n for n, _ in param_leaves(model)]
+    micro = cfg.parallelism.microbatch
+
+    def grads(batch):
+        params = [p for _, p in param_leaves(model)]
+        loss, g = tl._microbatched_grads(lambda m, b: api.loss_fn(m, b), model, params, batch,
+                                         micro)
+        return float(loss), [x.detach().cpu() for x in g]
+
+    t0 = time.perf_counter()
+    loss_c, g_c = grads(batch)
+    cpu_s = time.perf_counter() - t0
+    model = model.to("cuda")
+    on_card = {k: v.cuda() for k, v in batch.items()}
+    _zero_counts()
+    loss_k, g_k = grads(on_card)
+    torch_sync()
+    launched = _counts()[SCAN_OF[arch]]
+    name = "rwkv6_scan" if arch == SSM_ARCH else "mamba2_ssd"
+    kernel = kernels.get(name, "cuda")
+    kernels.register(name, "cuda", wkv_ref.wkv6 if arch == SSM_ARCH else ssd_ref.ssd)
+    try:
+        loss_p, g_p = grads(on_card)
+    finally:
+        kernels.register(name, "cuda", kernel)
+    n_c, n_k, n_p = (float(global_norm(g)) for g in (g_c, g_k, g_p))
+    e_k, e_p, e_kp = _leaf_dist(g_k, g_c), _leaf_dist(g_p, g_c), _leaf_dist(g_k, g_p)
+    over = [(names[i], e_k[i], e_p[i]) for i in range(len(names)) if e_k[i] > e_p[i] + 1e-3]
+    top = lambda e: max(zip(e, names))  # noqa: E731
+    log(f"[{tag}] card vs CPU, {arch} full width, {depth} layers, f32, batch "
+        f"{TRAIN_CPU_BATCH}x{TRAIN_CPU_SEQ}, {micro} microbatches, remat "
+        f"{cfg.parallelism.remat}: loss kernel {loss_k:.6f}, card plain {loss_p:.6f}, CPU "
+        f"{loss_c:.6f}; grad norm {n_k:.6f}, {n_p:.6f}, {n_c:.6f}; worst leaf (of its largest "
+        f"entry) kernel vs CPU {top(e_k)[1]} {top(e_k)[0]:.3e}, card plain vs CPU "
+        f"{top(e_p)[1]} {top(e_p)[0]:.3e}, kernel vs card plain {top(e_kp)[1]} "
+        f"{top(e_kp)[0]:.3e}; {launched} {SCAN_OF[arch]} launches on the card; CPU "
+        f"{cpu_s:.1f} s")
+    want = _scan_launches_per_step(cfg)
+    if (abs(loss_k - loss_c) > 1e-3 or abs(n_k - n_c) > abs(n_p - n_c) + 1e-3 * n_c or over
+            or launched != want):
+        raise AssertionError(f"[{tag}] the kernel path's gradients are farther from the CPU's "
+                             f"than the card's plain path plus 1e-3: loss {loss_k} vs {loss_c}, "
+                             f"norm {n_k} ({n_p}) vs {n_c}, leaves {over[:4]}; or {launched} "
+                             f"launches, expected {want}")
+    del model, g_c, g_k, g_p
+    torch.cuda.empty_cache()
+
+
+def phase_train_recurrent(card: str, arch: str) -> int:
+    """[train-ssm] / [train-hybrid]: the config's own training step at full
+    width and reduced depth (``TRAIN_DEPTH``), bf16 weights from seed 0,
+    ZeRO-1 on the f32 wire, global batch 8 of 1024 tokens in 4
+    microbatches, remat "full": 2 + 5 steps, each with the counts zeroed
+    just before it and read just after — the scan kernel launches
+    ``_scan_launches_per_step`` times a step, flash never — finite losses
+    and grad norms, ms/step of the 5 (host clock around a synced step) and
+    the peak memory; then the card-vs-CPU gradient check
+    (:func:`_train_grads_card_vs_cpu`).  Returns the
+    scan's launches over the 7 steps."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataPipeline, SyntheticSource
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.dist import make_dist
+    from repro_torch.train import train_loop as tl
+
+    t_phase = time.perf_counter()
+    tag = "train-" + ("ssm" if arch == SSM_ARCH else "hybrid")
+    scan = SCAN_OF[arch]
+    full = configs.get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=TRAIN_DEPTH[arch])
+    par = cfg.parallelism
+    if (par.remat, par.microbatch, par.zero1, par.grad_compression,
+            cfg.attention_impl) != ("full", 4, True, None, "xla"):
+        raise AssertionError(f"[{tag}] the config's step changed: {par}, {cfg.attention_impl}")
+    api = build_model(cfg)
+    per_step = _scan_launches_per_step(cfg)
+    pipe = DataPipeline(SyntheticSource(cfg.vocab_size, seed=0), global_batch=TRAIN_BATCH,
+                        seq_len=TRAIN_SEQ)
+    drawn = [next(pipe) for _ in range(TRAIN_WARM + TRAIN_TIMED)]
+    pipe.close()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, ms, total = [], [], [], 0
+    with make_dist(device="cuda") as dist:
+        t0 = time.perf_counter()
+        state = tl.init_state(api, 0, dist)
+        torch_sync()
+        n = sum(p.numel() for p in state.params.parameters())
+        log(f"[{tag}] {arch} full width, {cfg.num_layers} of {full.num_layers} layers: {n} "
+            f"parameters (bf16) drawn from the CPU generator (seed 0) in "
+            f"{time.perf_counter() - t0:.1f} s; the step launches {scan} {per_step} times "
+            f"({cfg.num_layers} layers x {par.microbatch} microbatches x 2: the forward and "
+            "remat's recompute)")
+        step = tl.make_train_step(api, dist, AdamWConfig())
+        for i, b in enumerate(drawn):
+            batch = tl.local_batch(b, dist)
+            torch_sync()
+            _zero_counts()
+            t = time.perf_counter()
+            state, met = step(state, batch)
+            loss, norm = float(met.loss), float(met.grad_norm)
+            torch_sync()
+            ms.append((time.perf_counter() - t) * 1e3)
+            c = _counts()
+            losses.append(loss)
+            norms.append(norm)
+            total += c[scan]
+            others = {k: v for k, v in c.items() if v and k not in (scan, "pack_transposed")}
+            if c[scan] != per_step or others:
+                raise AssertionError(f"[{tag}] step {i + 1} launched {scan} {c[scan]} times "
+                                     f"(expected {per_step}) and {others}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del state
+    torch.cuda.empty_cache()
+    free = torch.cuda.get_device_properties(0).total_memory / 1e9 - peak
+    timed = ms[TRAIN_WARM:]
+    log(f"[{tag}] losses {[round(v, 4) for v in losses]} grad norms "
+        f"{[round(v, 4) for v in norms]}; {scan} {per_step} launches on every step")
+    log(f"[{tag}] {arch} full width, {cfg.num_layers} layers, batch {TRAIN_BATCH}x{TRAIN_SEQ} "
+        f"on {card}: ms/step {[round(v, 1) for v in ms]} (median of the {TRAIN_TIMED} after "
+        f"{TRAIN_WARM} warm {statistics.median(timed):.1f}); peak {peak:.2f} GB "
+        f"({free:.1f} GB of the card left)")
+    if not all(math.isfinite(v) for v in losses + norms):
+        raise AssertionError(f"[{tag}] non-finite losses {losses} or grad norms {norms}")
+    _train_grads_card_vs_cpu(arch)
+    log(f"[{tag}] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+#: [serve-ssm], [serve-hybrid]: full width and depth (bf16, seed 0) behind
+#: the static path of ServeEngine; a smoke load, not user traffic
+SERVE_R_ENGINE = dict(max_batch=8, max_seq=320)
+SERVE_R_GREEDY, SERVE_R_NEW = 6, 32
+SERVE_R_PROMPTS = (32, 256)          # prompt lengths, drawn inclusive
+SERVE_R_CPU_REQS = ((12, 6), (7, 6))  # the card-vs-CPU pair: (prompt, new tokens)
+
+
+def _serve_r_requests(cfg):
+    """6 greedy and 2 sampled requests, prompts from ``default_rng(0)``."""
+    import numpy as np
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(SERVE_R_PROMPTS[0], SERVE_R_PROMPTS[1] + 1, SERVE_R_GREEDY + 2)
+    return [Request(i, rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32),
+                    max_new_tokens=SERVE_R_NEW,
+                    **(SERVE_SAMPLED if i >= SERVE_R_GREEDY else {}))
+            for i, n in enumerate(lens)]
+
+
+def _serve_r_card_vs_cpu(arch: str) -> None:
+    """The same CPU-drawn float32 weights (full width, ``CPU_DEPTH``
+    layers) behind two engines, on the CPU and on the card: equal tokens,
+    and the first decode step's logits within 1e-3."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request, ServeEngine
+
+    tag = "serve-" + ("ssm" if arch == SSM_ARCH else "hybrid")
+    cfg = dataclasses.replace(configs.get_config(arch), num_layers=CPU_DEPTH[arch],
+                              param_dtype="float32", compute_dtype="float32")
+    api = build_model(cfg)
+    model = api.init(0, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = model.to(dev)
+        rng = np.random.default_rng(1)
+        reqs = [Request(i, rng.integers(1, cfg.vocab_size, n).astype(np.int32),
+                        max_new_tokens=new) for i, (n, new) in enumerate(SERVE_R_CPU_REQS)]
+        first = []
+
+        def hook(kind, fn, *args):
+            logits = fn(*args)
+            if kind == "decode" and not first:
+                first.append(logits.float().cpu())
+            return logits
+
+        eng = ServeEngine(api, model, seed=0, **SERVE_R_ENGINE)
+        eng.step_hook = hook
+        eng.run(reqs)
+        out[dev] = ([r.out_tokens for r in reqs], first[0])
+    diff = _max_err(out["cuda"][1], out["cpu"][1])
+    same = out["cuda"][0] == out["cpu"][0]
+    log(f"[{tag}] card vs CPU engines, {arch} full width, {CPU_DEPTH[arch]} layers, f32: "
+        f"tokens equal {same}; first decode step's logits max abs diff {diff:.3e} (bound "
+        f"{F32_LOGIT_TOL})")
+    if not same or diff > F32_LOGIT_TOL:
+        raise AssertionError(f"[{tag}] card and CPU engines differ: {out['cuda'][0]} vs "
+                             f"{out['cpu'][0]}, logits {diff}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_serve_recurrent(card: str, arch: str, model=None) -> None:
+    """[serve-ssm] / [serve-hybrid]: the model at full width and depth
+    (bf16, seed 0; ``model`` when a forward phase drew it already) behind
+    ``ServeEngine(max_batch=8, max_seq=320)``: 6 greedy and 2 sampled
+    requests (prompts 32-256, 32 new tokens) through ``run()``'s static
+    path, the counts zeroed just before and read just after (serving runs
+    no kernel: its decode is the one-token recurrence); every request done
+    with 32 tokens; ms per prefill step (one position of the 8 sequences)
+    and per decode step (stream span and host enqueue, medians), generated
+    tokens/s, a ``torch.profiler`` count of one decode step's launches and
+    its device busy time, and the decode state's bytes; then the card-vs-CPU
+    engine pair."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+
+    t_phase = time.perf_counter()
+    tag = "serve-" + ("ssm" if arch == SSM_ARCH else "hybrid")
+    cfg = configs.get_config(arch)
+    api = build_model(cfg)
+    if model is None:
+        model = _init_timed(api, tag)
+    reqs = _serve_r_requests(cfg)
+    eng = ServeEngine(api, model, seed=0, **SERVE_R_ENGINE)
+    timer = _StepTimer(drain=False)
+    eng.step_hook = timer
+    _zero_counts()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch_sync()
+    wall = time.perf_counter() - t0
+    launched = {k: v for k, v in _counts().items() if v}
+    new = sum(len(r.out_tokens) for r in reqs)
+    pre, dec = timer.medians("prefill"), timer.medians("decode")
+    B = len(reqs)
+    log(f"[{tag}] {arch} full width ({cfg.num_layers} layers) bf16 on {card}: {B} requests "
+        f"(prompts {sorted(len(r.prompt) for r in reqs)}, 2 sampled), {new} tokens in "
+        f"{wall:.2f} s ({new / wall:.1f} generated tok/s); stats {eng.stats}; kernels "
+        f"launched {launched or 'none'}")
+    log(f"[{tag}] per prefill step (one position of {B} sequences, n={pre['n']}): stream span "
+        f"{pre['event_span_ms']:.2f} ms ({pre['event_span_ms'] / B:.2f} ms a token), host "
+        f"enqueue {pre['enqueue_ms']:.2f} ms; per decode step (n={dec['n']}): stream span "
+        f"{dec['event_span_ms']:.2f} ms, host enqueue {dec['enqueue_ms']:.2f} ms")
+    if launched or any(len(r.out_tokens) != SERVE_R_NEW or not r.done for r in reqs):
+        raise AssertionError(f"[{tag}] requests unfinished "
+                             f"{[len(r.out_tokens) for r in reqs]} or kernels {launched}")
+    state = api.decode_init(B, SERVE_R_ENGINE["max_seq"], device="cuda")
+    tok = torch.zeros((B, 1), dtype=torch.int64, device="cuda")
+    with torch.no_grad():
+        prof = _profile_model_step(lambda: api.decode_step(model, tok, state, 100))
+    leaves = [t for f in state for t in (f if isinstance(f, tuple) else (f,))]
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    log(f"[{tag}] one decode step at B={B} under torch.profiler: {prof['launches']:.0f} "
+        f"launches, device busy {prof['busy_ms']:.3f} ms, by class {prof['by_class_ms']}; "
+        f"decode state {nbytes / 1e6:.1f} MB ({', '.join(str(tuple(t.shape)) for t in leaves)})")
+    del model, eng, state
+    torch.cuda.empty_cache()
+    _serve_r_card_vs_cpu(arch)
+    log(f"[{tag}] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 CU = "src/repro_torch/kernels/ring_wire/csrc/"
 TPU = "src/repro/kernels/ring_wire/kernel.py:"
 #: name -> (CUDA source, the TPU kernel it replaces)
@@ -2703,9 +3070,12 @@ KERNELS = {
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("check", "ring4", "serve", "swap", "fault", "fault4"),
+    ap.add_argument("--only", choices=("check", "ring4", "serve", "swap", "fault", "fault4",
+                                       "ssm"),
                     default=None,
                     help="check: stop after building and checking the kernels; "
+                         "ssm: build, then only [train-ssm], [train-hybrid], [serve-ssm] "
+                         "and [serve-hybrid]; "
                          "ring4: build, then only the four-card int8 ring; "
                          "serve: only [serve], which launches no kernel (no build); "
                          "swap: build, then only [abi-swap]; "
@@ -2764,6 +3134,13 @@ def main() -> int:
             phase_fault(card)
             log("[only] fault: every fault scenario recovered bitwise; no result line")
             return 0
+        if args.only == "ssm":
+            for arch in (SSM_ARCH, HYBRID_ARCH):
+                phase_train_recurrent(card, arch)
+            for arch in (SSM_ARCH, HYBRID_ARCH):
+                phase_serve_recurrent(card, arch)
+            log("[only] ssm: both families trained and served on the card; no result line")
+            return 0
         if args.only == "fault4":
             if torch.cuda.device_count() < FAULT4:
                 raise RuntimeError(f"[fault4] needs {FAULT4} cards, found "
@@ -2792,8 +3169,19 @@ def main() -> int:
         phase_fault(card)
         launches["flash_attention"] = phase_forward(card)
         phase_forward_gemma(card)
-        launches["wkv6"] = phase_forward_ssm(card)
-        launches["ssd"] = phase_forward_hybrid(card)["ssd"]
+        by_phase = {"wkv6": {"train-ssm": phase_train_recurrent(card, SSM_ARCH)},
+                    "ssd": {"train-hybrid": phase_train_recurrent(card, HYBRID_ARCH)}}
+        by_phase["wkv6"]["forward-ssm"], model = phase_forward_ssm(card)
+        phase_serve_recurrent(card, SSM_ARCH, model)
+        del model
+        torch.cuda.empty_cache()
+        counts, model = phase_forward_hybrid(card)
+        by_phase["ssd"]["forward-hybrid"] = counts["ssd"]
+        phase_serve_recurrent(card, HYBRID_ARCH, model)
+        del model
+        torch.cuda.empty_cache()
+        for name, runs in by_phase.items():
+            launches[name] = sum(runs.values())
         phase_card_vs_cpu()
         phase_serve(card)
         record = {"kernels": [
@@ -2802,7 +3190,8 @@ def main() -> int:
              "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
              "bound_ms": timing[name]["bound_ms"],
              "bound_by": timing[name].get("bound_by", "bytes"),
-             "library_ms": timing[name]["library_ms"]}
+             "library_ms": timing[name]["library_ms"],
+             **({"launches_by_phase": by_phase[name]} if name in by_phase else {})}
             for name, (source, replaces) in KERNELS.items()]}
     except Exception:
         traceback.print_exc()

@@ -55,7 +55,7 @@ import torch.distributed as tdist
 from torch import nn
 
 from ..core import PAX_COMM_WORLD
-from ..optim.adamw import FlatAdamState
+from ..optim.adamw import FlatAdamState, nest
 
 #: the ZeRO-1 flat state's per-rank vectors: shards of one global vector
 #: (``m``, ``v``) and each rank's own residual (``ef``), in rank order
@@ -66,24 +66,12 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def _module_tree(module: nn.Module) -> dict:
-    """A parameter module as the nested dict of its parameters."""
-    tree: dict = {}
-    for name, p in module.named_parameters():
-        node = tree
-        parts = name.split(".")
-        for part in parts[:-1]:
-            node = node.setdefault(part, {})
-        node[parts[-1]] = p
-    return tree
-
-
 def _flatten(tree, path: str = "", sharded: bool = False) -> tuple[list, str]:
     """(``[(keystr, leaf, sharded)]`` in JAX's flatten order, the structure
     in ``PyTreeDef`` notation).  ``sharded`` marks the ZeRO-1 flat state's
     per-rank vectors (``FlatAdamState`` ``m``, ``v``, ``ef``)."""
     if isinstance(tree, nn.Module):
-        tree = _module_tree(tree)
+        tree = nest(list(tree.named_parameters()))
     if isinstance(tree, dict):
         out, parts = [], []
         for k in sorted(tree):

@@ -82,6 +82,31 @@ def forward_only(why: str, fn, *tensors, **kwargs):
     return _ForwardOnly.apply(why, fn, kwargs, *tensors)
 
 
+class _PlainGradient(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, fn, plain, kwargs, *tensors):
+        ctx.plain, ctx.kwargs = plain, kwargs
+        ctx.save_for_backward(*tensors)
+        return fn(*tensors, **kwargs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ctx.plain(*inputs, **ctx.kwargs)
+        return (None, None, None, *torch.autograd.grad(out, inputs, grad))
+
+
+def plain_gradient(fn, plain, *tensors, **kwargs):
+    """``fn(*tensors, **kwargs)`` forward (the kernel on a CUDA tensor) under
+    autograd with the gradient of ``plain``, the same function in plain
+    torch: the backward saves the inputs, recomputes ``plain`` on them under
+    ``enable_grad`` and returns its gradient with respect to every one.
+    A kernel without a backward of its own trains so, as the reference's
+    lax forms do under XLA's autodiff."""
+    return _PlainGradient.apply(fn, plain, kwargs, *tensors)
+
+
 # -- built-in kernels (lazy: nothing imports until first resolve) -----------
 # The wrappers in ring_wire/ops.py, flash_attention/ops.py, rwkv6_scan/ops.py
 # and mamba2_ssd/ops.py resolve through here by their tensor's device: the

@@ -42,7 +42,10 @@
 // shared split's screen for NaN and the top of the range: every exponent
 // here is <= 0, so finite inputs make no non-finite value, and with the
 // screen the generic path's registers spill (264 bytes; measured on the
-// card).  The
+// card).  A NaN or inf input, which the unscreened split may turn finite,
+// is restored by a pass after the scan (pax_ssd_nan_pass): flags of the
+// non-finite inputs by (batch row, chunk), OR-ed over the chunks so far,
+// and NaN written only where they say the plain form is not finite.  The
 // cumsum, the exponentials, the mask and the dt and exp(la_end - la)
 // scalings stay f32 on the CUDA cores, and so does the state's update: the
 // state product goes to a fresh accumulator each chunk, added to
@@ -477,6 +480,94 @@ ssd_fwd_wgmma(const float* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
+// The non-finite pass (after the scan, on the same stream).  The scan's TF32
+// split is unscreened, so a NaN or inf input can come out finite; the plain
+// chunked form's non-finite outputs follow from where its inputs are not
+// finite, chunk by chunk (ref.ssd_nonfinite_mask is the same rule in torch):
+//   x at (b, s, h, p)  -> column p of head h, from s's chunk on;
+//   dt at (b, s, h)    -> all of head h, from s's chunk on;
+//   B at (b, s, .)     -> every head, from s's chunk on;
+//   C at (b, t, .)     -> row t only.
+// Flags (one byte each, after a 4-byte "any" word the entry point zeroes):
+// fC (bb, t), fB (bb, nc), fdt (bb, nc, h), fx (bb, nc, h, p).  Both kernels
+// run on grid (ceil(h p / 128), nc, bb): thread j of a block is (h, p) =
+// (j / p, j % p) of one (batch row, chunk), so its loads of x, one per row of
+// the chunk, are coalesced 4-byte words.  The main kernel is not touched.
+struct NanFlags {
+  int* any;
+  uint8_t *fC, *fB, *fdt, *fx;
+  __device__ NanFlags(uint8_t* base, int bb, int t, int nc, int h) {
+    any = reinterpret_cast<int*>(base);
+    fC = base + 4;
+    fB = fC + static_cast<long long>(bb) * t;
+    fdt = fB + static_cast<long long>(bb) * nc;
+    fx = fdt + static_cast<long long>(bb) * nc * h;
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
+ssd_nan_flags(const float* __restrict__ x, const float* __restrict__ dt,
+              const float* __restrict__ Bm, const float* __restrict__ Cm,
+              uint8_t* __restrict__ base, int T, int H, int P, int N, int chunk) {
+  const int tid = threadIdx.x, c = blockIdx.y, b = blockIdx.z, nc = gridDim.y;
+  const int hp = H * P, j = blockIdx.x * kThreads + tid;
+  NanFlags f(base, gridDim.z, T, nc, H);
+  const long long row0 = static_cast<long long>(b) * T + static_cast<long long>(c) * chunk;
+  const long long bc = static_cast<long long>(b) * nc + c;
+  bool bad = false;
+  if (j < hp) {
+    const float* xr = x + row0 * hp + j;
+    for (int t = 0; t < chunk; ++t) bad |= !isfinite(xr[static_cast<long long>(t) * hp]);
+    f.fx[bc * hp + j] = bad;
+  }
+  if (j < H) {
+    bool d = false;
+    const float* dr = dt + row0 * H + j;
+    for (int t = 0; t < chunk; ++t) d |= !isfinite(dr[static_cast<long long>(t) * H]);
+    f.fdt[bc * H + j] = d;
+    bad |= d;
+  }
+  if (blockIdx.x == 0) {  // B and C: thread t reads row t of the chunk
+    bool rb = false;
+    if (tid < chunk) {
+      const float* br = Bm + (row0 + tid) * N;
+      const float* cr = Cm + (row0 + tid) * N;
+      bool rc = false;
+      for (int n = 0; n < N; ++n) {
+        rb |= !isfinite(br[n]);
+        rc |= !isfinite(cr[n]);
+      }
+      f.fC[row0 + tid] = rc;
+      bad |= rc;
+    }
+    const int any_b = __syncthreads_or(rb);
+    if (tid == 0) f.fB[bc] = any_b != 0;
+    bad |= any_b != 0;
+  }
+  if (bad) atomicOr(f.any, 1);
+}
+
+// NaN at every output the flags poison: nothing at all (one load a thread)
+// unless some input was not finite.
+__global__ void __launch_bounds__(kThreads)
+ssd_nan_apply(float* __restrict__ y, uint8_t* __restrict__ base, int T, int H, int P,
+              int chunk) {
+  const int c = blockIdx.y, b = blockIdx.z, nc = gridDim.y;
+  const int hp = H * P, j = blockIdx.x * kThreads + threadIdx.x;
+  NanFlags f(base, gridDim.z, T, nc, H);
+  if (*f.any == 0 || j >= hp) return;
+  const int h = j / P;
+  bool run = false;  // the flags of this chunk and every earlier one
+  for (int k = 0; k <= c; ++k) {
+    const long long bk = static_cast<long long>(b) * nc + k;
+    run |= f.fx[bk * hp + j] | f.fdt[bk * H + h] | f.fB[bk];
+  }
+  const long long row0 = static_cast<long long>(b) * T + static_cast<long long>(c) * chunk;
+  for (int t = 0; t < chunk; ++t) {
+    if (run || f.fC[row0 + t]) y[(row0 + t) * hp + j] = __int_as_float(0x7fffffff);
+  }
+}
+
 template <bool kFull>
 cudaError_t configure() {
   cudaError_t err = cudaFuncSetAttribute(
@@ -533,6 +624,45 @@ extern "C" int pax_ssd_wgmma(const void* x, const void* dt, const void* A, const
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return full ? launch<true>(x, dt, A, B, C, D, y, tiles, bb, t, h, p, n, chunk, st)
               : launch<false>(x, dt, A, B, C, D, y, tiles, bb, t, h, p, n, chunk, st);
+}
+
+// Bytes of the non-finite pass's flag buffer for these dims.
+extern "C" long long pax_ssd_nan_flag_bytes(long long bb, long long t, long long h,
+                                            long long p, long long chunk) {
+  const long long nc = t / chunk;
+  return 4 + bb * t + bb * nc * (1 + h + h * p);
+}
+
+// The non-finite pass over y, the scan's output of the same inputs (see
+// ssd_nan_flags): y takes NaN wherever the plain chunked form is not finite.
+// flags: pax_ssd_nan_flag_bytes(...) bytes of scratch, 4-byte aligned.
+// Returns cudaErrorInvalidValue for the shapes pax_ssd_wgmma refuses, else
+// the first failed call's cudaError_t.
+extern "C" int pax_ssd_nan_pass(const void* x, const void* dt, const void* B, const void* C,
+                                void* y, void* flags, long long bb, long long t, long long h,
+                                long long p, long long n, long long chunk, void* stream) {
+  if (bb <= 0 || bb > 65535 || h <= 0 || t <= 0 || t > 0x7fffffffLL || p < 1 || p > kMax ||
+      n < 1 || n > kMax || chunk < 1 || chunk > kMax || t % chunk != 0 || t / chunk > 65535 ||
+      h * p * kMax > 0x7fffffffLL || flags == nullptr ||
+      reinterpret_cast<uintptr_t>(flags) % 4 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(flags, 0, 4, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((h * p + kThreads - 1) / kThreads),
+                  static_cast<unsigned>(t / chunk), static_cast<unsigned>(bb));
+  const int T = static_cast<int>(t), H = static_cast<int>(h), P = static_cast<int>(p);
+  const int K = static_cast<int>(chunk);
+  ssd_nan_flags<<<grid, kThreads, 0, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dt), static_cast<const float*>(B),
+      static_cast<const float*>(C), static_cast<uint8_t*>(flags), T, H, P,
+      static_cast<int>(n), K);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_nan_apply<<<grid, kThreads, 0, st>>>(static_cast<float*>(y),
+                                           static_cast<uint8_t*>(flags), T, H, P, K);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Blocks of the kernel at P = N = chunk = 64 that one SM holds at once (its

@@ -19,9 +19,19 @@ broadcast to every head: the kernel reads the model layout in place and
 head ``bh`` reads batch row ``bh // H`` of B and C (at full zamba2 width the
 broadcast copies would be 2 x 168 MB a layer).
 
-Forward only.  The reference trains through its lax ``ssd_chunked``, not
-through this kernel; both variants here run inside an autograd function
-whose backward raises until the training slice gives the kernel a backward.
+After the scan the kernel's entry point :data:`NAN_ENTRY` runs the
+non-finite pass: the scan's TF32 split is unscreened, so a NaN or inf input
+can come out finite, and the pass writes NaN wherever the plain chunked
+form is not finite (:func:`.ref.ssd_nonfinite_mask` is its rule: flags of
+the non-finite inputs by chunk, OR-ed over the chunks so far).
+
+The gradient.  The reference has no Pallas backward: it trains through its
+lax ``ssd_chunked``, and XLA differentiates that.  Both variants here run
+inside ``kernels.plain_gradient``, an autograd function whose forward is the
+registry's variant (the kernel on a CUDA tensor, one launch counted) and
+whose backward recomputes the plain chunked form from a zero state
+(:func:`.ref.ssd`) under ``enable_grad`` and takes its gradient with
+respect to x, dt, A, B, C and D.  A backward kernel is ROADMAP queue 2's.
 """
 from __future__ import annotations
 
@@ -32,10 +42,13 @@ import torch
 
 from ... import kernels
 from .. import _build
+from . import ref
 
 SOURCES = (Path(__file__).with_name("csrc") / "ssd_wgmma.cu",)
-#: the C entry point that :func:`launch_ssd` calls
+#: the C entry points that :func:`launch_ssd` calls: the scan, then the
+#: non-finite pass over its output
 ENTRY = "pax_ssd_wgmma"
+NAN_ENTRY = "pax_ssd_nan_pass"
 
 #: head widths P, state widths N and chunk lengths the kernel takes: each is
 #: zero-padded to one 64-wide tile in shared memory
@@ -53,6 +66,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("ssd", SOURCES)
     getattr(lib, ENTRY).argtypes = [_P] * 8 + [_N] * 6 + [_P]
     getattr(lib, ENTRY).restype = ctypes.c_int
+    getattr(lib, NAN_ENTRY).argtypes = [_P] * 6 + [_N] * 6 + [_P]
+    getattr(lib, NAN_ENTRY).restype = ctypes.c_int
+    lib.pax_ssd_nan_flag_bytes.argtypes = [_N] * 5
+    lib.pax_ssd_nan_flag_bytes.restype = ctypes.c_longlong
     lib.pax_ssd_wgmma_blocks_per_sm.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.pax_ssd_wgmma_blocks_per_sm.restype = ctypes.c_int
     return lib
@@ -68,24 +85,30 @@ def blocks_per_sm() -> int:
     return n.value
 
 
-def launch_ssd(x, dt, A, B, C, D, *, chunk: int) -> torch.Tensor:
-    """The ``cuda`` variant of :func:`ssd_apply`: one call of the kernel's
-    entry point on contiguous float32 tensors (at P = N = chunk = 64 it
-    splits B and C once per batch row and chunk into a scratch buffer, then
-    scans)."""
+def scan(x, dt, A, B, C, D, *, chunk: int) -> torch.Tensor:
+    """The scan alone: one call of :data:`ENTRY` on contiguous float32
+    tensors (at P = N = chunk = 64 it splits B and C once per batch row and
+    chunk into a scratch buffer, then scans).  Finite inputs only; counted
+    nowhere (``chip_smoke.py`` times the non-finite pass against it)."""
     Bb, T, _, Pd = x.shape
     N = B.shape[-1]
     full = Pd == N == chunk == MAX_CHUNK
     y = torch.empty_like(x)
     tiles = torch.empty(Bb * (T // chunk) * SPLIT_TILE_WORDS if full else 0, device=x.device)
     _build.launch(_lib, ENTRY, (x, dt, A, B, C, D, y, tiles), *x.shape, N, chunk)
-    ssd_apply.launches += 1
     return y
 
 
-_NO_BACKWARD = ("ssd has no backward yet: the port runs the Mamba2 hybrid family forward "
-                "only; training it, with a backward that recomputes through the plain "
-                "ssd_chunked, is a later slice (ROADMAP queue 1 item 10)")
+def launch_ssd(x, dt, A, B, C, D, *, chunk: int) -> torch.Tensor:
+    """The ``cuda`` variant of :func:`ssd_apply`: :func:`scan`, then the
+    non-finite pass (:data:`NAN_ENTRY`) over its output."""
+    y = scan(x, dt, A, B, C, D, chunk=chunk)
+    Bb, T, H, Pd = x.shape
+    flags = torch.empty(_lib().pax_ssd_nan_flag_bytes(Bb, T, H, Pd, chunk), dtype=torch.uint8,
+                        device=x.device)
+    _build.launch(_lib, NAN_ENTRY, (x, dt, B, C, y, flags), *x.shape, B.shape[-1], chunk)
+    ssd_apply.launches += 1
+    return y
 
 
 def ssd_apply(x, dt, A, B, C, D, *, chunk: int = 64) -> torch.Tensor:
@@ -109,8 +132,9 @@ def ssd_apply(x, dt, A, B, C, D, *, chunk: int = 64) -> torch.Tensor:
         raise ValueError(f"ssd_apply takes tensors on one device, got "
                          f"{[str(t.device) for t in tensors]}")
     _, fn = kernels.resolve("mamba2_ssd", x.device)
-    return kernels.forward_only(_NO_BACKWARD, fn, *(t.float().contiguous() for t in tensors),
-                                chunk=chunk)
+    # the casts stay outside the Function, so the gradient reaches bf16 inputs
+    return kernels.plain_gradient(fn, ref.ssd, *(t.float().contiguous() for t in tensors),
+                                  chunk=chunk)
 
 
 ssd_apply.launches = 0  # counted by the ``cuda`` variant only

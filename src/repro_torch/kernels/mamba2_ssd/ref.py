@@ -11,6 +11,8 @@
   ``models/mamba.py`` takes from here.
 * :func:`ssd_ref` — the reference's sequential oracle
   (``repro/kernels/mamba2_ssd/ref.py``), in its layout (BH, T, .).
+* :func:`ssd_nonfinite_mask` — where :func:`ssd` is not finite, from where
+  its inputs are not: the rule of the kernel's non-finite pass.
 
 The CPU tests run these; on the card only ``chip_smoke.py`` calls them, to
 hold the CUDA kernel against them.
@@ -86,3 +88,23 @@ def ssd_ref(x, dt, b, c, a, d):
         S = torch.exp(dtt * a)[:, None, None] * S + upd
         ys.append(torch.einsum("bpn,bn->bp", S, c[:, t]) + xt * d[:, None])
     return torch.stack(ys, dim=1)
+
+
+def ssd_nonfinite_mask(x, dt, B, C, chunk: int):
+    """(Bb, T, H, P) bool: where :func:`ssd` (A and D finite) is not finite,
+    from where x, dt, B and C are not.  A non-finite x at (b, s, h, p)
+    reaches column p of head h over all of s's chunk (the intra-chunk
+    product multiplies it by the zeros above the diagonal too) and every
+    later chunk (through the state); dt at (b, s, h), all of head h from
+    s's chunk on; B at (b, s), every head from s's chunk on; C at (b, t),
+    row t only.  The kernel's pass computes the same flags per (batch row,
+    chunk) and ORs them over the chunks so far."""
+    Bb, T, H, Pd = x.shape
+    nc = T // chunk
+    bad = lambda a: ~torch.isfinite(a)  # noqa: E731
+    fx = bad(x).reshape(Bb, nc, chunk, H, Pd).any(2)                 # (Bb, nc, H, P)
+    fdt = bad(dt).reshape(Bb, nc, chunk, H).any(2)                   # (Bb, nc, H)
+    fB = bad(B).reshape(Bb, nc, -1).any(2)                           # (Bb, nc)
+    run = fx | fdt[..., None] | fB[:, :, None, None]
+    run = run.to(torch.int8).cummax(dim=1).values.bool()             # OR over chunks so far
+    return run.repeat_interleave(chunk, dim=1) | bad(C).any(-1)[:, :, None, None]

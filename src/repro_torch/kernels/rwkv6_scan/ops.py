@@ -18,9 +18,14 @@ kernel reads the model layout in place, one (b, h) per thread block, at any
 4-byte aligned base, so the wrapper copies only what is not already
 contiguous float32.
 
-Forward only.  The reference trains through its lax ``wkv6_chunked``, not
-through this kernel; both variants here run inside an autograd function
-whose backward raises until the training slice gives the kernel a backward.
+The gradient.  The reference has no Pallas backward: it trains through its
+lax ``wkv6_chunked``, and XLA differentiates that.  Both variants here run
+inside ``kernels.plain_gradient``, an autograd function whose forward is the
+registry's variant (the kernel on a CUDA tensor, one launch counted) and
+whose backward recomputes the plain chunked form from a zero state
+(:func:`.ref.wkv6`) under ``enable_grad`` and takes its gradient with
+respect to r, k, v, wlog and u: the same function differentiated the same
+way as the reference.  A backward kernel is ROADMAP queue 2's.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import torch
 
 from ... import kernels
 from .. import _build
+from . import ref
 
 SOURCES = (Path(__file__).with_name("csrc") / "wkv6_wgmma.cu",)
 #: the C entry point that :func:`launch_wkv6` calls
@@ -72,11 +78,6 @@ def launch_wkv6(r, k, v, wlog, u, *, chunk: int) -> torch.Tensor:
     return y
 
 
-_NO_BACKWARD = ("wkv6 has no backward yet: the port runs the rwkv6 family forward only; "
-                "training it, with a backward that recomputes through the plain "
-                "wkv6_chunked, is a later slice (ROADMAP queue 1 item 10)")
-
-
 def wkv6_apply(r, k, v, wlog, u, *, chunk: int = 32) -> torch.Tensor:
     """r, k, v, wlog: (B, T, H, N); u: (H, N) -> y (B, T, H, N) float32,
     the WKV6 scan from a zero state.  N and chunk in [1, 64], T a positive
@@ -96,8 +97,9 @@ def wkv6_apply(r, k, v, wlog, u, *, chunk: int = 32) -> torch.Tensor:
         raise ValueError(f"wkv6_apply takes tensors on one device, got "
                          f"{[str(t.device) for t in tensors]}")
     _, fn = kernels.resolve("rwkv6_scan", r.device)
-    return kernels.forward_only(_NO_BACKWARD, fn, *(t.float().contiguous() for t in tensors),
-                                chunk=chunk)
+    # the casts stay outside the Function, so the gradient reaches bf16 inputs
+    return kernels.plain_gradient(fn, ref.wkv6, *(t.float().contiguous() for t in tensors),
+                                  chunk=chunk)
 
 
 wkv6_apply.launches = 0  # counted by the ``cuda`` variant only

@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step --arch qwen2-0.5b \\
         --global-batch 8 --seq-len 128 --zero1-buckets 1 [--grad-compression bf16]
+        [--num-layers N]   # full width at reduced depth (rwkv6-7b at 2, zamba2-2.7b at 12)
 
 Builds the same state as :mod:`repro_torch.launch.train` (world of one,
 ``paxi``, and ``ring-<compression>`` for a compressed gradient wire), runs
@@ -55,6 +56,7 @@ LAUNCH_CALLS = ("cuda_runtime", "cuda_driver")
 KERNEL_CLASSES = (
     ("wire kernels (this repo)", ("permute_rows", "pack_ef_rows", "quant_i8_kernel",
                                   "hop_add_quant", "hop_accum")),
+    ("scan and attention kernels (this repo)", ("wkv6_fwd", "ssd_", "flash_attention")),
     ("nccl", ("nccl",)),
     ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
     ("copy / memset", ("Memcpy", "Memset", "copy_", "CatArrayBatched")),
@@ -126,6 +128,8 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=cfgs.ARCH_NAMES)
     ap.add_argument("--smoke", action="store_true", help="reduced config")
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="cut the config's depth (its widths stay)")
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--zero1-buckets", type=int, default=1)
@@ -140,6 +144,8 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = cfgs.smoke_config(args.arch) if args.smoke else cfgs.get_config(args.arch)
+    if args.num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
     cfg = dataclasses.replace(cfg, parallelism=dataclasses.replace(
         cfg.parallelism, zero1_buckets=args.zero1_buckets,
         grad_compression=args.grad_compression))

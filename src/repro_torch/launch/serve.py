@@ -1,13 +1,16 @@
 """Serving launcher — the port of ``repro.launch.serve``: batched generation
-with the continuous-batching :class:`~repro_torch.serve.engine.ServeEngine`.
+with :class:`~repro_torch.serve.engine.ServeEngine`, continuously batched on
+the paged KV cache (dense family) or statically batched over the recurrent
+state (``--arch rwkv6-7b``, ``zamba2-2.7b``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --smoke \\
         --batch 4 --prompt-len 16 --new-tokens 16
 
 Runs on the card unless ``--device cpu``.  The flags are the reference's,
 plus ``--device`` and ``--seed`` (the weights' seed and the engine's
-sampling seed).  Prints tokens/s, the engine's stats, the KV pool and the
-first tokens of two requests; the run ends with ``DistContext.shutdown``.
+sampling seed).  Prints tokens/s, the engine's stats, the KV pool (paged
+path) and the first tokens of two requests; the run ends with
+``DistContext.shutdown``.
 """
 from __future__ import annotations
 
@@ -61,8 +64,9 @@ def main(argv=None) -> list:
               f"{args.batch} requests, {total_new} tokens in {dt:.2f}s "
               f"({total_new / dt:.1f} tok/s)")
         print(f"  stats: {eng.stats}")
-        print(f"  kv pool: {eng.alloc.live_blocks} live / "
-              f"{eng.alloc.num_blocks - 1} blocks of {eng.block_size}")
+        if eng.paged:
+            print(f"  kv pool: {eng.alloc.live_blocks} live / "
+                  f"{eng.alloc.num_blocks - 1} blocks of {eng.block_size}")
         for r in reqs[:2]:
             print(f"  req{r.rid}: {r.out_tokens[:12]}")
     return reqs

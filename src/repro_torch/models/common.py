@@ -14,6 +14,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -177,3 +178,24 @@ def softmax_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     zl = z_loss * torch.square(lse) * mask
     denom = torch.clamp_min(mask.sum(), 1.0)
     return (nll.sum() + zl.sum()) / denom
+
+
+# ---------------------------------------------------------------------------
+# rematerialisation
+# ---------------------------------------------------------------------------
+def maybe_remat(fn, name: str):
+    """``fn`` under ``parallelism.remat``: ``"none"`` as it is; ``"full"``
+    through ``torch.utils.checkpoint`` (non-reentrant), so its activations
+    are recomputed in the backward instead of kept, and only while autograd
+    records (an inference forward runs ``fn`` once); ``"dots"`` (the
+    reference's save-the-matmuls policy) is not ported.  Remat changes no
+    result (``configs/base.py``)."""
+    if name == "none":
+        return fn
+    if name == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False) if torch.is_grad_enabled() \
+            else fn(*a)
+    if name == "dots":
+        raise NotImplementedError("remat='dots' (save only the matrix products) is not "
+                                  "ported: ROADMAP queue 1")
+    raise ValueError(f"remat must be 'none', 'full' or 'dots', got {name!r}")

@@ -1,28 +1,39 @@
-"""Mamba2 (SSD, state-space duality) block, as zamba2-2.7b uses it:
-the full-sequence form.
+"""Mamba2 (SSD, state-space duality) block, as zamba2-2.7b uses it: the
+full-sequence form (training, prefill) and the one-token decode over the
+conv and SSM states.
 
 Per head h (scalar decay a_t = exp(dt_t * A_h), A_h < 0):
 
     state[p, n] <- a_t * state[p, n] + dt_t * x_t[p] * B_t[n]
     y_t[p]      =  state[p, n] . C_t[n]  + D_h * x_t[p]
 
-from a zero state, whose final state the full-sequence forward drops.  The
-reference runs it in lax (``ssd_chunked``); the port runs the SSD kernel
-through ``kernels/mamba2_ssd/ops.ssd_apply``: the CUDA kernel on a CUDA
-tensor, the plain chunked version on the CPU.  ``ssd_chunked`` (a state
-in and out) and ``ssd_step`` are the reference's, for the tests; decode
-with the conv and SSM states arrives with serving.
+The full-sequence form runs it from a zero state and drops the final
+state.  The reference runs it in lax (``ssd_chunked``); the port runs the
+SSD kernel through ``kernels/mamba2_ssd/ops.ssd_apply``: the CUDA kernel on
+a CUDA tensor, the plain chunked version on the CPU, and in the backward
+the plain chunked form's gradient (the reference's lax gradient).
+
+Decode (``mamba_block(..., state=MambaState)``) keeps the last K - 1 conv
+inputs (in the compute dtype) as a rolling window and the SSM state
+(float32), advanced by ``ssd_step``; no kernel runs.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels.mamba2_ssd.ops import ssd_apply
 from ..kernels.mamba2_ssd.ref import ssd_chunked  # noqa: F401  (the reference's name)
-from .common import dense_init_, norm, norm_shapes, normal_init_
+from ..runtime.device import resolve_device
+from .common import dense_init_, dtype_of, norm, norm_shapes, normal_init_
+
+
+class MambaState(NamedTuple):
+    conv: torch.Tensor  # (B, K-1, d_inner + 2N) rolling conv input window, compute dtype
+    ssm: torch.Tensor   # (B, H, P, N) float32
 
 
 def _dims(cfg):
@@ -94,22 +105,47 @@ def ssd_step(x, dt, A, B, C, D, state):
     return y, state
 
 
-def mamba_block(p: dict, x, cfg, chunk: int | None = None):
+def mamba_block(p: dict, x, cfg, chunk: int | None = None, state: MambaState | None = None):
     """x: (B, T, d) -> (B, T, d): the SSD scan from a zero state through the
-    kernel registry.  As in the reference, the layer's ``norm`` is not
-    applied here."""
+    kernel registry.  With ``state``, x is one token (B, 1, d) and the
+    result is (output, new state): the conv over the window of the stored
+    inputs and this one, then ``ssd_step``.  As in the reference, the
+    layer's ``norm`` is not applied here."""
     d, d_inner, H, Pd, N = _dims(cfg)
     chunk = chunk or cfg.ssm.chunk_size
     B_, T, _ = x.shape
     proj = x @ p["in_proj"].to(x.dtype)
     z, xin, Bc, Cc, dt = torch.split(proj, [d_inner, d_inner, N, N, H], dim=-1)
     conv_in = torch.cat([xin, Bc, Cc], dim=-1)
-    conv_out = _causal_conv(conv_in, p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype))
+    w, b = p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype)
+    if state is None:
+        conv_out = _causal_conv(conv_in, w, b)
+    else:
+        window = torch.cat([state.conv, conv_in], dim=1)  # (B, K, C)
+        conv_out = F.silu((window * w[None]).sum(1, keepdim=True) + b)
     xc, Bc, Cc = torch.split(conv_out, [d_inner, N, N], dim=-1)
     xh = xc.reshape(B_, T, H, Pd).float()
     dtp = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    y = ssd_apply(xh, dtp, A, Bc.float(), Cc.float(), p["D"], chunk=chunk)
+    if state is None:
+        y = ssd_apply(xh, dtp, A, Bc.float(), Cc.float(), p["D"], chunk=chunk)
+    else:
+        y, S = ssd_step(xh[:, 0], dtp[:, 0], A, Bc[:, 0].float(), Cc[:, 0].float(), p["D"],
+                        state.ssm)
+        y = y[:, None]
     y = y.reshape(B_, T, d_inner).to(x.dtype)
     y = norm(p["out_norm"], y, "rmsnorm") * F.silu(z)
-    return y @ p["out_proj"].to(x.dtype)
+    out = y @ p["out_proj"].to(x.dtype)
+    return out if state is None else (out, MambaState(window[:, 1:], S))
+
+
+def init_mamba_state(cfg, batch: int, device=None, layers: int | None = None) -> MambaState:
+    """The zero state of one Mamba2 layer for ``batch`` sequences, or with
+    ``layers`` every layer's, stacked on a leading axis."""
+    _, d_inner, H, Pd, N = _dims(cfg)
+    dev = resolve_device(device)
+    lead = () if layers is None else (layers,)
+    return MambaState(
+        torch.zeros((*lead, batch, cfg.ssm.conv_kernel - 1, d_inner + 2 * N),
+                    dtype=dtype_of(cfg.compute_dtype), device=dev),
+        torch.zeros((*lead, batch, H, Pd, N), dtype=torch.float32, device=dev))

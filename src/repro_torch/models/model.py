@@ -2,13 +2,14 @@
 
 ``build_model(cfg)`` returns a :class:`ModelApi` with ``init(seed, device)``
 (-> the parameter module), ``loss_fn(model, batch)``,
-``forward(model, batch, last_only=False)`` (-> logits) and, for the dense
-family, ``decode_init(batch, max_seq, device=None)`` (-> a contiguous
-cache) and ``decode_step(model, token, cache, index)`` (-> logits, cache).
-The port holds three families of the reference: ``dense``
-(``transformer``), ``ssm`` (rwkv6, ``rwkv``) and ``hybrid`` (Mamba2 +
-shared attention, ``hybrid``); the ssm and hybrid families run forward
-only for now, so their ``decode_init``/``decode_step`` are ``None``.
+``forward(model, batch, last_only=False)`` (-> logits),
+``decode_init(batch, max_seq, device=None)`` (-> the decode state: the
+dense family's contiguous KV cache, the ssm family's recurrent
+``RwkvState``, the hybrid's ``HybridState``) and
+``decode_step(model, token, state, index)`` (-> logits, state; the state is
+written in place).  The port holds three families of the reference:
+``dense`` (``transformer``), ``ssm`` (rwkv6, ``rwkv``) and ``hybrid``
+(Mamba2 + shared attention, ``hybrid``); each trains and decodes.
 
 :func:`param_leaves` is the reference's ``jax.tree.leaves`` order — sorted
 keys at every level of the parameter tree, each leaf holding all ``L``
@@ -65,8 +66,14 @@ def build_model(cfg: ModelConfig) -> ModelApi:
     if cfg.family == "dense":
         api.decode_init = lambda batch, max_seq, device=None: transformer.init_cache(
             cfg, batch, max_seq, device=device)
-        api.decode_step = lambda m, tok, cache, idx, dist=None: transformer.decode_step(
-            m, tok, cache, idx, cfg)
+    elif cfg.family == "ssm":
+        api.decode_init = lambda batch, max_seq, device=None: rwkv.init_state(
+            cfg, batch, device=device)
+    else:
+        api.decode_init = lambda batch, max_seq, device=None: hybrid.init_state(
+            cfg, batch, max_seq, device=device)
+    api.decode_step = lambda m, tok, state, idx, dist=None: fam.decode_step(
+        m, tok, state, idx, cfg)
     return api
 
 

@@ -1,5 +1,6 @@
 """RWKV6 "Finch" (the ssm family): an attention-free LM with a
-data-dependent per-channel decay, full-sequence forward.
+data-dependent per-channel decay — the full-sequence forward (training,
+prefill) and the one-token decode over the O(1) recurrent state.
 
 Time-mix: a data-dependent token shift (ddlerp with a low-rank adapter),
 then the WKV6 recurrence
@@ -7,13 +8,20 @@ then the WKV6 recurrence
     y_t[j] = sum_i r_t[i] * (S[i,j] + u[i] k_t[i] v_t[j])
     S[i,j] <- w_t[i] * S[i,j] + k_t[i] * v_t[j]
 
-from a zero state, whose final state the full-sequence forward drops.  The
-reference runs it in lax (``wkv6_chunked``); the port runs the WKV6 kernel
-through ``kernels/rwkv6_scan/ops.wkv6_apply``: the CUDA kernel on a CUDA
-tensor, the plain chunked version on the CPU.  Channel-mix: a relu² FFN
-with token-shift gates.  ``wkv6_chunked`` (a state in and out) and
-``wkv6_step`` are the reference's, for the tests; decode with the
-recurrent state arrives with serving.
+The full-sequence forward runs it from a zero state and drops the final
+state.  The reference runs it in lax (``wkv6_chunked``); the port runs the
+WKV6 kernel through ``kernels/rwkv6_scan/ops.wkv6_apply``: the CUDA kernel
+on a CUDA tensor, the plain chunked version on the CPU, and in the backward
+the plain chunked form's gradient (the reference's lax gradient).  Each
+layer runs under ``maybe_remat`` (``parallelism.remat``).  Channel-mix: a
+relu² FFN with token-shift gates.
+
+Decode (:func:`decode_step`) carries :class:`RwkvState`: each layer's last
+time-mix and channel-mix inputs (the token shift, stored float32 and cast
+to the stream's dtype on every step, as the reference does) and its WKV
+state, advanced by ``wkv6_step``; no kernel runs.  Unlike the reference,
+which returns new arrays, the step writes the state in place and returns
+it.
 
 Parameters keep the reference's tree (``layers.{ln1, ln2, mu_base, mu,
 lora_a, lora_b, wr, wk, wv, wg, wo, w0, u, ln_x, cm_mu_k, cm_mu_r, cm_wk,
@@ -23,6 +31,7 @@ cm_wv, cm_wr}`` stacked on ``L``; ``ln_x`` a per-head layernorm), so
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +39,7 @@ from torch import nn
 
 from ..kernels.rwkv6_scan.ops import wkv6_apply
 from ..kernels.rwkv6_scan.ref import wkv6_chunked  # noqa: F401  (the reference's name)
+from ..runtime.device import resolve_device
 from .common import (
     ParamBlock,
     dense_init_,
@@ -37,6 +47,7 @@ from .common import (
     embed_init_,
     embed_shapes,
     embed_tokens,
+    maybe_remat,
     norm,
     norm_shapes,
     normal_init_,
@@ -47,6 +58,14 @@ from .common import (
 LORA_DIM = 32
 BRANCHES = 5                      # r, k, v, w, g
 WLOG_MIN, WLOG_MAX = -5.0, -1e-4  # per-step log-decay clamp (fp32-stable chunks)
+
+
+class RwkvState(NamedTuple):
+    """The recurrent decode state of the layer stack."""
+
+    shift_tm: torch.Tensor  # (L, B, d) f32: each layer's last time-mix input
+    shift_cm: torch.Tensor  # (L, B, d) f32: its last channel-mix input
+    wkv: torch.Tensor       # (L, B, H, N, N) f32
 
 
 class RwkvLM(nn.Module):
@@ -106,7 +125,7 @@ def init_lm(cfg, seed: int, device) -> RwkvLM:
 
 
 # ---------------------------------------------------------------------------
-# the recurrence's single step (the reference's, for the tests)
+# the recurrence's single step (decode)
 # ---------------------------------------------------------------------------
 def wkv6_step(r, k, v, wlog, u, state):
     """Single-token recurrence. r..: (B, H, N); state: (B, H, N, N)."""
@@ -130,9 +149,11 @@ def _ddlerp(p: dict, x, x_prev):
     return [x + xx * mixes[..., i, :].to(x.dtype) for i in range(BRANCHES)]
 
 
-def time_mix(p: dict, x, x_prev, cfg, chunk: int = 32):
-    """x: (B, T, d), x_prev the shifted x.  The WKV6 scan from a zero state
-    through the kernel registry; returns the block's output (B, T, d)."""
+def time_mix(p: dict, x, x_prev, cfg, chunk: int = 32, state=None):
+    """x: (B, T, d), x_prev the shifted x: the WKV6 scan from a zero state
+    through the kernel registry, returning the block's output (B, T, d).
+    With ``state`` (B, H, N, N), x is one token (B, 1, d), x_prev the
+    stored shift, and the result is (output, new state), by ``wkv6_step``."""
     d, N = cfg.d_model, cfg.ssm.head_dim
     B, T, H = x.shape[0], x.shape[1], d // N
     xr, xk, xv, xw, xg = _ddlerp(p, x, x_prev)
@@ -144,11 +165,17 @@ def time_mix(p: dict, x, x_prev, cfg, chunk: int = 32):
     # first branch's lora_a columns with lora_b[3]
     wlog_raw = p["w0"] + (xw.float() @ p["lora_a"][:, :LORA_DIM]) @ p["lora_b"][3]
     wlog = torch.clamp(-torch.exp(wlog_raw), WLOG_MIN, WLOG_MAX).reshape(B, T, H, N)
-    y = wkv6_apply(r, k, v, wlog, p["u"].reshape(H, N), chunk=chunk)
+    u = p["u"].reshape(H, N)
+    if state is None:
+        y = wkv6_apply(r, k, v, wlog, u, chunk=chunk)
+    else:
+        y, state = wkv6_step(r[:, 0], k[:, 0], v[:, 0], wlog[:, 0], u, state)
+        y = y[:, None]
     # per-head group norm, then gate and project
     y = norm(p["ln_x"], y, "layernorm")
     y = y.reshape(B, T, d).to(x.dtype) * g
-    return y @ p["wo"].to(x.dtype)
+    out = y @ p["wo"].to(x.dtype)
+    return out if state is None else (out, state)
 
 
 def channel_mix(p: dict, x, x_prev, cfg):
@@ -171,6 +198,19 @@ def _layer_fwd(p: dict, x, cfg):
     return x + channel_mix(p, h2, _shift(h2), cfg)
 
 
+def _layer_step(p: dict, x, st_tm, st_cm, wkv, cfg):
+    """One token through one layer.  x: (B, 1, d).  The shift states are
+    stored float32 and cast to the stream's dtype here; the new ones are the
+    normed inputs cast back to float32.  Returns (x, shift_tm, shift_cm,
+    wkv)."""
+    h = norm(p["ln1"], x, cfg.norm)
+    y, wkv = time_mix(p, h, st_tm[:, None].to(h.dtype), cfg, state=wkv)
+    x = x + y
+    h2 = norm(p["ln2"], x, cfg.norm)
+    x = x + channel_mix(p, h2, st_cm[:, None].to(h2.dtype), cfg)
+    return x, h[:, 0].float(), h2[:, 0].float(), wkv
+
+
 # ---------------------------------------------------------------------------
 # full model
 # ---------------------------------------------------------------------------
@@ -179,8 +219,9 @@ def forward(model: RwkvLM, tokens: torch.Tensor, cfg, last_only: bool = False) -
     ``last_only`` (the residual sliced to the last position before the
     final norm and the unembed)."""
     x = embed_tokens(model.embed.tok, tokens, dtype_of(cfg.compute_dtype))
+    layer = maybe_remat(lambda p, xx: _layer_fwd(p, xx, cfg), cfg.parallelism.remat)
     for l in range(cfg.num_layers):
-        x = _layer_fwd(model.layers.layer(l), x, cfg)
+        x = layer(model.layers.layer(l), x)
     if last_only:
         x = x[:, -1:]
     x = norm(model.final_norm.layer(), x, cfg.norm)
@@ -189,3 +230,29 @@ def forward(model: RwkvLM, tokens: torch.Tensor, cfg, last_only: bool = False) -
 
 def loss_fn(model: RwkvLM, batch: dict, cfg) -> torch.Tensor:
     return softmax_cross_entropy(forward(model, batch["tokens"], cfg), batch["targets"])
+
+
+# ---------------------------------------------------------------------------
+# decode: the O(1) recurrent state
+# ---------------------------------------------------------------------------
+def init_state(cfg, batch: int, device=None) -> RwkvState:
+    """The zero state for ``batch`` sequences, float32."""
+    d, L, N = cfg.d_model, cfg.num_layers, cfg.ssm.head_dim
+    dev = resolve_device(device)
+    zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    return RwkvState(zeros(L, batch, d), zeros(L, batch, d), zeros(L, batch, d // N, N, N))
+
+
+def decode_step(model: RwkvLM, token: torch.Tensor, state: RwkvState, index, cfg) -> tuple:
+    """One token per sequence: token (B, 1) -> (logits (B, vocab), state).
+    ``index`` (the position) is not read: the state carries the history.
+    The state is written in place."""
+    x = embed_tokens(model.embed.tok, token, dtype_of(cfg.compute_dtype))
+    for l in range(cfg.num_layers):
+        x, tm, cm, wkv = _layer_step(model.layers.layer(l), x, state.shift_tm[l],
+                                     state.shift_cm[l], state.wkv[l], cfg)
+        state.shift_tm[l].copy_(tm)
+        state.shift_cm[l].copy_(cm)
+        state.wkv[l].copy_(wkv)
+    x = norm(model.final_norm.layer(), x, cfg.norm)
+    return unembed(model.embed.layer(), x, cfg.tie_embeddings)[:, 0, :], state

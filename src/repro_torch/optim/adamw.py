@@ -1,6 +1,8 @@
 """AdamW in two layouts, the reference's (``repro.optim.adamw``) math:
 
-* **tree**: per-leaf moments (the per-leaf data-parallel step);
+* **tree**: per-leaf moments (the per-leaf data-parallel step), held in
+  the parameters' nested structure as the reference holds them, so a
+  checkpoint names each moment by its parameter (``.opt.m['embed']['tok']``);
 * **flat/ZeRO-1**: moments live only for this data-parallel rank's shard
   of the flattened gradient vector — reduce-scattered through the ABI,
   updated on the shard, all-gathered back.
@@ -32,14 +34,44 @@ class AdamWConfig:
 
 class AdamState(NamedTuple):
     step: torch.Tensor
-    m: list
-    v: list
+    m: dict   # nested like the parameter tree: name parts -> f32 moment
+    v: dict
 
 
-def init_tree(params: Sequence[torch.Tensor]) -> AdamState:
-    zeros = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in params]
-    return AdamState(torch.zeros((), dtype=torch.int32, device=params[0].device),
-                     zeros, [z.clone() for z in zeros])
+def nest(named: Sequence[tuple[str, torch.Tensor]]) -> dict:
+    """``[("a.b", t), ...]`` as the nested dict ``{"a": {"b": t}}``."""
+    tree: dict = {}
+    for name, t in named:
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+    return tree
+
+
+def tree_leaves(tree: dict) -> list:
+    """A nested dict's leaves with keys sorted at every level: the
+    reference's ``jax.tree.leaves`` order, which is ``param_leaves``'."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out += tree_leaves(v) if isinstance(v, dict) else [v]
+    return out
+
+
+def _tree_like(tree: dict, leaves) -> dict:
+    """``tree``'s structure over ``leaves`` (an iterator, in that order)."""
+    return {k: _tree_like(tree[k], leaves) if isinstance(tree[k], dict) else next(leaves)
+            for k in sorted(tree)}
+
+
+def init_tree(named: Sequence[tuple[str, torch.Tensor]]) -> AdamState:
+    """Zero moments for the ``(name, parameter)`` leaves, nested by name."""
+    zeros = [(n, torch.zeros(p.shape, dtype=torch.float32, device=p.device))
+             for n, p in named]
+    return AdamState(torch.zeros((), dtype=torch.int32, device=named[0][1].device),
+                     nest(zeros), nest([(n, z.clone()) for n, z in zeros]))
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -47,13 +79,14 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 def update_tree(cfg: AdamWConfig, grads, state: AdamState, params, lr_scale=1.0):
-    """-> (new parameter values, new state, grad norm)."""
+    """``grads`` and ``params`` in ``param_leaves`` order -> (new parameter
+    values in that order, new state, grad norm)."""
     step = state.step + 1
     t = step.float()
     gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
     new_p, new_m, new_v = [], [], []
-    for g, m, v, p in zip(grads, state.m, state.v, params):
+    for g, m, v, p in zip(grads, tree_leaves(state.m), tree_leaves(state.v), params):
         g = g.float() * scale
         m2 = cfg.b1 * m + (1 - cfg.b1) * g
         v2 = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
@@ -63,7 +96,8 @@ def update_tree(cfg: AdamWConfig, grads, state: AdamState, params, lr_scale=1.0)
         new_p.append((p.float() - cfg.lr * lr_scale * delta).to(p.dtype))
         new_m.append(m2)
         new_v.append(v2)
-    return new_p, AdamState(step, new_m, new_v), gnorm
+    return new_p, AdamState(step, _tree_like(state.m, iter(new_m)),
+                            _tree_like(state.v, iter(new_v))), gnorm
 
 
 # ---------------------------------------------------------------------------

@@ -34,9 +34,16 @@ dropped broadcast raises ``PAX_ERR_TIMEOUT`` instead of hanging),
 :meth:`DecodeSync.step` holds the synced tokens and mask to the integrity
 verdict (``verify_clean``), and :meth:`DecodeSync.reset` aborts a
 timed-out start; ``serve/supervisor.py`` retries, escalates and recovers.
-What the reference has and the port does not yet: the ssm and hybrid
-families' static-batch serving path, so :meth:`ServeEngine.run` raises for
-them.
+
+The ssm and hybrid families keep no KV pages (their decode state is
+recurrent), so :meth:`ServeEngine.run` serves them as the reference does,
+by static batching (:meth:`ServeEngine._run_static`): the prompts
+left-padded with token 0 to one length, fed one position a step through
+``decode_step`` (model step ``"prefill"``), then decoded in rounds (model
+step ``"decode"``) until every request is done; ``submit``/``step`` are the
+paged path's only.  Left padding runs the pad tokens through the recurrent
+state, in the reference too, so a request's tokens depend on the batch it
+is served in.
 """
 from __future__ import annotations
 
@@ -166,6 +173,9 @@ class ServeEngine:
         #: records the steps (see :meth:`model_step`)
         self.step_hook: Optional[Callable] = None
         if not self.paged:
+            # one position of every sequence a step, the state written in place
+            decode = lambda tok, state, index: api.decode_step(params, tok, state, index)[0]  # noqa: E731
+            self._steps = {"prefill": decode, "decode": decode}
             return
         width = -(-max_seq // block_size)
         if num_blocks is None:
@@ -190,7 +200,10 @@ class ServeEngine:
         device tensors: ``"prefill"`` (tokens (1, chunk), table (1, W),
         start) -> logits (1, chunk, vocab), or ``"decode"`` (tokens
         (max_batch, 1), tables (max_batch, W), lengths (max_batch,)) ->
-        logits (max_batch, vocab).  Both write the pages in place."""
+        logits (max_batch, vocab).  Both write the pages in place.  On the
+        static path (ssm, hybrid) both are one ``decode_step`` (tokens
+        (B, 1), the decode state, the position) -> logits (B, vocab),
+        writing the state in place."""
         fn = self._steps[kind]
         return fn(*args) if self.step_hook is None else self.step_hook(kind, fn, *args)
 
@@ -245,12 +258,13 @@ class ServeEngine:
         return np.asarray(reqs[0].out_tokens, np.int32)
 
     def run(self, requests: list[Request]) -> None:
-        """Serve a closed batch to completion, continuously batched."""
+        """Serve a closed batch to completion: continuously batched on the
+        paged path, statically batched for the ssm and hybrid families."""
         if not self.paged:
-            raise NotImplementedError(
-                f"serving the {self.cfg.family} family (the reference's static-batch "
-                "path over its recurrent decode state) is not ported yet: ROADMAP "
-                "queue 1 item 5")
+            self.stats["requests"] += len(requests)
+            with torch.no_grad():
+                self._run_static(requests)
+            return
         for r in requests:
             self.submit(r)
         self.drain()
@@ -333,3 +347,41 @@ class ServeEngine:
             self._append(seq.req, int(sampled[i]))
             if seq.req.done:
                 sched.finish(i)
+
+    # -- static batching (ssm, hybrid: no KV pages) --------------------------
+    def _run_static(self, requests: list[Request]) -> None:
+        """Left-pad the prompts to one length, feed them one position a step,
+        then decode in rounds until every request is done (the reference's
+        ``_run_static``: the same stats, the same per-request streams)."""
+        B = len(requests)
+        S = max(len(r.prompt) for r in requests)
+        tokens = np.zeros((B, S), np.int32)
+        for i, r in enumerate(requests):
+            tokens[i, S - len(r.prompt):] = r.prompt  # left-pad
+        tokens = self._to_device(tokens)
+        state = self.api.decode_init(B, self.max_seq, device=self.device)
+        logits = None
+        for t in range(S):
+            logits = self.model_step("prefill", tokens[:, t:t + 1], state, t)
+        self.stats["prefill_tokens"] += B * S
+        cur = self._sample_rows(logits, requests)
+        self._append_live(cur, requests)
+        index = S
+        for _ in range(1, max(r.max_new_tokens for r in requests)):
+            if all(r.done for r in requests):
+                break
+            logits = self.model_step("decode", self._to_device(cur[:, None]), state, index)
+            index += 1
+            self.stats["decode_steps"] += 1
+            cur = self._sample_rows(logits, requests)
+            self._append_live(cur, requests)
+
+    def _sample_rows(self, logits: torch.Tensor, requests: list[Request]) -> np.ndarray:
+        logits_np = logits.cpu().float().numpy()   # the one copy to the host per step
+        return np.asarray([self._sample_one(logits_np[i], r)
+                           for i, r in enumerate(requests)], np.int32)
+
+    def _append_live(self, cur: np.ndarray, requests: list[Request]) -> None:
+        for i, r in enumerate(requests):
+            if not r.done:
+                self._append(r, int(cur[i]))

@@ -90,8 +90,15 @@ def init_state(api: ModelApi, seed: int, dist: DistContext, model=None) -> Train
             dist.drop_zero1_plans()
             dist.zero1_plans = build_zero1_plans(dist, padded, buckets, compression)
     else:
-        opt = adamw.init_tree(params)
+        opt = adamw.init_tree(param_leaves(model))
     return TrainState(model, opt, torch.zeros((), dtype=torch.int32, device=dist.device))
+
+
+def _grads(loss: torch.Tensor, params: list) -> list:
+    """d loss / d params, zeros for a parameter the loss does not read (the
+    hybrid's per-layer ``norm``, which the reference defines and never
+    applies), as ``jax.grad`` gives them."""
+    return list(torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True))
 
 
 def _microbatched_grads(loss_fn: Callable, model, params: list, batch: dict,
@@ -101,8 +108,7 @@ def _microbatched_grads(loss_fn: Callable, model, params: list, batch: dict,
     gives them); with several they accumulate in f32."""
     if n_micro <= 1:
         loss = loss_fn(model, batch)
-        grads = torch.autograd.grad(loss, params)
-        return loss.detach(), list(grads)
+        return loss.detach(), _grads(loss, params)
     b = next(iter(batch.values())).shape[0]
     if b % n_micro:
         raise ValueError(f"batch {b} does not split into {n_micro} microbatches")
@@ -111,7 +117,7 @@ def _microbatched_grads(loss_fn: Callable, model, params: list, batch: dict,
     loss_acc = torch.zeros((), dtype=torch.float32, device=params[0].device)
     for i in range(n_micro):
         loss = loss_fn(model, {k: v[i] for k, v in mbs.items()})
-        grads = torch.autograd.grad(loss, params)
+        grads = _grads(loss, params)
         loss_acc = loss_acc + loss.detach()
         for a, g in zip(g_acc, grads):
             a.add_(g.float())

@@ -49,6 +49,7 @@ def batch_at(step: int, vocab: int = 512) -> dict:
 
 def _state_arrays(state, prefix: str) -> dict:
     from repro_torch.models import param_leaves
+    from repro_torch.optim.adamw import tree_leaves
 
     out = {f"{prefix}param:{n}": p.detach().numpy().copy()
            for n, p in param_leaves(state.params)}
@@ -56,7 +57,7 @@ def _state_arrays(state, prefix: str) -> dict:
     if hasattr(opt, "ef"):
         out[f"{prefix}m"], out[f"{prefix}v"] = opt.m.numpy(), opt.v.numpy()
     else:
-        for i, (m, v) in enumerate(zip(opt.m, opt.v)):
+        for i, (m, v) in enumerate(zip(tree_leaves(opt.m), tree_leaves(opt.v))):
             out[f"{prefix}m{i}"], out[f"{prefix}v{i}"] = m.numpy(), v.numpy()
     out[f"{prefix}step"] = np.array(int(state.step))
     return out

@@ -37,6 +37,7 @@ import repro_torch.configs as t_cfgs
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.models import build_model as t_build
 from repro_torch.models import from_jax_params, param_leaves
+from repro_torch.optim import adamw
 from repro_torch.runtime.dist import make_dist
 from repro_torch.train import train_loop as t_tl
 
@@ -73,19 +74,20 @@ def test_checkpoint_keeps_structure_and_devices(tmp_path):
 # ---------------------------------------------------------------------------
 # the bridge
 # ---------------------------------------------------------------------------
-def _cfg(mod, compression):
+def _cfg(mod, compression, zero1=True):
     cfg = mod.smoke_config("qwen2-0.5b")
     return dataclasses.replace(cfg, param_dtype="bfloat16", parallelism=dataclasses.replace(
-        cfg.parallelism, zero1=True, zero1_buckets=2, grad_compression=compression))
+        cfg.parallelism, zero1=zero1, zero1_buckets=2, grad_compression=compression))
 
 
 _REF: dict = {}
 
 
-def _reference(compression, tmp_path_factory):
-    """A JAX ZeRO-1 state after one step, saved by the JAX Checkpointer."""
-    if compression not in _REF:
-        cfg = _cfg(r_cfgs, compression)
+def _reference(compression, tmp_path_factory, zero1=True):
+    """A JAX state after one step (ZeRO-1, or per-leaf moments with
+    ``zero1=False``), saved by the JAX Checkpointer."""
+    if (compression, zero1) not in _REF:
+        cfg = _cfg(r_cfgs, compression, zero1)
         api = r_build(cfg)
         dist = r_make_dist(make_mesh((1, 1), ("data", "model")), impl="paxi",
                            compression=compression)
@@ -93,14 +95,14 @@ def _reference(compression, tmp_path_factory):
         tok = np.random.default_rng(0).integers(0, 512, size=(4, 16)).astype(np.int32)
         batch = {"tokens": jnp.asarray(tok), "targets": jnp.asarray(np.roll(tok, -1, 1))}
         state, _ = jax.jit(r_tl.make_train_step(api, dist, RAdam()))(state, batch)
-        d = tmp_path_factory.mktemp(f"jax-{compression}")
+        d = tmp_path_factory.mktemp(f"jax-{compression}-{zero1}")
         RCheckpointer(d).save(1, state)
-        _REF[compression] = (state, d)
-    return _REF[compression]
+        _REF[compression, zero1] = (state, d)
+    return _REF[compression, zero1]
 
 
-def _port_skeleton(compression, dist):
-    return t_tl.init_state(t_build(_cfg(t_cfgs, compression)), 0, dist)
+def _port_skeleton(compression, dist, zero1=True):
+    return t_tl.init_state(t_build(_cfg(t_cfgs, compression, zero1)), 0, dist)
 
 
 def _bits(a):
@@ -191,3 +193,53 @@ def test_a_mismatched_skeleton_raises_naming_both(world, tmp_path_factory):
     with pytest.raises(ValueError, match=r"\.opt\.m: checkpoint shape \(\d+,\) does not "
                                          r"match the state's \(\d+,\)"):
         Checkpointer(d).restore(short)
+
+
+# ---------------------------------------------------------------------------
+# the per-leaf layout (zero1=False): moments nested like the parameters
+# ---------------------------------------------------------------------------
+def test_a_jax_per_leaf_checkpoint_restores_into_the_port(world, tmp_path_factory):
+    """The reference's per-leaf moments are trees shaped like its params, so
+    its file names them ``.opt.m['embed']['tok']``; the port's skeleton has
+    the same names and takes every moment bitwise."""
+    rstate, d = _reference(None, tmp_path_factory, zero1=False)
+    like = _port_skeleton(None, world, zero1=False)
+    assert world.zero1_plans is None
+    state, step = Checkpointer(d, dist=world).restore(like)
+    assert step == 1 and int(state.opt.step) == int(rstate.opt.step) == 1
+    names = [n for n, _ in param_leaves(state.params)]
+    for f in ("m", "v"):
+        got = adamw.tree_leaves(getattr(state.opt, f))
+        want = jax.tree.leaves(getattr(rstate.opt, f))
+        assert len(got) == len(want) == len(names)
+        assert any(float(np.abs(np.asarray(w)).max()) > 0 for w in want)
+        for n, g, w in zip(names, got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=f"{f} {n}")
+
+
+def test_a_port_per_leaf_checkpoint_restores_in_the_jax_checkpointer(world, tmp_path_factory):
+    """The port's per-leaf save has the reference's manifest: the same
+    names (``.opt.m['layers']['attn']['wq']``, ...), ``n_leaves`` and
+    ``treedef`` string, and the same leaf bytes, and the reference restores
+    it into its own state."""
+    rstate, rdir = _reference(None, tmp_path_factory, zero1=False)
+    like = _port_skeleton(None, world, zero1=False)
+    state, _ = Checkpointer(rdir, dist=world).restore(like)
+    out = tmp_path_factory.mktemp("port-per-leaf")
+    Checkpointer(out, dist=world).save(1, state)
+    rman = json.loads((rdir / "step_0000000001" / "manifest.json").read_text())
+    tman = json.loads((out / "step_0000000001" / "manifest.json").read_text())
+    assert set(tman) == set(rman)
+    assert tman["names"] == rman["names"] and tman["n_leaves"] == rman["n_leaves"]
+    assert tman["treedef"] == rman["treedef"]
+    assert ".opt.m['embed']['tok']" in tman["names"]
+    with np.load(rdir / "step_0000000001" / "shard_0.npz") as rz, \
+            np.load(out / "step_0000000001" / "shard_0.npz") as tz:
+        for i in range(rman["n_leaves"]):
+            a, b = rz[f"leaf_{i}"], tz[f"leaf_{i}"]
+            assert a.dtype.str == b.dtype.str and a.shape == b.shape, rman["names"][i]
+            assert a.tobytes() == b.tobytes(), rman["names"][i]
+    restored, step = RCheckpointer(out).restore(rstate)
+    assert step == 1
+    for g, w in zip(jax.tree.leaves(restored), jax.tree.leaves(rstate)):
+        np.testing.assert_array_equal(_bits(g), _bits(w))

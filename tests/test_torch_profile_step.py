@@ -68,3 +68,18 @@ def test_span_owns_the_work_launched_inside_it_from_any_thread():
     "void hop_accum_bf16_kernel<true>(__nv_bfloat16 const*, float const*, float*, long long)"])
 def test_the_ring_wire_kernels_are_one_class(name):
     assert kernel_class(name) == "wire kernels (this repo)"
+
+
+@pytest.mark.parametrize("name", [
+    "void (anonymous namespace)::wkv6_fwd_wgmma<32>(float const*, float const*, float const*, "
+    "float const*, float const*, float*, int, int, int, int)",
+    "void (anonymous namespace)::ssd_fwd_wgmma<true>(float const*, float const*, float const*, "
+    "float const*, float const*, float const*, float*, unsigned char const*, int, int, int, int, "
+    "int)",
+    "(anonymous namespace)::ssd_nan_flags(float const*, float const*, float const*, float const*, "
+    "unsigned char*, int, int, int, int, int)",
+    "void flash_attention_wgmma_kernel<64>(...)"])
+def test_the_scan_and_attention_kernels_are_one_class(name):
+    """A training step of the ssm and hybrid families (``--num-layers`` cuts
+    the depth) shows its scan kernels apart from the library's."""
+    assert kernel_class(name) == "scan and attention kernels (this repo)"

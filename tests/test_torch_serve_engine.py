@@ -425,12 +425,19 @@ def test_engine_keeps_pages_on_the_model_device(f32):
 
 
 def test_run_on_a_recurrent_family_raises():
+    """The name is the earlier slice's, when ``run`` raised for the ssm and
+    hybrid families.  Now ``run`` serves them statically (no pages, no
+    scheduler: tests/test_torch_ssm_decode.py holds the streams to the JAX
+    engine's), and ``submit`` still raises, as the reference's does."""
     cfg = tcfgs.smoke_config("rwkv6-7b")
     api = build_model(cfg)
     eng = ServeEngine(api, api.init(0, device="cpu"), max_batch=2, max_seq=32)
     assert not eng.paged and not eng.has_work
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        eng.run([Request(0, np.arange(1, 6, dtype=np.int32), max_new_tokens=2)])
+    reqs = [Request(0, np.arange(1, 6, dtype=np.int32), max_new_tokens=2),
+            Request(1, np.arange(1, 3, dtype=np.int32), max_new_tokens=3)]
+    eng.run(reqs)
+    assert [len(r.out_tokens) for r in reqs] == [2, 3] and all(r.done for r in reqs)
+    assert eng.stats["prefill_tokens"] == 2 * 5 and eng.stats["decode_steps"] == 2
     with pytest.raises(NotImplementedError):
         eng.submit(Request(0, np.arange(1, 6, dtype=np.int32)))
 

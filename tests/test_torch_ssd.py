@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.kernels.mamba2_ssd.ops import ssd_apply as r_ssd_apply
@@ -33,6 +34,7 @@ from repro_torch.kernels.mamba2_ssd import ops as T_ops
 from repro_torch.kernels.mamba2_ssd import ref as T_ref
 from repro_torch.models import mamba as t_mamba
 
+from _hyp import given, settings, st
 from _torch_tf32 import _tf32, _tf32_product
 
 # the reference's sweep (tests/test_kernels.py:SSD_SWEEP)
@@ -166,11 +168,83 @@ def test_ssd_refuses_what_the_kernel_does_not_take(T, H, P, N, chunk, bc_rows, d
         T_ops.ssd_apply(x, dt, a, bc, bc, a, chunk=chunk)
 
 
+def _jax_grads(args, cot, chunk):
+    """``jax.grad`` of the reference's ``ssd_chunked`` from a zero state
+    under the cotangent ``cot``, for x, dt, A, B, C and D."""
+    Bb, _, H, P = args[0].shape
+
+    def f(x, dt, A, Bm, Cm, D):
+        S0 = jnp.zeros((Bb, H, P, Bm.shape[-1]), jnp.float32)
+        y, _ = r_ssd_chunked(x, dt, A, Bm, Cm, D, S0, chunk)
+        return jnp.sum(y * cot)
+
+    return [np.asarray(g) for g in jax.grad(f, argnums=tuple(range(6)))(*args)]
+
+
+def _port_grads(args, cot, chunk, dtype=torch.float32):
+    ts = [torch.from_numpy(a).to(dtype).requires_grad_() for a in args]
+    y = T_ops.ssd_apply(*ts, chunk=chunk)
+    return ts, torch.autograd.grad(y, ts, torch.from_numpy(cot))
+
+
+def _rel_close(got, want, rel=1e-4):
+    """Within ``rel`` of the reference, relative to its largest entry."""
+    np.testing.assert_allclose(got, want, rtol=rel, atol=rel * float(np.abs(want).max()))
+
+
 def test_backward_through_ssd_raises():
-    x, dt, A, Bm, Cm, D = _t(*_inputs(1, 32, 2, 4, 8))
-    out = T_ops.ssd_apply(x.requires_grad_(), dt, A, Bm, Cm, D, chunk=16)
-    with pytest.raises(RuntimeError, match="no backward yet"):
-        out.sum().backward()
+    """The name is the earlier slice's, when the backward raised.  Now the
+    backward recomputes the plain chunked form: a gradient reaches bf16
+    inputs in their dtype (the cast is outside the autograd function) and
+    equals the gradient of the same inputs in float32."""
+    args = _inputs(1, 32, 2, 4, 8)
+    cot = np.random.default_rng(1).standard_normal((1, 32, 2, 4)).astype(np.float32)
+    half, gh = _port_grads(args, cot, 16, torch.bfloat16)
+    assert all(t.dtype == g.dtype == torch.bfloat16 for t, g in zip(half, gh))
+    _, gf = _port_grads([t.detach().float().numpy() for t in half], cot, 16)
+    for a, b in zip(gh, gf):
+        torch.testing.assert_close(a, b.to(torch.bfloat16), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("B,T,H,P,N,chunk", SSD_SWEEP)
+def test_ssd_gradient_matches_jax_grad_of_the_reference(B, T, H, P, N, chunk):
+    """The autograd function's backward (the plain form's gradient, on the
+    CPU under the plain forward) against ``jax.grad`` of the reference's
+    ``ssd_chunked``, a random cotangent, every input, 1e-4 relative."""
+    args = _inputs(B, T, H, P, N, dist="model")
+    cot = np.random.default_rng(2).standard_normal((B, T, H, P)).astype(np.float32)
+    want = _jax_grads(args, cot, chunk)
+    _, got = _port_grads(args, cot, chunk)
+    for name, g, w in zip("x dt A B C D".split(), got, want):
+        assert g.shape == w.shape, name
+        _rel_close(g.numpy(), w)
+
+
+# ---------------------------------------------------------------------------
+# the non-finite rule of the kernel's pass after the scan
+# ---------------------------------------------------------------------------
+NAN_DIMS = (2, 48, 3, 4, 5, 16)   # Bb, T, H, P, N, chunk: three chunks
+_NAN_SHAPES = {"x": (2, 48, 3, 4), "dt": (2, 48, 3), "B": (2, 48, 5), "C": (2, 48, 5)}
+
+
+@given(st.lists(st.tuples(st.sampled_from(sorted(_NAN_SHAPES)), st.integers(0, 10**6),
+                          st.sampled_from([float("nan"), float("inf"), -float("inf")])),
+                min_size=1, max_size=3))
+@settings(max_examples=60, deadline=None)
+def test_ssd_nonfinite_mask_is_where_the_plain_form_is_not_finite(hits):
+    """``ref.ssd_nonfinite_mask`` (the rule the kernel's pass applies) is
+    exactly ``~isfinite(ref.ssd(...))`` with NaNs and infs drawn into x,
+    dt, B and C at any positions."""
+    *dims, chunk = NAN_DIMS
+    x, dt, A, Bm, Cm, D = (torch.from_numpy(a.copy()) for a in _inputs(*dims, dist="model"))
+    named = {"x": x, "dt": dt, "B": Bm, "C": Cm}
+    for name, at, value in hits:
+        t = named[name]
+        t.view(-1)[at % t.numel()] = value
+    got = T_ref.ssd_nonfinite_mask(x, dt, Bm, Cm, chunk)
+    want = ~torch.isfinite(T_ref.ssd(x, dt, A, Bm, Cm, D, chunk=chunk))
+    assert got.shape == want.shape and bool(want.any())
+    assert torch.equal(got, want), int((got ^ want).sum())
 
 
 # ---------------------------------------------------------------------------

@@ -41,7 +41,7 @@ from repro_torch.kernels.mamba2_ssd import ops as T_ssd_ops
 from repro_torch.kernels.rwkv6_scan import ops as T_wkv_ops
 from repro_torch.models import analytic_param_count as t_param_count
 from repro_torch.models import build_model as t_build
-from repro_torch.models import from_jax_params
+from repro_torch.models import from_jax_params, param_leaves
 from repro_torch.models import mamba as t_mamba
 from repro_torch.models import rwkv as t_rwkv
 from repro_torch.models.model import _family
@@ -52,6 +52,9 @@ R_FORWARD = {"rwkv6-7b": r_rwkv.forward, "zamba2-2.7b": r_hybrid.forward}
 CONSTANT_LEAVES = {"scale", "bias", "mu_base", "mu", "cm_mu_k", "cm_mu_r", "w0", "u",
                    "A_log", "D", "dt_bias", "conv_b"}
 TOL = 2e-5
+#: gradients relative to each leaf's largest entry: the loss's reassociation
+#: error carried back through the backward's products
+GRAD_TOL = 1e-4
 
 
 def _perturbed(params, seed=0):
@@ -213,17 +216,27 @@ def test_hybrid_flash_equals_xla_on_the_cpu():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_matches_the_reference_and_backward_raises(arch):
-    """``loss_fn`` is the reference's number; training is a later slice, so
-    a backward through the scans raises instead of giving a zero gradient."""
+    """The name is the earlier slice's, when a backward through the scans
+    raised.  ``loss_fn`` is the reference's number, and its gradient (the
+    scans' plain chunked form differentiated in the backward) is
+    ``jax.grad`` of the reference's loss, every leaf, within ``GRAD_TOL``
+    of the leaf's largest entry."""
     rcfg, tcfg, params = _reference(arch)
     tokens = np.random.default_rng(6).integers(0, 512, size=(2, 16)).astype(np.int32)
     batch = {"tokens": tokens, "targets": np.roll(tokens, -1, axis=1)}
-    want = jax.jit(r_build(rcfg).loss_fn)(params, {k: jnp.asarray(v) for k, v in batch.items()})
+    rbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    want, wgrads = jax.jit(jax.value_and_grad(r_build(rcfg).loss_fn))(params, rbatch)
     model = from_jax_params(params, tcfg, device="cpu")
     loss = t_build(tcfg).loss_fn(model, {k: torch.from_numpy(v) for k, v in batch.items()})
     np.testing.assert_allclose(float(loss.detach()), float(want), atol=TOL, rtol=TOL)
-    with pytest.raises(RuntimeError, match="no backward yet"):
-        loss.backward()
+    names, leaves = zip(*param_leaves(model))
+    got = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    flat = {".".join(k.key for k in path): g
+            for path, g in jax.tree_util.tree_flatten_with_path(wgrads)[0]}
+    for name, g in zip(names, got):
+        w = np.asarray(flat[name])
+        np.testing.assert_allclose(g.numpy(), w, rtol=GRAD_TOL,
+                                   atol=GRAD_TOL * float(np.abs(w).max()), err_msg=name)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

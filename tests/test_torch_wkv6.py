@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.kernels.rwkv6_scan.ops import wkv6_apply as r_wkv6_apply
@@ -162,11 +163,55 @@ def test_wkv6_refuses_what_the_kernel_does_not_take(shape, u_shape, chunk, dtype
         T_ops.wkv6_apply(r, r, r, r, torch.zeros(u_shape, dtype=dtype), chunk=chunk)
 
 
+def _jax_grads(args, cot, chunk):
+    """``jax.grad`` of the reference's ``wkv6_chunked`` from a zero state
+    under the cotangent ``cot``, for r, k, v, wlog and u."""
+    B, _, H, N = args[0].shape
+
+    def f(*a):
+        y, _ = r_wkv6_chunked(*a, jnp.zeros((B, H, N, N), jnp.float32), chunk)
+        return jnp.sum(y * cot)
+
+    return [np.asarray(g) for g in jax.grad(f, argnums=(0, 1, 2, 3, 4))(*args)]
+
+
+def _port_grads(args, cot, chunk, dtype=torch.float32):
+    ts = [torch.from_numpy(a).to(dtype).requires_grad_() for a in args]
+    y = T_ops.wkv6_apply(*ts, chunk=chunk)
+    return ts, torch.autograd.grad(y, ts, torch.from_numpy(cot))
+
+
+def _rel_close(got, want, rel=1e-4):
+    """Within ``rel`` of the reference, relative to its largest entry."""
+    np.testing.assert_allclose(got, want, rtol=rel, atol=rel * float(np.abs(want).max()))
+
+
 def test_backward_through_wkv6_raises():
-    r, k, v, wlog, u = _t(*_inputs(1, 32, 2, 8))
-    out = T_ops.wkv6_apply(r.requires_grad_(), k, v, wlog, u, chunk=16)
-    with pytest.raises(RuntimeError, match="no backward yet"):
-        out.sum().backward()
+    """The name is the earlier slice's, when the backward raised.  Now the
+    backward recomputes the plain chunked form: a gradient reaches bf16
+    inputs in their dtype (the cast is outside the autograd function) and
+    equals the gradient of the same inputs in float32."""
+    args = _inputs(1, 32, 2, 8)
+    cot = np.random.default_rng(1).standard_normal((1, 32, 2, 8)).astype(np.float32)
+    half, gh = _port_grads(args, cot, 16, torch.bfloat16)
+    assert all(t.dtype == g.dtype == torch.bfloat16 for t, g in zip(half, gh))
+    _, gf = _port_grads([t.detach().float().numpy() for t in half], cot, 16)
+    for a, b in zip(gh, gf):
+        torch.testing.assert_close(a, b.to(torch.bfloat16), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("B,T,H,N,chunk", WKV_SWEEP)
+def test_wkv6_gradient_matches_jax_grad_of_the_reference(B, T, H, N, chunk):
+    """The autograd function's backward (the plain form's gradient, on the
+    CPU under the plain forward) against ``jax.grad`` of the reference's
+    ``wkv6_chunked``, a random cotangent, every input, 1e-4 relative."""
+    args = _inputs(B, T, H, N, dist="model")
+    cot = np.random.default_rng(2).standard_normal((B, T, H, N)).astype(np.float32)
+    want = _jax_grads(args, cot, chunk)
+    _, got = _port_grads(args, cot, chunk)
+    for name, g, w in zip("r k v wlog u".split(), got, want):
+        assert g.shape == w.shape, name
+        _rel_close(g.numpy(), w)
 
 
 # ---------------------------------------------------------------------------
