@@ -8,6 +8,8 @@
     python3 chip_smoke.py --only fault  # build + [fault] only
     python3 chip_smoke.py --only fault4 # build + [fault4] only, four cards
     python3 chip_smoke.py --only ssm    # build + [train-ssm], [train-hybrid], [serve-ssm], [serve-hybrid]
+    python3 chip_smoke.py --only moe    # build + [train-moe], [forward-moe], [serve-moe]
+    python3 chip_smoke.py --only moe4   # build + [moe4] only, four cards
     python3 chip_smoke.py --baseline wkv6=build/wkv6_parent.cu  # [time] also an earlier wkv6
 
 ``--baseline NAME=PATH`` (repeatable; NAME ``wkv6`` or ``ssd``) builds an
@@ -103,9 +105,10 @@ Phases (any failure exits non-zero and prints no result line):
    forwards' logits within 1e-3 of xla's; the ``last_only`` row equal to the
    last row of the full logits within one bf16 rounding (2^-7 relative, plus
    1e-5);
-9. [forward-ssm] rwkv6-7b at full width (bf16, random weights from seed 0
-   drawn on the CPU generator, the time ``init`` took reported), batch 4,
-   sequence 2048: 32 ``wkv6`` launches a forward and no other kernel,
+9. [forward-ssm] rwkv6-7b at full width and 16 of 32 layers (bf16, random
+   weights from seed 0 drawn on the CPU generator, the time ``init`` took
+   reported), batch 4, sequence 2048: 16 ``wkv6`` launches a forward and no
+   other kernel,
    finite logits, ``last_only`` against the last row; ms per forward and
    the host's time to enqueue one;
 10. [forward-hybrid] zamba2-2.7b the same way under ``"flash"`` (54 ``ssd``
@@ -122,12 +125,29 @@ Phases (any failure exits non-zero and prints no result line):
    each leaf no farther from the CPU's than the card's own plain path is,
    plus 1e-3 (rwkv6's gradient is ill-conditioned in float32).  [serve-ssm]
    and [serve-hybrid] (after each forward, on its model,
-   :func:`phase_serve_recurrent`): the full-depth model behind
+   :func:`phase_serve_recurrent`): the forward's model (rwkv6-7b at 16 layers) behind
    ``ServeEngine(max_batch=8, max_seq=320)``'s static path, 6 greedy and 2
    sampled requests (prompts 32-256, 32 new tokens), no kernel launched,
    ms per prefill and decode step, tokens/s, a decode step's launches,
    the state's bytes, and a 2- or 6-layer f32 engine pair with equal
    tokens on the card and the CPU;
+10c. [train-moe], [forward-moe] and [serve-moe] (after [forward-gemma]):
+   qwen2-moe-a2.7b's ZeRO-1 step at full width and 1 of 24 layers (the
+   config's step: microbatch 4, remat "full", the f32 wire; batch 8 x
+   1024, 2 + 5 steps; ``pack_transposed`` once a step and nothing else;
+   finite losses, the aux loss above 0, ms/step, peak memory; the step's
+   gradient at 1 layer in f32 on the card and the CPU: loss, grad norm and
+   every leaf within 1e-3); the full-width, full-depth forward (bf16, seed
+   0, B=4, S=2048) under ``"flash"``: 24 flash launches at D=128, the last
+   call held to ``attention_ref``, ms per forward, the dropped share of the
+   expert assignments per layer at capacity 1.25; then the paged engine on
+   those weights, set up as [serve]'s (8 greedy + 2 sampled requests, 32
+   new tokens): no launch, no live block, one ``decode-tp`` call a decode
+   step, ms per decode step and prefill chunk, tokens/s, a decode step's
+   launches, and a 1-layer f32 engine pair with equal tokens on the card
+   and the CPU (where they differ, the step must show a router near-tie,
+   top-k margin below 1e-5, and the first decode logits agree within
+   1e-3);
 11. [card-vs-cpu] both families at full width and reduced depth (rwkv6 2
    layers, zamba2 6 so that the shared block fires once), float32, B=1,
    S=256, the same CPU-drawn weights: the card runs the kernels, the CPU
@@ -161,7 +181,18 @@ oracle restored from the same checkpoint.
 
 ``--only ssm`` builds, then runs [train-ssm], [train-hybrid],
 [serve-ssm] and [serve-hybrid] alone (each serving phase draws its own
-full-depth weights).
+weights at [forward-*]'s depth).  ``--only moe`` builds, then runs [train-moe],
+[forward-moe] and [serve-moe] alone.
+
+``--only moe4`` (four cards, :func:`phase_moe4`) runs qwen2-moe-a2.7b at
+full width and 2 layers on ``model_axis=4`` over NCCL, 16 experts a card,
+in float32 where nothing drops: layer 0's MoE block through expert
+parallelism (each rank's sequence slice, two ABI alltoalls and one
+allgather) within 1e-3 of local mode on every token routed alike, a
+token routed otherwise only at a router tie (top-k margin below 1e-5);
+the whole forward's first position off local, if any, a tie too; one
+prefill chunk within 1e-3; then µs per ``alltoall`` of the bf16 dispatch
+buffer at capacity 1.25 and ms per EP and local forward.
 
 ``--only ring4`` runs the one path a single card cannot: [ring4] starts
 ``launch.train`` as four ranks, one per card, on NCCL, for 2 ZeRO-1 steps
@@ -648,11 +679,13 @@ FA_CHECKS = (
     (1, 333, 7, 7, 64, False, "bfloat16", BF16_ROUNDINGS),    # group 1, non-causal, ragged S
     (1, 333, 14, 2, 80, False, "bfloat16", BF16_ROUNDINGS),   # group 7, non-causal, ragged S
     (4, 2048, 16, 16, 256, True, "bfloat16", BF16_ROUNDINGS),  # GEMMA_ATTN, [forward-gemma]'s
+    (4, 2048, 16, 16, 128, True, "bfloat16", BF16_ROUNDINGS),  # MOE_ATTN, [forward-moe]'s
 )
 FWD_BATCH, FWD_SEQ = 4, 2048                        # [forward]'s batch and sequence
 FULL_ATTN = (FWD_BATCH, FWD_SEQ, 14, 2, 64)         # qwen2-0.5b's heads at that batch
 HYBRID_ATTN = (FWD_BATCH, FWD_SEQ, 32, 32, 80)      # zamba2-2.7b's shared block
 GEMMA_ATTN = (FWD_BATCH, FWD_SEQ, 16, 16, 256)      # gemma-7b's heads (D=256)
+MOE_ATTN = (FWD_BATCH, FWD_SEQ, 16, 16, 128)        # qwen2-moe-a2.7b's heads (D=128)
 
 
 def _qkv(B, S, H, Hkv, D, dtype, gen):
@@ -714,7 +747,8 @@ def phase_time_flash() -> dict:
     """Kernel, plain version and ``scaled_dot_product_attention`` at the
     main path's shape, in bf16 (the tensor-core kernel, the record) and f32
     (the CUDA-core kernel), and the bf16 kernel and library at
-    [forward-hybrid]'s shape (D=80) and [forward-gemma]'s (D=256).  Bound: the causal FLOPs (QK^T and PV over
+    [forward-hybrid]'s shape (D=80), [forward-gemma]'s (D=256) and
+    [forward-moe]'s (D=128).  Bound: the causal FLOPs (QK^T and PV over
     the S(S+1)/2 pairs) over the peak for the inputs' type, or q, k, v read
     and o written once over the memory bandwidth, whichever is longer;
     achieved TFLOP/s: those FLOPs over the kernel's time."""
@@ -728,7 +762,8 @@ def phase_time_flash() -> dict:
             ("float32", FULL_ATTN, "float32", F32_FLOP_PER_S),
             ("bfloat16", FULL_ATTN, "bfloat16", BF16_FLOP_PER_S),
             ("hybrid", HYBRID_ATTN, "bfloat16", BF16_FLOP_PER_S),
-            ("gemma", GEMMA_ATTN, "bfloat16", BF16_FLOP_PER_S)):
+            ("gemma", GEMMA_ATTN, "bfloat16", BF16_FLOP_PER_S),
+            ("moe", MOE_ATTN, "bfloat16", BF16_FLOP_PER_S)):
         flops = 4 * B * H * D * S * (S + 1) / 2
         q, k, v = _qkv(B, S, H, Hkv, D, dtype, gen)
         nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
@@ -750,7 +785,8 @@ def phase_time_flash() -> dict:
         out[name] = t
         del q, k, v, q4, k4, v4
     record = dict(out["bfloat16"])
-    record.update({f"{name}_{key}": out[name][key] for name in ("float32", "hybrid", "gemma")
+    record.update({f"{name}_{key}": out[name][key]
+                   for name in ("float32", "hybrid", "gemma", "moe")
                    for key in ("ms", "library_ms", "bound_ms", "tflops")})
     return {"flash_attention": record}
 
@@ -1178,10 +1214,13 @@ def phase_forward(card: str) -> int:
 
 
 GEMMA_ARCH = "gemma-7b"
+#: [forward-gemma]'s depth: 7 of 28 layers since PR 22 (the script's time
+#: limit; the kernel's D=256 time is [time]'s), full width
+GEMMA_DEPTH = 7
 
 
 def phase_forward_gemma(card: str) -> int:
-    """gemma-7b at full width (28 layers, d=3072, 16/16 heads at D=256,
+    """gemma-7b at full width and ``GEMMA_DEPTH`` of 28 layers (d=3072, 16/16 heads at D=256,
     vocabulary 256,000, bf16, seed 0), B=4, S=2048, under
     ``attention_impl="flash"``: the wgmma kernel's D=256 path (one consumer
     warpgroup) on a model's main path, one launch per layer, the last
@@ -1193,7 +1232,8 @@ def phase_forward_gemma(card: str) -> int:
     from repro_torch import configs
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(configs.get_config(GEMMA_ARCH), attention_impl="flash")
+    cfg = dataclasses.replace(configs.get_config(GEMMA_ARCH), attention_impl="flash",
+                              num_layers=GEMMA_DEPTH)
     api = build_model(cfg)
     model = _init_timed(api, "forward-gemma")
     batch = _tokens(cfg)
@@ -1204,7 +1244,8 @@ def phase_forward_gemma(card: str) -> int:
         spy.check("forward-gemma")
         del logits
         ms = _time_ms(lambda: api.forward(model, batch), FWD_ITERS)
-    log(f"[forward-gemma] {GEMMA_ARCH} full width ({cfg.num_layers} layers, D="
+    log(f"[forward-gemma] {GEMMA_ARCH} full width ({cfg.num_layers} of "
+        f"{configs.get_config(GEMMA_ARCH).num_layers} layers, D="
         f"{cfg.head_dim}), B={FWD_BATCH} S={FWD_SEQ} bf16 on {card}: flash_attention "
         f"{counts['flash_attention']} of {cfg.num_layers} layers; {ms:.2f} ms per forward "
         f"(median of {FWD_ITERS} after 3 warm-ups)")
@@ -1650,16 +1691,31 @@ def _tokens(cfg):
                                     generator=gen).cuda()}
 
 
+#: [forward-ssm] and [serve-ssm]'s rwkv6-7b depth: 16 of 32 layers since PR
+#: 22 (the script's time limit), full width
+SSM_FWD_DEPTH = 16
+
+
+def _serving_config(arch: str):
+    """The config [forward-ssm]/[serve-ssm] and [forward-hybrid]/
+    [serve-hybrid] run: full width, rwkv6-7b cut to ``SSM_FWD_DEPTH``."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch)
+    return dataclasses.replace(cfg, num_layers=SSM_FWD_DEPTH) if arch == SSM_ARCH else cfg
+
+
 def phase_forward_ssm(card: str) -> tuple:
     """rwkv6-7b at full width (bf16, random weights from seed 0), B=4,
     S=2048, through ``build_model(cfg).forward``: one ``wkv6`` launch per
     layer and nothing else.  Returns the ``wkv6`` launches counted in one
     forward and the model ([serve-ssm] serves it)."""
     import torch
-    from repro_torch import configs
     from repro_torch.models import build_model
 
-    cfg = configs.get_config(SSM_ARCH)
+    cfg = _serving_config(SSM_ARCH)
     api = build_model(cfg)
     model = _init_timed(api, "forward-ssm")
     batch = _tokens(cfg)
@@ -1670,7 +1726,7 @@ def phase_forward_ssm(card: str) -> tuple:
         del logits
         ms = [_time_ms(lambda: api.forward(model, batch), FWD_ITERS) for _ in range(2)]
         enqueue = _enqueue_ms(lambda: api.forward(model, batch))
-    log(f"[forward-ssm] {SSM_ARCH} full width ({cfg.num_layers} layers), B={FWD_BATCH} "
+    log(f"[forward-ssm] {SSM_ARCH} full width ({cfg.num_layers} of 32 layers), B={FWD_BATCH} "
         f"S={FWD_SEQ} bf16 on {card}: {ms[0]:.2f}, {ms[1]:.2f} ms per forward (median of "
         f"{FWD_ITERS} after 3 warm-ups, twice)")
     log(f"[forward-ssm] host ms to enqueue one forward (median of {FWD_ITERS}, each on a "
@@ -2917,7 +2973,7 @@ def phase_train_recurrent(card: str, arch: str) -> int:
     return total
 
 
-#: [serve-ssm], [serve-hybrid]: full width and depth (bf16, seed 0) behind
+#: [serve-ssm], [serve-hybrid]: full width, [forward-*]'s depth (bf16, seed 0) behind
 #: the static path of ServeEngine; a smoke load, not user traffic
 SERVE_R_ENGINE = dict(max_batch=8, max_seq=320)
 SERVE_R_GREEDY, SERVE_R_NEW = 6, 32
@@ -2986,7 +3042,7 @@ def _serve_r_card_vs_cpu(arch: str) -> None:
 
 
 def phase_serve_recurrent(card: str, arch: str, model=None) -> None:
-    """[serve-ssm] / [serve-hybrid]: the model at full width and depth
+    """[serve-ssm] / [serve-hybrid]: the model at full width and [forward-*]'s depth
     (bf16, seed 0; ``model`` when a forward phase drew it already) behind
     ``ServeEngine(max_batch=8, max_seq=320)``: 6 greedy and 2 sampled
     requests (prompts 32-256, 32 new tokens) through ``run()``'s static
@@ -2998,13 +3054,12 @@ def phase_serve_recurrent(card: str, arch: str, model=None) -> None:
     its device busy time, and the decode state's bytes; then the card-vs-CPU
     engine pair."""
     import torch
-    from repro_torch import configs
     from repro_torch.models import build_model
     from repro_torch.serve import ServeEngine
 
     t_phase = time.perf_counter()
     tag = "serve-" + ("ssm" if arch == SSM_ARCH else "hybrid")
-    cfg = configs.get_config(arch)
+    cfg = _serving_config(arch)
     api = build_model(cfg)
     if model is None:
         model = _init_timed(api, tag)
@@ -3047,6 +3102,602 @@ def phase_serve_recurrent(card: str, arch: str, model=None) -> None:
     log(f"[{tag}] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# the moe family: [forward-moe], [serve-moe], [train-moe], [moe4]
+# ---------------------------------------------------------------------------
+MOE_ARCH = "qwen2-moe-a2.7b"
+#: [train-moe]: full width, one of 24 layers (about 50 bytes a parameter:
+#: 1.23B parameters, about 61 GB; two layers would need about 92 GB)
+MOE_TRAIN_DEPTH = 1
+#: the card-vs-CPU checks' depth (float32 on the CPU too)
+MOE_CPU_DEPTH = 1
+#: [serve-moe]: the [serve] engine, a smaller load (8 greedy + 2 sampled)
+MOE_SERVE_GREEDY, MOE_SERVE_NEW = 8, 32
+MOE_SERVE_CPU_REQS = ((40, 8), (24, 8))
+#: below this top-k margin of the router's probabilities the card's and the
+#: CPU's float32 routing may choose differently (a near-tie)
+ROUTER_TIE = 1e-5
+
+
+class _MoeSpy:
+    """Within ``with``, records on the device, per ``moe_block`` call, the
+    share of expert assignments the capacity dropped and each token's top-k
+    margin of the router's probabilities (the gap between the k-th and the
+    (k+1)-th expert); nothing syncs until :meth:`read`."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+
+        self.drop, self.margin = [], []
+        self._dispatch, self._route = moe._dispatch_sort, moe._route
+
+        def dispatch(x, experts, gates, E_pad, C):
+            buf, comb = self._dispatch(x, experts, gates, E_pad, C)
+            self.drop.append(1.0 - comb[3].float().mean())
+            return buf, comb
+
+        def route(router, xf, m):
+            out = self._route(router, xf, m)
+            with torch.no_grad():
+                top = torch.topk(torch.softmax(xf.float() @ router, -1), m.top_k + 1, -1).values
+                self.margin.append(top[:, m.top_k - 1] - top[:, m.top_k])
+            return out
+
+        moe._dispatch_sort, moe._route = dispatch, route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._dispatch_sort, moe._route = self._dispatch, self._route
+
+    def read(self) -> tuple:
+        """(drop shares, smallest router margins), one per call, as floats."""
+        out = [float(t) for t in self.drop], [float(t.min()) for t in self.margin]
+        self.drop, self.margin = [], []
+        return out
+
+
+def phase_forward_moe(card: str) -> tuple:
+    """[forward-moe]: qwen2-moe-a2.7b at full width and depth (24 layers,
+    d=2048, 16/16 heads at D=128, 60 routed experts padded to 64, top-4,
+    4 shared experts, bf16, seed 0), B=4, S=2048, under
+    ``attention_impl="flash"``: one flash launch per layer, the last call's
+    output held to ``attention_ref`` on its own activations; ms per
+    forward, the host's time to enqueue one, and the share of expert
+    assignments each layer's capacity (1.25) dropped.  Returns the flash
+    launches of one forward and the model ([serve-moe] serves it)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import _capacity
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(configs.get_config(MOE_ARCH), attention_impl="flash")
+    m = cfg.moe
+    api = build_model(cfg)
+    model = _init_timed(api, "forward-moe")
+    batch = _tokens(cfg)
+    T = FWD_BATCH * FWD_SEQ
+    with torch.no_grad():
+        with _FlashSpy() as spy, _MoeSpy() as moe_spy:
+            logits, counts = _forward_check(api, model, batch, cfg, "forward-moe",
+                                            {"flash_attention": cfg.num_layers})
+            drops, margins = moe_spy.read()
+        spy.check("forward-moe")
+        del logits
+        ms = [_time_ms(lambda: api.forward(model, batch), FWD_ITERS) for _ in range(2)]
+        enqueue = _enqueue_ms(lambda: api.forward(model, batch))
+    log(f"[forward-moe] {MOE_ARCH} full width ({cfg.num_layers} layers, d={cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads at D={cfg.resolved_head_dim}, "
+        f"{m.num_experts} experts padded to {m.padded_experts}, top-{m.top_k}, "
+        f"{m.num_shared_experts} shared), B={FWD_BATCH} S={FWD_SEQ} bf16 on {card}: "
+        f"flash_attention {counts['flash_attention']} of {cfg.num_layers} layers; "
+        f"{', '.join(f'{t:.2f}' for t in ms)} ms per forward (medians of {FWD_ITERS} after 3 "
+        f"warm-ups), host enqueue {enqueue:.2f} ms")
+    C = _capacity(T, m.top_k, m.num_experts, m.capacity_factor)
+    log(f"[forward-moe] capacity {m.capacity_factor}: C = {C} at T = {T}; dropped share of the "
+        f"{T * m.top_k} assignments per layer {[round(d, 5) for d in drops]} (mean "
+        f"{statistics.mean(drops):.5f}); smallest router "
+        f"top-{m.top_k} margin {min(margins):.3e}")
+    if len(drops) != cfg.num_layers:
+        raise AssertionError(f"[forward-moe] {len(drops)} local moe blocks, expected "
+                             f"{cfg.num_layers}")
+    log(f"[forward-moe] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return counts["flash_attention"], model
+
+
+def _moe_serve_card_vs_cpu() -> None:
+    """The same CPU-drawn float32 weights (full width, ``MOE_CPU_DEPTH``
+    layers) behind the paged engine on the CPU and on the card: equal
+    greedy tokens.  Where they differ, the router's smallest top-k margin
+    in the step that diverged must show a near-tie (below ``ROUTER_TIE``),
+    and then the first decode step's logits must agree within 1e-3."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = dataclasses.replace(configs.get_config(MOE_ARCH), num_layers=MOE_CPU_DEPTH,
+                              param_dtype="float32", compute_dtype="float32")
+    api = build_model(cfg)
+    t0 = time.perf_counter()
+    model = api.init(0, device="cpu")
+    init_s = time.perf_counter() - t0
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = model.to(dev)
+        rng = np.random.default_rng(1)
+        reqs = [Request(i, rng.integers(1, cfg.vocab_size, n).astype(np.int32),
+                        max_new_tokens=new) for i, (n, new) in enumerate(MOE_SERVE_CPU_REQS)]
+        steps = []
+        with _MoeSpy() as spy:
+            def hook(kind, fn, *args):
+                logits = fn(*args)
+                steps.append((kind, logits.float().cpu(), min(spy.read()[1])))
+                return logits
+
+            eng = ServeEngine(api, model, seed=0, **SERVE_ENGINE)
+            eng.step_hook = hook
+            t0 = time.perf_counter()
+            eng.run(reqs)
+        out[dev] = ([r.out_tokens for r in reqs], steps, time.perf_counter() - t0)
+    same = out["cuda"][0] == out["cpu"][0]
+    first = [i for i, s in enumerate(out["cpu"][1]) if s[0] == "decode"][0]
+    diff = _max_err(out["cuda"][1][first][1], out["cpu"][1][first][1])
+    tie = min(s[2] for s in out["cpu"][1])
+    log(f"[serve-moe] card vs CPU engines, {MOE_ARCH} full width, {MOE_CPU_DEPTH} layer(s), "
+        f"f32, requests {list(MOE_SERVE_CPU_REQS)} (prompt, new tokens): tokens equal {same}; "
+        f"first decode step's logits max abs diff {diff:.3e}; smallest router top-k margin "
+        f"{tie:.3e}; init {init_s:.1f} s, CPU {out['cpu'][2]:.1f} s, card {out['cuda'][2]:.1f} s")
+    if not same:
+        n = next(i for i, (a, b) in enumerate(zip(out["cpu"][1], out["cuda"][1]))
+                 if int(a[1].argmax()) != int(b[1].argmax()) or _max_err(a[1], b[1]) > 1e-3)
+        margin = min(out["cpu"][1][n][2], out["cuda"][1][n][2])
+        log(f"[serve-moe] the engines diverge at model step {n} ({out['cpu'][1][n][0]}), "
+            f"where the router's smallest top-k margin is {margin:.3e} (tie below {ROUTER_TIE})")
+        if margin >= ROUTER_TIE or diff > F32_LOGIT_TOL:
+            raise AssertionError(f"[serve-moe] card and CPU engines differ without a router "
+                                 f"near-tie: {out['cuda'][0]} vs {out['cpu'][0]}")
+    elif diff > F32_LOGIT_TOL:
+        raise AssertionError(f"[serve-moe] first decode logits differ by {diff}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_serve_moe(card: str, model=None) -> None:
+    """[serve-moe]: the [forward-moe] weights behind the paged engine set up
+    as [serve]'s (8 slots, blocks of 16, chunks of 32, 640 positions) with a
+    ``decode-tp`` plan group on NCCL: 8 greedy and 2 sampled requests
+    (prompts 64-512, 32 new tokens) served continuously, the counts zeroed
+    just before and read just after (serving launches no kernel); ms per
+    decode step and per prefill chunk (stream span and host enqueue,
+    medians), generated tokens/s, a ``torch.profiler`` count of one decode
+    step's launches; gates: no launch, no live KV block, one ``decode-tp``
+    call a decode step, every request done; then the card-vs-CPU engine
+    pair (:func:`_moe_serve_card_vs_cpu`)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import CallCounter
+    from repro_torch.models import build_model
+    from repro_torch.runtime.dist import make_dist
+    from repro_torch.serve import DecodeSync, Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg = configs.get_config(MOE_ARCH)
+    api = build_model(cfg)
+    if model is None:
+        model = _init_timed(api, "serve-moe")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1, MOE_SERVE_GREEDY + 2)
+    reqs = [Request(i, rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32),
+                    max_new_tokens=MOE_SERVE_NEW,
+                    **(SERVE_SAMPLED if i >= MOE_SERVE_GREEDY else {}))
+            for i, n in enumerate(lens)]
+    with make_dist(device="cuda") as dist:
+        cc = CallCounter()
+        dist.abi.attach_tool(cc)
+        eng = ServeEngine(api, model, dist=dist, seed=0, **SERVE_ENGINE)
+        eng.run([Request(1000, np.arange(1, 41, dtype=np.int32), max_new_tokens=4)])  # warm-up
+        cc.reset()
+        base = dict(eng.stats)
+        eng.step_hook = timer = _StepTimer(drain=False)
+        _zero_counts()
+        wall, step_ms = _drain_timed(eng, reqs)
+        torch_sync()
+        launched = {k: v for k, v in _counts().items() if v}
+        eng.step_hook = None
+        new = sum(len(r.out_tokens) for r in reqs)
+        st = {k: eng.stats[k] - base[k] for k in ("steps", "decode_steps", "prefill_chunks")}
+        dec, pre = timer.medians("decode"), timer.medians("prefill")
+        calls = cc.counts.get(DecodeSync.NAME, 0)
+        width = eng.scheduler.table_width
+        z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device="cuda")  # noqa: E731
+        B = SERVE_ENGINE["max_batch"]
+        with torch.no_grad():
+            prof = _profile_model_step(
+                lambda: eng.model_step("decode", z(B, 1), z(B, width), z(B)))
+        live = eng.alloc.live_blocks
+    log(f"[serve-moe] {MOE_ARCH} full width ({cfg.num_layers} layers) bf16 on {card}, engine "
+        f"{SERVE_ENGINE}: {len(reqs)} requests ({MOE_SERVE_GREEDY} greedy, 2 sampled; prompts "
+        f"{SERVE_PROMPTS[0]}-{SERVE_PROMPTS[1]}, {MOE_SERVE_NEW} new tokens), {new} tokens in "
+        f"{wall:.3f} s = {new / wall:.1f} generated tokens/s; {st['steps']} engine steps "
+        f"(median {statistics.median(step_ms):.2f} ms), {st['decode_steps']} decode steps, "
+        f"{st['prefill_chunks']} prefill chunks; kernels launched {launched or 'none'}")
+    log(f"[serve-moe] per model step (medians; stream span between CUDA events, host "
+        f"enqueue): decode (B={B}) {dec['event_span_ms']:.3f} ms, {dec['enqueue_ms']:.3f} ms "
+        f"(n={dec['n']}); prefill chunk (1x{SERVE_ENGINE['prefill_chunk']}) "
+        f"{pre['event_span_ms']:.3f} ms, {pre['enqueue_ms']:.3f} ms (n={pre['n']})")
+    log(f"[serve-moe] decode step (B={B}) traced (torch.profiler, 5 calls): "
+        f"{prof['launches']:.0f} launches a call, the device busy {prof['busy_ms']:.3f} ms; "
+        f"busy ms by class {prof['by_class_ms']}; {calls} {DecodeSync.NAME} calls for "
+        f"{st['decode_steps']} decode steps; {live} KV blocks live")
+    if launched or live or calls != st["decode_steps"] or not all(
+            r.done and len(r.out_tokens) == MOE_SERVE_NEW for r in reqs):
+        raise AssertionError(f"[serve-moe] kernels {launched}, {live} live blocks, {calls} "
+                             f"decode-tp calls for {st['decode_steps']} steps, or unfinished "
+                             f"requests {[len(r.out_tokens) for r in reqs]}")
+    del eng, model
+    torch.cuda.empty_cache()
+    _moe_serve_card_vs_cpu()
+    log(f"[serve-moe] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def _moe_train_grads_card_vs_cpu() -> None:
+    """The step's gradient (``train_loop._microbatched_grads``, four
+    microbatches under remat "full") of the same CPU-drawn float32 weights
+    (full width, ``MOE_CPU_DEPTH`` layers) and batch on the CPU and on the
+    card: the loss within 1e-3, the grad norm within 1e-3 of the CPU's and
+    every leaf within 1e-3 of its largest CPU entry."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import build_model, param_leaves
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train import train_loop as tl
+
+    cfg = dataclasses.replace(configs.get_config(MOE_ARCH), num_layers=MOE_CPU_DEPTH,
+                              param_dtype="float32", compute_dtype="float32")
+    api = build_model(cfg)
+    model = api.init(0, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    tok = torch.randint(0, cfg.vocab_size, (TRAIN_CPU_BATCH, TRAIN_CPU_SEQ), generator=gen)
+    batch = {"tokens": tok, "targets": torch.roll(tok, -1, 1)}
+    names = [n for n, _ in param_leaves(model)]
+    micro = cfg.parallelism.microbatch
+
+    def grads(batch):
+        params = [p for _, p in param_leaves(model)]
+        loss, g = tl._microbatched_grads(lambda m, b: api.loss_fn(m, b), model, params, batch,
+                                         micro)
+        return float(loss), [x.detach().cpu() for x in g]
+
+    t0 = time.perf_counter()
+    with _MoeSpy() as spy:
+        loss_c, g_c = grads(batch)
+        tie_c = min(spy.read()[1])
+        cpu_s = time.perf_counter() - t0
+        model = model.to("cuda")
+        loss_k, g_k = grads({k: v.cuda() for k, v in batch.items()})
+        tie_k = min(spy.read()[1])
+    n_c, n_k = float(global_norm(g_c)), float(global_norm(g_k))
+    e = _leaf_dist(g_k, g_c)
+    worst = max(zip(e, names))
+    log(f"[train-moe] card vs CPU, {MOE_ARCH} full width, {MOE_CPU_DEPTH} layer(s), f32, batch "
+        f"{TRAIN_CPU_BATCH}x{TRAIN_CPU_SEQ}, {micro} microbatches, remat "
+        f"{cfg.parallelism.remat}: loss {loss_k:.6f} vs {loss_c:.6f}, grad norm {n_k:.6f} vs "
+        f"{n_c:.6f}; worst leaf (of its largest entry) {worst[1]} {worst[0]:.3e}; smallest "
+        f"router top-k margin {tie_c:.3e} (CPU), {tie_k:.3e} (card); CPU {cpu_s:.1f} s")
+    if abs(loss_k - loss_c) > 1e-3 or abs(n_k - n_c) > 1e-3 * n_c or worst[0] > 1e-3:
+        raise AssertionError(f"[train-moe] card and CPU gradients differ: loss {loss_k} vs "
+                             f"{loss_c}, norm {n_k} vs {n_c}, worst leaf {worst}")
+    del model, g_c, g_k
+    torch.cuda.empty_cache()
+
+
+def phase_train_moe(card: str) -> int:
+    """[train-moe]: the config's own ZeRO-1 step (microbatch 4, remat
+    "full", the f32 wire, ``attention_impl="xla"``) at full width and
+    ``MOE_TRAIN_DEPTH`` of 24 layers, bf16 weights from seed 0, batch 8 of
+    1024 tokens, 2 + 5 steps, the counts zeroed just before each step and
+    read just after: ``pack_transposed`` once a step and nothing else;
+    finite losses, an aux loss above 0, ms/step and the peak memory; then
+    the card-vs-CPU gradient check.  Returns ``pack_transposed``'s
+    launches over the 7 steps."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataPipeline, SyntheticSource
+    from repro_torch.models import build_model, transformer
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.dist import make_dist
+    from repro_torch.train import train_loop as tl
+
+    t_phase = time.perf_counter()
+    full = configs.get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, num_layers=MOE_TRAIN_DEPTH)
+    par = cfg.parallelism
+    if (par.remat, par.microbatch, par.zero1, par.grad_compression,
+            cfg.attention_impl) != ("full", 4, True, None, "xla"):
+        raise AssertionError(f"[train-moe] the config's step changed: {par}, "
+                             f"{cfg.attention_impl}")
+    api = build_model(cfg)
+    pipe = DataPipeline(SyntheticSource(cfg.vocab_size, seed=0), global_batch=TRAIN_BATCH,
+                        seq_len=TRAIN_SEQ)
+    drawn = [next(pipe) for _ in range(TRAIN_WARM + TRAIN_TIMED)]
+    pipe.close()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, ms, total = [], [], [], 0
+    with make_dist(device="cuda") as dist:
+        t0 = time.perf_counter()
+        state = tl.init_state(api, 0, dist)
+        torch_sync()
+        n = sum(p.numel() for p in state.params.parameters())
+        log(f"[train-moe] {MOE_ARCH} full width, {cfg.num_layers} of {full.num_layers} layers: "
+            f"{n} parameters (bf16) drawn from the CPU generator (seed 0) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        step = tl.make_train_step(api, dist, AdamWConfig())
+        for i, b in enumerate(drawn):
+            batch = tl.local_batch(b, dist)
+            torch_sync()
+            _zero_counts()
+            t = time.perf_counter()
+            state, met = step(state, batch)
+            loss, norm = float(met.loss), float(met.grad_norm)
+            torch_sync()
+            ms.append((time.perf_counter() - t) * 1e3)
+            c = _counts()
+            losses.append(loss)
+            norms.append(norm)
+            total += c["pack_transposed"]
+            others = {k: v for k, v in c.items() if v and k != "pack_transposed"}
+            if c["pack_transposed"] != 1 or others:
+                raise AssertionError(f"[train-moe] step {i + 1} launched pack_transposed "
+                                     f"{c['pack_transposed']} times (expected 1) and {others}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        with torch.no_grad():
+            _, aux = transformer.forward_aux(state.params, batch["tokens"][:2], cfg)
+        aux = float(aux)
+        del state
+    torch.cuda.empty_cache()
+    free = torch.cuda.get_device_properties(0).total_memory / 1e9 - peak
+    timed = ms[TRAIN_WARM:]
+    log(f"[train-moe] losses {[round(v, 4) for v in losses]} grad norms "
+        f"{[round(v, 4) for v in norms]}; aux loss after the steps {aux:.6f}; pack_transposed "
+        f"once on every step")
+    log(f"[train-moe] {MOE_ARCH} full width, {cfg.num_layers} layer(s), batch "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ} on {card}: ms/step {[round(v, 1) for v in ms]} (median of "
+        f"the {TRAIN_TIMED} after {TRAIN_WARM} warm {statistics.median(timed):.1f}); peak "
+        f"{peak:.2f} GB ({free:.1f} GB of the card left)")
+    if not all(math.isfinite(v) for v in losses + norms) or not aux > 0:
+        raise AssertionError(f"[train-moe] losses {losses}, grad norms {norms}, aux {aux}")
+    _moe_train_grads_card_vs_cpu()
+    log(f"[train-moe] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+#: [moe4]: four cards, one rank each, model_axis=4 (16 experts a card)
+MOE4 = 4
+MOE4_DEPTH = 2
+#: a capacity at which nothing drops (C >= the tokens routed: E / k = 15)
+MOE4_NO_DROP = 16.0
+MOE4_GATE = (1, 2048)     # the EP-vs-local forward's batch and sequence (float32)
+MOE4_CHUNK = 32
+
+
+def _moe4_rank(rank: int, world: int, init_method: str, out_dir: str,
+               device: str = "cuda") -> None:
+    """One rank of [moe4]: the model at full width and ``MOE4_DEPTH``
+    layers (``device="cpu"``: the smoke config on gloo) on ``model_axis=4``.
+    (1) float32 at a capacity where nothing drops: layer 0's MoE block on
+    one random input, a forward and one prefill chunk through EP, each
+    against the same model run locally (the ``model_axis=1`` function),
+    with the routing's ties found per token; (2)
+    bf16 at the config's capacity 1.25: µs per ``alltoall`` of the dispatch
+    buffer and its bytes, and ms per EP and per local forward."""
+    sys.path.insert(0, str(SRC))
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import CallCounter
+    from repro_torch.models import build_model, transformer
+    from repro_torch.models.moe import _capacity, moe_block
+    from repro_torch.runtime.dist import make_dist
+    from repro_torch.serve import BlockAllocator, block_table_view
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    on_card = device != "cpu"
+    if not on_card:
+        torch.set_num_threads(1)
+    base = configs.get_config(MOE_ARCH) if on_card else configs.smoke_config(MOE_ARCH)
+    base = dataclasses.replace(base, num_layers=MOE4_DEPTH)
+    rec = {}
+    with make_dist(device=f"cuda:{rank}" if on_card else "cpu", model_axis=world,
+                   world_size=world, rank=rank, init_method=init_method) as dist:
+        dev = dist.device
+        cc = CallCounter()
+        dist.abi.attach_tool(cc)
+        # (1) EP against local, float32, nothing drops
+        cfg = dataclasses.replace(base, param_dtype="float32", compute_dtype="float32",
+                                  moe=dataclasses.replace(base.moe,
+                                                          capacity_factor=MOE4_NO_DROP))
+        api = build_model(cfg)
+        model = api.init(0, device=dev)
+        m = cfg.moe
+        B, S = MOE4_GATE if on_card else (1, 64)
+        gen = torch.Generator().manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen).to(dev)
+        h = torch.randn((B, S, cfg.d_model), generator=gen).to(dev)
+        with torch.no_grad():
+            # the block on one input: each token's rows against local mode,
+            # where EP's routing (each rank's rows, another GEMM shape) chose
+            # the same experts; a token whose choice differs must be a tie
+            p0 = model.layers.moe.layer(0)
+            cc.reset()
+            y_ep, _ = moe_block(p0, h, cfg, dist)
+            calls = dict(cc.counts)
+            y_loc, _ = moe_block(p0, h, cfg)
+            T, Sl = B * S, S // world
+            router = p0["router"]
+            full = torch.softmax(h.reshape(T, -1) @ router, -1)
+            part = torch.cat([torch.softmax(h[:, r * Sl:(r + 1) * Sl].reshape(B * Sl, -1) @ router,
+                                            -1).view(B, Sl, -1) for r in range(world)], 1)
+            pick = lambda pr: torch.topk(pr, m.top_k).indices.sort(-1).values  # noqa: E731
+            flipped = (pick(full) != pick(part.reshape(T, -1))).any(-1)
+            top = torch.topk(full, m.top_k + 1).values
+            margin = top[:, m.top_k - 1] - top[:, m.top_k]
+            per_token = (y_ep - y_loc).abs().reshape(T, -1).amax(-1)
+            rec.update(block_diff=float(per_token[~flipped].max()),
+                       flipped=int(flipped.sum()),
+                       flipped_margin=float(margin[flipped].max()) if flipped.any() else 0.0,
+                       block_scale=float(y_loc.abs().max()), min_margin=float(margin.min()))
+            # the whole forward and one prefill chunk
+            with _MoeSpy() as spy:
+                ep = api.forward(model, {"tokens": tokens}, dist=dist)
+                spy.read()
+                local = api.forward(model, {"tokens": tokens})
+                token_margin = torch.stack(spy.margin).amin(0)   # each position's, over layers
+                spy.read()
+            alloc = BlockAllocator(8, 16)
+            table = torch.from_numpy(block_table_view(alloc, alloc.alloc_many(2), 2)[None]).to(dev)
+            chunk = tokens[:1, :MOE4_CHUNK]
+            pages = transformer.init_paged_cache(cfg, 8, 16, dtype=torch.float32, device=dev)
+            p_ep = transformer.prefill_chunk_paged(model, chunk, pages, table, 0, cfg, dist)[0]
+            pages.k.zero_(), pages.v.zero_()
+            p_local = transformer.prefill_chunk_paged(model, chunk, pages, table, 0, cfg)[0]
+        pos = (ep - local).abs().amax(-1).reshape(-1)
+        off = torch.nonzero(pos > F32_LOGIT_TOL).flatten().tolist()
+        # a routing tie changes its own token first: the first position off
+        # must be one whose router margin is a tie
+        rec.update(calls=calls, forward_diff=float(pos.max()), forward_off=len(off),
+                   forward_first_off=off[0] if off else -1,
+                   forward_margin=float(token_margin[off[0]]) if off else 0.0,
+                   prefill_diff=float((p_ep - p_local).abs().max()),
+                   finite=bool(torch.isfinite(ep).all()), shape=list(ep.shape),
+                   logit_scale=float(local.abs().max()))
+        del model, ep, local, p_ep, p_local, pages, y_ep, y_loc, full, part
+        # (2) bf16 at the config's capacity: the alltoall and the forwards
+        cfg = base
+        api = build_model(cfg)
+        model = api.init(0, device=dev)
+        B, S = (FWD_BATCH, FWD_SEQ) if on_card else (2, 64)
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen).to(dev)
+        m = cfg.moe
+        E_pad = m.padded_experts or m.num_experts
+        C = _capacity(B * S // world, m.top_k, m.num_experts, m.capacity_factor)
+        buf = torch.randn((E_pad, C, cfg.d_model), generator=gen).to(dev, torch.bfloat16)
+        times = []
+        for i in range(3 + TIMING_ITERS):
+            dist.abi.barrier(dist.tp_comm)
+            if on_card:   # NCCL's barrier orders the stream: wait for it on the host
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            dist.abi.alltoall(buf, dist.tp_comm, split_axis=0, concat_axis=1)
+            if on_card:
+                torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e6)
+        rec.update(alltoall_us=statistics.median(times[3:]), alltoall_bytes=buf.numel() * 2,
+                   capacity=C, T_local=B * S // world, capacity_factor=m.capacity_factor)
+        with torch.no_grad():
+            fwd = {}
+            for name, d in (("ep", dist), ("local", None), ("ep", dist), ("local", None)):
+                for _ in range(2):
+                    api.forward(model, {"tokens": tokens}, dist=d)
+                dist.abi.barrier(dist.tp_comm)
+                if on_card:
+                    torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                for _ in range(FWD_ITERS):
+                    api.forward(model, {"tokens": tokens}, dist=d)
+                if on_card:
+                    torch.cuda.synchronize(dev)
+                fwd.setdefault(name, []).append((time.perf_counter() - t0) * 1e3 / FWD_ITERS)
+        rec.update(forward_ms=fwd, B=B, S=S)
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def phase_moe4(card: str, device: str = "cuda", out_dir: Path = HERE / "build" / "moe4") -> dict:
+    """[moe4] (four cards, NCCL): :func:`_moe4_rank` on four spawned
+    ranks.  Gates (float32, nothing dropped): the EP block within 1e-3 of
+    local on every token whose experts both modes chose alike, and every
+    other token a router tie (top-k margin below ``ROUTER_TIE``: EP routes
+    each rank's rows, another GEMM shape, which may break a tie the other
+    way); the whole forward within 1e-3 or its first position off a tie;
+    the prefill chunk within 1e-3; finite logits; 2 ``alltoall`` calls and
+    1 ``allgather`` in the block.  Records µs per ``alltoall`` at capacity
+    1.25 and its bytes, and ms per forward."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_moe4_rank, args=(r, MOE4, f"tcp://localhost:{port}",
+                                                  str(out_dir), device))
+             for r in range(MOE4)]
+    t0 = time.perf_counter()
+    for proc in procs:
+        proc.start()
+    deadline = time.monotonic() + 600
+    for proc in procs:
+        proc.join(max(deadline - time.monotonic(), 1))
+    for proc in procs:
+        if proc.is_alive():
+            proc.kill()
+            proc.join(10)
+    codes = [proc.exitcode for proc in procs]
+    if codes != [0] * MOE4:
+        raise RuntimeError(f"[moe4] rank exit codes {codes}")
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(MOE4)]
+    r0 = ranks[0]
+    log(f"[moe4] {MOE_ARCH} {'full width' if device != 'cpu' else 'smoke'}, {MOE4_DEPTH} "
+        f"layers, model_axis={MOE4} on {card if device != 'cpu' else 'gloo'}, f32, capacity "
+        f"{MOE4_NO_DROP} (nothing drops): layer 0's MoE block on one input, EP vs local, max abs "
+        f"diff per rank {[f'{r['block_diff']:.3e}' for r in ranks]} over the tokens routed alike "
+        f"(bound {F32_LOGIT_TOL}; outputs' max abs {r0['block_scale']:.3f}); {r0['flipped']} of "
+        f"{MOE4_GATE[0] * MOE4_GATE[1] if device != 'cpu' else 64} tokens routed otherwise (their "
+        f"largest top-k margin {r0['flipped_margin']:.3e}, a tie below {ROUTER_TIE}; smallest "
+        f"margin {r0['min_margin']:.3e}); ABI calls in the EP block {r0['calls']}")
+    log(f"[moe4] whole forward {r0['shape']}: logits max abs diff {r0['forward_diff']:.3e} "
+        f"(logits' max abs {r0['logit_scale']:.3f}), {r0['forward_off']} positions beyond "
+        f"{F32_LOGIT_TOL} (the first at {r0['forward_first_off']}, its smallest router margin "
+        f"over the layers {r0['forward_margin']:.3e}); one prefill chunk (1x{MOE4_CHUNK}) logits max abs diff "
+        f"{[f'{r['prefill_diff']:.3e}' for r in ranks]}")
+    log(f"[moe4] alltoall of the ({r0['capacity']}-slot) dispatch buffer at capacity "
+        f"{r0['capacity_factor']} "
+        f"(T = {r0['T_local']} tokens a rank), {r0['alltoall_bytes'] / 1e6:.2f} MB bf16 a "
+        f"rank: {[round(r['alltoall_us'], 1) for r in ranks]} µs (median of {TIMING_ITERS}, "
+        f"host clock around a synced call); ms per bf16 forward at B={r0['B']} S={r0['S']} "
+        f"(rank 0, in turns): EP {[round(t, 2) for t in r0['forward_ms']['ep']]}, local "
+        f"{[round(t, 2) for t in r0['forward_ms']['local']]}; phase wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    want = {"alltoall": 2, "allgather": 1, "allreduce": 1}
+    for r, rec in enumerate(ranks):
+        got = {k: rec["calls"].get(k, 0) for k in want}
+        tie_only = rec["flipped"] == 0 or rec["flipped_margin"] < ROUTER_TIE
+        fwd_ok = rec["forward_diff"] <= F32_LOGIT_TOL or rec["forward_margin"] < ROUTER_TIE
+        if (rec["block_diff"] > F32_LOGIT_TOL or not tie_only or not fwd_ok
+                or rec["prefill_diff"] > F32_LOGIT_TOL or not rec["finite"] or got != want):
+            raise AssertionError(f"[moe4] rank {r}: EP block differs from local by "
+                                 f"{rec['block_diff']} ({rec['flipped']} tokens routed "
+                                 f"otherwise, margin {rec['flipped_margin']}), forward "
+                                 f"{rec['forward_diff']} (router margin {rec['forward_margin']}), "
+                                 f"prefill {rec['prefill_diff']}, finite {rec['finite']}, calls "
+                                 f"{got} (want {want})")
+    return r0
+
+
 CU = "src/repro_torch/kernels/ring_wire/csrc/"
 TPU = "src/repro/kernels/ring_wire/kernel.py:"
 #: name -> (CUDA source, the TPU kernel it replaces)
@@ -3071,9 +3722,11 @@ KERNELS = {
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("check", "ring4", "serve", "swap", "fault", "fault4",
-                                       "ssm"),
+                                       "ssm", "moe", "moe4"),
                     default=None,
                     help="check: stop after building and checking the kernels; "
+                         "moe: build, then only [train-moe], [forward-moe] and [serve-moe]; "
+                         "moe4: build, then only the four-card expert parallelism; "
                          "ssm: build, then only [train-ssm], [train-hybrid], [serve-ssm] "
                          "and [serve-hybrid]; "
                          "ring4: build, then only the four-card int8 ring; "
@@ -3141,6 +3794,21 @@ def main() -> int:
                 phase_serve_recurrent(card, arch)
             log("[only] ssm: both families trained and served on the card; no result line")
             return 0
+        if args.only == "moe":
+            phase_train_moe(card)
+            _, model = phase_forward_moe(card)
+            phase_serve_moe(card, model)
+            log("[only] moe: the moe family trained, ran forward and served on the card; "
+                "no result line")
+            return 0
+        if args.only == "moe4":
+            if torch.cuda.device_count() < MOE4:
+                raise RuntimeError(f"[moe4] needs {MOE4} cards, found "
+                                   f"{torch.cuda.device_count()}")
+            phase_moe4(card)
+            log("[only] moe4: expert parallelism on four cards matched local mode; no result "
+                "line")
+            return 0
         if args.only == "fault4":
             if torch.cuda.device_count() < FAULT4:
                 raise RuntimeError(f"[fault4] needs {FAULT4} cards, found "
@@ -3167,10 +3835,16 @@ def main() -> int:
         launches.update({k: int8[k] for k in HOPS})
         phase_abi_swap(card)
         phase_fault(card)
-        launches["flash_attention"] = phase_forward(card)
+        by_phase = {"flash_attention": {"forward": phase_forward(card)},
+                    "pack_transposed": {"main": launches["pack_transposed"]}}
         phase_forward_gemma(card)
-        by_phase = {"wkv6": {"train-ssm": phase_train_recurrent(card, SSM_ARCH)},
-                    "ssd": {"train-hybrid": phase_train_recurrent(card, HYBRID_ARCH)}}
+        by_phase["pack_transposed"]["train-moe"] = phase_train_moe(card)
+        by_phase["flash_attention"]["forward-moe"], model = phase_forward_moe(card)
+        phase_serve_moe(card, model)
+        del model
+        torch.cuda.empty_cache()
+        by_phase.update({"wkv6": {"train-ssm": phase_train_recurrent(card, SSM_ARCH)},
+                         "ssd": {"train-hybrid": phase_train_recurrent(card, HYBRID_ARCH)}})
         by_phase["wkv6"]["forward-ssm"], model = phase_forward_ssm(card)
         phase_serve_recurrent(card, SSM_ARCH, model)
         del model

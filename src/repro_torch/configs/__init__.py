@@ -1,11 +1,11 @@
 """Config registry: ``get_config("<arch>")`` + reduced smoke variants.
 
-The port holds five architectures of the reference's ten: the dense
-``qwen2-0.5b``, ``chatglm3-6b`` and ``gemma-7b``, the ssm ``rwkv6-7b`` and
-the hybrid ``zamba2-2.7b``; the others arrive with their model families.
-``smoke_config`` makes
-the same reduction the reference makes, so both packages build identical
-small models.
+The port holds seven architectures of the reference's ten: the dense
+``qwen2-0.5b``, ``chatglm3-6b`` and ``gemma-7b``, the moe
+``qwen2-moe-a2.7b`` and ``grok-1-314b``, the ssm ``rwkv6-7b`` and the
+hybrid ``zamba2-2.7b``; the others arrive with their model families.
+``smoke_config`` makes the same reduction the reference makes, so both
+packages build identical small models.
 """
 from __future__ import annotations
 
@@ -24,11 +24,13 @@ from .base import (  # noqa: F401
     shapes_for,
 )
 
-from . import chatglm3_6b, gemma_7b, qwen2_0_5b, rwkv6_7b, zamba2_2_7b
+from . import (chatglm3_6b, gemma_7b, grok_1_314b, qwen2_0_5b, qwen2_moe_a2_7b, rwkv6_7b,
+               zamba2_2_7b)
 
 _REGISTRY: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (qwen2_0_5b, chatglm3_6b, gemma_7b, rwkv6_7b, zamba2_2_7b)}
+    for m in (qwen2_moe_a2_7b, grok_1_314b, qwen2_0_5b, chatglm3_6b, gemma_7b, rwkv6_7b,
+              zamba2_2_7b)}
 
 ARCH_NAMES = tuple(_REGISTRY)
 
@@ -42,8 +44,10 @@ def get_config(name: str) -> ModelConfig:
 
 def smoke_config(name: str) -> ModelConfig:
     """A reduced same-family config for CPU tests: two layers, width 64,
-    vocabulary 512, float32 — the reference's reduction (ssm: head_dim 16,
-    state 8, chunk 8; hybrid: four layers, the shared block every two)."""
+    vocabulary 512, float32 — the reference's reduction (moe: four experts,
+    top-2, width 32, at most one shared expert, capacity 4.0 so nothing
+    drops; ssm: head_dim 16, state 8, chunk 8; hybrid: four layers, the
+    shared block every two)."""
     cfg = get_config(name)
     changes: dict = dict(
         num_layers=2,
@@ -59,6 +63,12 @@ def smoke_config(name: str) -> ModelConfig:
     if cfg.num_heads:
         changes.update(num_heads=4, num_kv_heads=2 if cfg.num_kv_heads < cfg.num_heads else 4,
                        head_dim=16)
+    if cfg.moe is not None:
+        changes["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=4, padded_experts=4, top_k=2, expert_d_ff=32,
+            num_shared_experts=min(cfg.moe.num_shared_experts, 1),
+            capacity_factor=4.0)
+        changes["d_ff"] = 32
     if cfg.ssm is not None:
         changes["ssm"] = dataclasses.replace(
             cfg.ssm, head_dim=16, state_size=8, chunk_size=8)

@@ -2,7 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step --arch qwen2-0.5b \\
         --global-batch 8 --seq-len 128 --zero1-buckets 1 [--grad-compression bf16]
-        [--num-layers N]   # full width at reduced depth (rwkv6-7b at 2, zamba2-2.7b at 12)
+        [--num-layers N]   # full width at reduced depth (rwkv6-7b at 2, zamba2-2.7b at 12,
+                           # qwen2-moe-a2.7b at 1)
 
 Builds the same state as :mod:`repro_torch.launch.train` (world of one,
 ``paxi``, and ``ring-<compression>`` for a compressed gradient wire), runs

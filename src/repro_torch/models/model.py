@@ -4,12 +4,14 @@
 (-> the parameter module), ``loss_fn(model, batch)``,
 ``forward(model, batch, last_only=False)`` (-> logits),
 ``decode_init(batch, max_seq, device=None)`` (-> the decode state: the
-dense family's contiguous KV cache, the ssm family's recurrent
+dense and moe families' contiguous KV cache, the ssm family's recurrent
 ``RwkvState``, the hybrid's ``HybridState``) and
 ``decode_step(model, token, state, index)`` (-> logits, state; the state is
-written in place).  The port holds three families of the reference:
-``dense`` (``transformer``), ``ssm`` (rwkv6, ``rwkv``) and ``hybrid``
-(Mamba2 + shared attention, ``hybrid``); each trains and decodes.
+written in place).  ``loss_fn``, ``forward`` and ``decode_step`` take the
+``dist`` the moe family's expert parallelism runs on.  The port holds four
+families of the reference: ``dense`` and ``moe`` (``transformer``), ``ssm``
+(rwkv6, ``rwkv``) and ``hybrid`` (Mamba2 + shared attention, ``hybrid``);
+each trains and decodes.
 
 :func:`param_leaves` is the reference's ``jax.tree.leaves`` order — sorted
 keys at every level of the parameter tree, each leaf holding all ``L``
@@ -32,6 +34,7 @@ from .common import is_glu
 
 #: family -> (its module, its parameter module)
 _FAMILIES = {"dense": (transformer, transformer.TransformerLM),
+             "moe": (transformer, transformer.TransformerLM),
              "ssm": (rwkv, rwkv.RwkvLM),
              "hybrid": (hybrid, hybrid.HybridLM)}
 
@@ -56,14 +59,16 @@ class ModelApi:
 
 def build_model(cfg: ModelConfig) -> ModelApi:
     fam, _ = _family(cfg)
+    # only the transformer's functions take the dist (the MoE block's EP)
+    on = (lambda dist: {"dist": dist}) if fam is transformer else (lambda dist: {})
     api = ModelApi(
         cfg,
         init=lambda seed=0, device=None: fam.init_lm(cfg, seed, resolve_device(device)),
-        loss_fn=lambda m, b, dist=None: fam.loss_fn(m, b, cfg),
+        loss_fn=lambda m, b, dist=None: fam.loss_fn(m, b, cfg, **on(dist)),
         forward=lambda m, b, dist=None, last_only=False: fam.forward(
-            m, b["tokens"], cfg, last_only=last_only),
+            m, b["tokens"], cfg, last_only=last_only, **on(dist)),
     )
-    if cfg.family == "dense":
+    if fam is transformer:
         api.decode_init = lambda batch, max_seq, device=None: transformer.init_cache(
             cfg, batch, max_seq, device=device)
     elif cfg.family == "ssm":
@@ -73,7 +78,7 @@ def build_model(cfg: ModelConfig) -> ModelApi:
         api.decode_init = lambda batch, max_seq, device=None: hybrid.init_state(
             cfg, batch, max_seq, device=device)
     api.decode_step = lambda m, tok, state, idx, dist=None: fam.decode_step(
-        m, tok, state, idx, cfg)
+        m, tok, state, idx, cfg, **on(dist))
     return api
 
 
@@ -115,6 +120,8 @@ def _mlp_params(d: int, f: int, activation: str) -> int:
 
 
 def analytic_param_count(cfg: ModelConfig) -> int:
+    """The reference's count; the moe family's real experts, not its
+    padding ones."""
     _family(cfg)  # raises for a family the port does not hold
     d, f, V, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.num_layers
     hd = cfg.resolved_head_dim
@@ -131,5 +138,11 @@ def analytic_param_count(cfg: ModelConfig) -> int:
         per_layer = d * (2 * d_inner + 2 * s.state_size + H) + d_inner * d  # in/out proj
         shared = (2 * d) * d + attn + _mlp_params(d, f, cfg.activation) + d * d
         return n + L * per_layer + shared
+    if cfg.moe is not None:
+        m = cfg.moe
+        ffn = m.num_experts * (_mlp_params(d, m.expert_d_ff, cfg.activation) + d)
+        if m.num_shared_experts:
+            ffn += _mlp_params(d, m.num_shared_experts * m.expert_d_ff, cfg.activation) + d
+        return n + L * (attn + ffn)
     return n + L * (attn + _mlp_params(d, f, cfg.activation))
 

@@ -1,0 +1,199 @@
+"""Mixture-of-Experts block with two parallelism modes — the reference's
+``repro/models/moe.py`` on tensors.
+
+* ``ep`` (expert parallelism, qwen2-moe): each rank of the model axis takes
+  its slice of the sequence, routes it, and dispatches it into a
+  capacity-padded ``(E_pad, C, d)`` buffer by a stable sort on the expert
+  id (MegaBlocks-style); an **ABI alltoall** on the tensor-parallel
+  communicator sends each expert's rows to the rank that holds it, the
+  rank runs its ``E_pad / R`` experts, a second alltoall returns the rows,
+  and an ABI allgather along the sequence rebuilds the full output (the
+  all-gather GSPMD inserts after the reference's ``shard_map``).  The
+  router's aux loss is averaged through ``abi.allreduce``.
+* ``tp`` (grok-1), and ``ep`` without a dist, with one rank on the model
+  axis, or with a sequence the axis does not divide (decode): dispatch,
+  experts and combine run locally (:func:`_moe_local`).
+
+Tokens beyond an expert's capacity are dropped (GShard/Switch semantics);
+the stable sort decides which, so ties route as in the reference.  The
+padding experts (qwen: 60 -> 64, for EP divisibility) have no router
+column, so they receive no token.
+
+The dispatch is an index copy and the combine an un-permutation to
+``(T, k, d)`` summed over k in ascending-expert order, the order in which
+the reference's scatter-add visits a token's rows: neither uses float
+atomics, so the card's result is deterministic.  The expert FFNs are
+batched matrix products over the expert axis (the reference's ``vmap``).
+One process is one rank; the EP exchange has no gradient (``_moe_ep``
+raises under autograd: training through it waits for
+``runtime/sharding.py``).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..core import PAX_SUM
+from .mlp import mlp, mlp_shapes
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+def moe_shapes(cfg, dtype, lead: tuple = ()) -> tuple:
+    """The block's parameter shapes stacked on ``lead``: (its own leaves,
+    {child name: the child's leaves}).  The router stays float32 whatever
+    the model's dtype."""
+    m = cfg.moe
+    E = m.padded_experts or m.num_experts
+    d, f = cfg.d_model, m.expert_d_ff
+    own = {"router": ((*lead, d, m.num_experts), torch.float32)}
+    children = {"experts": mlp_shapes(d, f, cfg.activation, dtype, (*lead, E))}
+    if m.num_shared_experts:
+        own["shared_gate"] = ((*lead, d, 1), dtype)
+        children["shared"] = mlp_shapes(d, m.num_shared_experts * f, cfg.activation, dtype,
+                                        lead)
+    return own, children
+
+
+# ---------------------------------------------------------------------------
+# routing, dispatch and combine
+# ---------------------------------------------------------------------------
+def _route(router: torch.Tensor, xf: torch.Tensor, m) -> tuple:
+    """xf (T, d) -> (gates (T, k) float32, experts (T, k) int64, aux loss):
+    softmax over the real experts in float32, top-k, gates renormalised,
+    and the Switch/GShard load-balance loss of the primary assignment."""
+    logits = xf.float() @ router
+    probs = torch.softmax(logits, dim=-1)
+    gates, experts = torch.topk(probs, m.top_k, dim=-1)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    E = m.num_experts
+    load = F.one_hot(experts[:, 0], E).float().mean(0)
+    importance = probs.mean(0)
+    aux = E * torch.sum(load * importance) * m.aux_loss_weight
+    return gates, experts, aux
+
+
+def _capacity(T: int, k: int, E: int, factor: float) -> int:
+    return max(int(math.ceil(T * k / E * factor)), 4)
+
+
+def _dispatch_sort(x: torch.Tensor, experts: torch.Tensor, gates: torch.Tensor,
+                   E_pad: int, C: int) -> tuple:
+    """Sort-based dispatch of (T, d) tokens into an (E_pad, C, d) buffer.
+
+    The T*k assignments are sorted stably by expert; an assignment's slot is
+    its position in its expert's group, and positions from C on are dropped.
+    Kept slots are unique, so the buffer is an index copy (an empty slot is
+    zero); dropped rows land on a spare row that is cut off.  Returns the
+    buffer and what :func:`_combine_sort` needs."""
+    T, d = x.shape
+    k = experts.shape[1]
+    n = T * k
+    flat_e = experts.reshape(-1)
+    order = torch.sort(flat_e, stable=True).indices
+    se = flat_e[order]
+    sg = gates.reshape(-1)[order]
+    st = order // k                     # the token of each sorted assignment
+    pos_total = torch.arange(n, device=x.device)
+    seg_start = torch.searchsorted(se, torch.arange(E_pad, device=x.device), side="left")
+    pos_in_e = pos_total - seg_start[se]
+    keep = pos_in_e < C
+    slot = se * C + torch.where(keep, pos_in_e, 0)
+    dest = torch.where(keep, slot, E_pad * C)
+    buffer = x.new_zeros((E_pad * C + 1, d)).index_put((dest,), x[st])
+    # the rank of each assignment among its token's k experts (ascending id)
+    rank = (experts[:, None, :] < experts[:, :, None]).sum(-1).reshape(-1)[order]
+    return buffer[:E_pad * C].view(E_pad, C, d), (st, sg, slot, keep, rank)
+
+
+def _combine_sort(expert_out: torch.Tensor, combine: tuple, T: int, d: int) -> torch.Tensor:
+    """Each token's k gated expert rows (a dropped one weighs 0), summed in
+    ascending-expert order -> (T, d)."""
+    st, sg, slot, keep, rank = combine
+    k = st.shape[0] // T
+    flat = expert_out.reshape(-1, d)
+    vals = flat[slot] * torch.where(keep, sg, 0.0)[:, None].to(flat.dtype)
+    per = vals.new_zeros((T * k, d)).index_put((st * k + rank,), vals).view(T, k, d)
+    out = per[:, 0]
+    for j in range(1, k):
+        out = out + per[:, j]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the block
+# ---------------------------------------------------------------------------
+def moe_block(p: dict, x: torch.Tensor, cfg, dist=None) -> tuple:
+    """x (B, S, d) -> (y (B, S, d), aux loss).  ``p``: one layer's
+    ``moe`` node.  EP applies when the config asks for it, a dist is given,
+    its model axis is wider than one rank and divides S; otherwise the
+    block runs locally."""
+    m = cfg.moe
+    S = x.shape[1]
+    use_ep = (m.parallelism == "ep" and dist is not None and dist.tp_size > 1
+              and S % dist.tp_size == 0)
+    y_shared = _shared_path(p, x, cfg)
+    y, aux = _moe_ep(p, x, cfg, dist) if use_ep else _moe_local(p, x, cfg)
+    if y_shared is not None:
+        y = y + y_shared
+    return y, aux
+
+
+def _shared_path(p: dict, x: torch.Tensor, cfg):
+    if not cfg.moe.num_shared_experts:
+        return None
+    g = torch.sigmoid(x @ p["shared_gate"].to(x.dtype))
+    return mlp(p["shared"], x, cfg.activation) * g
+
+
+def _moe_local(p: dict, x: torch.Tensor, cfg) -> tuple:
+    m = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    xf = x.reshape(T, d)
+    gates, experts, aux = _route(p["router"], xf, m)
+    E_pad = m.padded_experts or m.num_experts
+    C = _capacity(T, m.top_k, m.num_experts, m.capacity_factor)
+    buf, combine = _dispatch_sort(xf, experts, gates, E_pad, C)
+    y = _combine_sort(mlp(p["experts"], buf, cfg.activation), combine, T, d)
+    return y.reshape(B, S, d), aux
+
+
+def _moe_ep(p: dict, x: torch.Tensor, cfg, dist) -> tuple:
+    """This rank's sequence slice, routed with the capacity of its own
+    ``B * S / R`` tokens; ``(E_pad, C, d)`` -> alltoall -> ``(E_pad / R,
+    R * C, d)`` through this rank's experts -> alltoall back -> combine;
+    then the slices are all-gathered along the sequence."""
+    if torch.is_grad_enabled() and (x.requires_grad or p["router"].requires_grad):
+        raise NotImplementedError(
+            "expert parallelism runs forward only: its gradient through the alltoall "
+            "comes with runtime/sharding.py (ROADMAP queue 1 item 6)")
+    m = cfg.moe
+    abi, comm = dist.abi, dist.tp_comm
+    R = dist.tp_size
+    r = abi.comm_rank(comm)
+    B, S, d = x.shape
+    E_pad = m.padded_experts or m.num_experts
+    if E_pad % R:
+        raise ValueError(f"EP needs the model axis ({R}) to divide {E_pad} experts")
+    E_local = E_pad // R
+    S_local = S // R
+    T_local = B * S_local
+    C = _capacity(T_local, m.top_k, m.num_experts, m.capacity_factor)
+    xf = x[:, r * S_local:(r + 1) * S_local].reshape(T_local, d)
+    gates, experts, aux = _route(p["router"], xf, m)
+    buf, combine = _dispatch_sort(xf, experts, gates, E_pad, C)
+    recv = abi.alltoall(buf, comm, split_axis=0, concat_axis=1)
+    mine = {name: w[r * E_local:(r + 1) * E_local] for name, w in p["experts"].items()}
+    out = mlp(mine, recv, cfg.activation)
+    back = abi.alltoall(out, comm, split_axis=1, concat_axis=0)
+    y = _combine_sort(back, combine, T_local, d).reshape(B, S_local, d)
+    # the mean over the ranks, its gradient weight 1/R on each (the
+    # reference's split of value and gradient)
+    sg = aux.detach()
+    aux = aux / R + (abi.allreduce(sg, PAX_SUM, comm) / R - sg / R)
+    return abi.allgather(y, comm, axis=1), aux
+

@@ -1,4 +1,5 @@
-"""Dense decoder-only transformer LM (the qwen2 family).
+"""Dense and MoE decoder-only transformer LM (the qwen2, gemma, chatglm3
+families and qwen2-moe, grok-1).
 
 Parameters keep the reference's layout: every per-layer weight is stacked
 on a leading ``L`` axis and multiplies as ``x @ W[l]`` with ``W`` shaped
@@ -8,7 +9,13 @@ onto the module by name alone (``model.from_jax_params``) and the ZeRO-1
 flat vector can follow the reference's leaf order.
 
 The reference scans the layers with optional rematerialisation; neither
-changes a number, and here the layers run in a Python loop.
+changes a number, and here the layers run in a Python loop.  With
+``cfg.moe`` set each layer's FFN is the MoE block (``layers.moe.*``,
+``models/moe.py``), the layer body runs under ``maybe_remat``, the
+forward carries the sum of the layers' router aux losses and the loss is
+cross-entropy plus that sum, as in the reference.  Every function takes the
+``dist`` the MoE block's expert parallelism runs on (the dense FFN ignores
+it).
 
 Serving: :func:`prefill` and :func:`decode_step` run on a contiguous
 cache (:func:`init_cache`); :func:`prefill_chunk_paged` and
@@ -33,21 +40,24 @@ from .common import (
     embed_init_,
     embed_shapes,
     embed_tokens,
+    maybe_remat,
     norm,
     norm_shapes,
     softmax_cross_entropy,
     unembed,
 )
 from .mlp import mlp, mlp_shapes
+from .moe import moe_block, moe_shapes
 
 
 class TransformerLM(nn.Module):
-    """Parameters of the dense LM; the forward math is :func:`forward`."""
+    """Parameters of the dense or MoE LM; the forward math is :func:`forward`."""
 
     def __init__(self, cfg, device) -> None:
         super().__init__()
-        if cfg.family != "dense":
-            raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError(f"TransformerLM builds the dense and moe families, "
+                             f"got {cfg.family!r}")
         L, d = cfg.num_layers, cfg.d_model
         pdt = dtype_of(cfg.param_dtype)
         self.embed = ParamBlock(embed_shapes(cfg, pdt), device)
@@ -56,8 +66,14 @@ class TransformerLM(nn.Module):
         self.layers.attn = ParamBlock(attention_shapes(cfg, pdt, (L,)), device)
         self.layers.ln1 = ParamBlock(norm_shapes((L, d), cfg.norm), device)
         self.layers.ln2 = ParamBlock(norm_shapes((L, d), cfg.norm), device)
-        self.layers.mlp = ParamBlock(mlp_shapes(d, cfg.d_ff, cfg.activation, pdt, (L,)),
-                                     device)
+        if cfg.moe is not None:
+            own, children = moe_shapes(cfg, pdt, (L,))
+            self.layers.moe = ParamBlock(own, device)
+            for name, shapes in children.items():
+                self.layers.moe.add_module(name, ParamBlock(shapes, device))
+        else:
+            self.layers.mlp = ParamBlock(mlp_shapes(d, cfg.d_ff, cfg.activation, pdt, (L,)),
+                                         device)
 
 
 @torch.no_grad()
@@ -85,17 +101,31 @@ def init_lm(cfg, seed: int, device) -> TransformerLM:
     return model
 
 
-def _trunk(model: TransformerLM, tokens: torch.Tensor, cfg, attend) -> torch.Tensor:
+def _trunk(model: TransformerLM, tokens: torch.Tensor, cfg, attend, dist=None) -> tuple:
     """Embed ``tokens`` and run every layer: pre-norm attention, then the
-    pre-norm MLP, each added to the residual.  ``attend(p, h, l)`` is layer
-    ``l``'s attention on its normed input (the forward's, a contiguous
-    cache's or the pages'); returns the hidden state before the final norm."""
+    pre-norm MLP or MoE block, each added to the residual.  ``attend(p, h,
+    l)`` is layer ``l``'s attention on its normed input (the forward's, a
+    contiguous cache's or the pages').  Returns the hidden state before the
+    final norm and the layers' summed aux loss (None for the dense FFN)."""
     x = embed_tokens(model.embed.tok, tokens, dtype_of(cfg.compute_dtype))
     lay = model.layers
+    if cfg.moe is None:
+        for l in range(cfg.num_layers):
+            x = x + attend(lay.attn.layer(l), norm(lay.ln1.layer(l), x, cfg.norm), l)
+            x = x + mlp(lay.mlp.layer(l), norm(lay.ln2.layer(l), x, cfg.norm), cfg.activation)
+        return x, None
+
+    def body(p, xx, l):
+        xx = xx + attend(p["attn"], norm(p["ln1"], xx, cfg.norm), l)
+        f, aux = moe_block(p["moe"], norm(p["ln2"], xx, cfg.norm), cfg, dist)
+        return xx + f, aux
+
+    body = maybe_remat(body, cfg.parallelism.remat)
+    auxes = []
     for l in range(cfg.num_layers):
-        x = x + attend(lay.attn.layer(l), norm(lay.ln1.layer(l), x, cfg.norm), l)
-        x = x + mlp(lay.mlp.layer(l), norm(lay.ln2.layer(l), x, cfg.norm), cfg.activation)
-    return x
+        x, aux = body({name: node.layer(l) for name, node in lay.named_children()}, x, l)
+        auxes.append(aux)
+    return x, torch.stack(auxes).sum()
 
 
 def _logits(model: TransformerLM, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -109,22 +139,32 @@ def _positions(start, n: int, batch: int, device) -> torch.Tensor:
         batch, n)
 
 
-def forward(model: TransformerLM, tokens: torch.Tensor, cfg,
-            last_only: bool = False) -> torch.Tensor:
-    """Full-sequence forward -> logits (B, S, vocab), or (B, 1, vocab) with
+def forward_aux(model: TransformerLM, tokens: torch.Tensor, cfg, last_only: bool = False,
+                dist=None) -> tuple:
+    """Full-sequence forward -> (logits (B, S, vocab), or (B, 1, vocab) with
     ``last_only``, which slices the residual to the final position before
-    the final norm and the unembed (prefill needs one position)."""
+    the final norm and the unembed (prefill needs one position); the summed
+    aux loss, None for the dense FFN)."""
     B, S = tokens.shape
     positions = _positions(0, S, B, tokens.device)
-    x = _trunk(model, tokens, cfg, lambda p, h, l: attention(p, h, cfg, positions=positions,
-                                                             causal=True))
+    x, aux = _trunk(model, tokens, cfg, lambda p, h, l: attention(
+        p, h, cfg, positions=positions, causal=True), dist)
     if last_only:
         x = x[:, -1:]
-    return _logits(model, x, cfg)
+    return _logits(model, x, cfg), aux
 
 
-def loss_fn(model: TransformerLM, batch: dict, cfg) -> torch.Tensor:
-    return softmax_cross_entropy(forward(model, batch["tokens"], cfg), batch["targets"])
+def forward(model: TransformerLM, tokens: torch.Tensor, cfg, last_only: bool = False,
+            dist=None) -> torch.Tensor:
+    """:func:`forward_aux`'s logits."""
+    return forward_aux(model, tokens, cfg, last_only, dist)[0]
+
+
+def loss_fn(model: TransformerLM, batch: dict, cfg, dist=None) -> torch.Tensor:
+    """Token-mean cross-entropy, plus the aux loss with the MoE block."""
+    logits, aux = forward_aux(model, batch["tokens"], cfg, dist=dist)
+    loss = softmax_cross_entropy(logits, batch["targets"])
+    return loss if aux is None else loss + aux
 
 
 # ---------------------------------------------------------------------------
@@ -137,30 +177,30 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, device=None)
 
 
 def _run_cached(model: TransformerLM, tokens: torch.Tensor, cache: KVCache, index: int,
-                positions: torch.Tensor, cfg) -> torch.Tensor:
+                positions: torch.Tensor, cfg, dist) -> torch.Tensor:
     """The layers over a contiguous cache, writing from position ``index``."""
     return _trunk(model, tokens, cfg, lambda p, h, l: attention(
         p, h, cfg, positions=positions, causal=True,
-        kv_cache=KVCache(cache.k[l], cache.v[l]), cache_index=index)[0])
+        kv_cache=KVCache(cache.k[l], cache.v[l]), cache_index=index)[0], dist)[0]
 
 
 def decode_step(model: TransformerLM, token: torch.Tensor, cache: KVCache, index: int,
-                cfg) -> tuple:
+                cfg, dist=None) -> tuple:
     """token: (B, 1) int; ``index``: the position it is written at.
     Returns (logits (B, vocab), cache)."""
     B = token.shape[0]
     positions = torch.full((B, 1), int(index), dtype=torch.int32, device=token.device)
-    x = _run_cached(model, token, cache, int(index), positions, cfg)
+    x = _run_cached(model, token, cache, int(index), positions, cfg, dist)
     return _logits(model, x, cfg)[:, 0, :], cache
 
 
-def prefill(model: TransformerLM, tokens: torch.Tensor, cfg,
+def prefill(model: TransformerLM, tokens: torch.Tensor, cfg, dist=None,
             max_seq: Optional[int] = None) -> tuple:
     """Run the prompt (B, S) into a fresh cache of ``max_seq`` positions
     (default the config's); returns (last logits (B, vocab), cache, S)."""
     B, S = tokens.shape
     cache = init_cache(cfg, B, max_seq or cfg.max_seq_len, device=tokens.device)
-    x = _run_cached(model, tokens, cache, 0, _positions(0, S, B, tokens.device), cfg)
+    x = _run_cached(model, tokens, cache, 0, _positions(0, S, B, tokens.device), cfg, dist)
     return _logits(model, x[:, -1:, :], cfg)[:, 0, :], cache, S
 
 
@@ -177,24 +217,25 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, dtype=torch.bfloat16
 
 
 def _run_paged(model: TransformerLM, tokens: torch.Tensor, pages: KVCache,
-               block_tables: torch.Tensor, positions: torch.Tensor, cfg) -> torch.Tensor:
+               block_tables: torch.Tensor, positions: torch.Tensor, cfg, dist) -> torch.Tensor:
     return _logits(model, _trunk(model, tokens, cfg, lambda p, h, l: attention_paged(
-        p, h, cfg, pages.k[l], pages.v[l], block_tables, positions)), cfg)
+        p, h, cfg, pages.k[l], pages.v[l], block_tables, positions), dist)[0], cfg)
 
 
 def decode_step_paged(model: TransformerLM, token: torch.Tensor, pages: KVCache,
-                      block_tables: torch.Tensor, lengths: torch.Tensor, cfg) -> tuple:
+                      block_tables: torch.Tensor, lengths: torch.Tensor, cfg,
+                      dist=None) -> tuple:
     """One decode step: ``token`` (B, 1); ``block_tables`` (B, W) physical
     block ids; ``lengths`` (B,) tokens already cached per request — the new
     token is written at position ``lengths[b]`` and attends to
     ``0..lengths[b]``.  Inactive rows carry the null table and length 0.
     Returns (logits (B, vocab), pages)."""
     positions = lengths[:, None].to(torch.int32)
-    return _run_paged(model, token, pages, block_tables, positions, cfg)[:, 0, :], pages
+    return _run_paged(model, token, pages, block_tables, positions, cfg, dist)[:, 0, :], pages
 
 
 def prefill_chunk_paged(model: TransformerLM, tokens: torch.Tensor, pages: KVCache,
-                        block_tables: torch.Tensor, start: int, cfg) -> tuple:
+                        block_tables: torch.Tensor, start: int, cfg, dist=None) -> tuple:
     """One prefill chunk: ``tokens`` (B, C) are positions ``start ..
     start+C`` of the prompt.  The last chunk may carry pad tokens past the
     prompt; their K/V land at positions that decode writes before its mask
@@ -202,4 +243,4 @@ def prefill_chunk_paged(model: TransformerLM, tokens: torch.Tensor, pages: KVCac
     needs no mask.  Returns (logits (B, C, vocab), pages)."""
     B, C = tokens.shape
     positions = _positions(start, C, B, tokens.device)
-    return _run_paged(model, tokens, pages, block_tables, positions, cfg), pages
+    return _run_paged(model, tokens, pages, block_tables, positions, cfg, dist), pages

@@ -17,7 +17,10 @@ token step (the port of the reference's ``serve/engine.py``).
   not depend on which other requests share the batch, so continuous
   batching is **token-identical to serving one request at a time**.  The
   rows are never compacted: a different batch shape may take a different
-  matrix-product algorithm, and with it different roundings.
+  matrix-product algorithm, and with it different roundings.  The moe
+  family is the exception, in the reference too: once an expert's capacity
+  binds, which assignments drop depends on the other rows of the step
+  (the inactive rows' token 0 included), so a stream depends on its batch.
 * **per-request random stream** — a sampled token's key is
   ``fold_in(fold_in(PRNGKey(seed), rid), step)``, computed on the host
   (:mod:`.sampling`), equal to the reference's.
@@ -35,7 +38,9 @@ dropped broadcast raises ``PAX_ERR_TIMEOUT`` instead of hanging),
 verdict (``verify_clean``), and :meth:`DecodeSync.reset` aborts a
 timed-out start; ``serve/supervisor.py`` retries, escalates and recovers.
 
-The ssm and hybrid families keep no KV pages (their decode state is
+The dense and moe families are paged; the moe family's steps route
+through ``moe_block`` with the engine's ``dist``.  The ssm and hybrid
+families keep no KV pages (their decode state is
 recurrent), so :meth:`ServeEngine.run` serves them as the reference does,
 by static batching (:meth:`ServeEngine._run_static`): the prompts
 left-padded with token 0 to one length, fed one position a step through
@@ -166,7 +171,7 @@ class ServeEngine:
                       "prefill_chunks": 0, "requests": 0, "steps": 0,
                       "expired": 0}
         self.last_expired: list = []   # requests expired by the last step()
-        self.paged = cfg.family == "dense"
+        self.paged = cfg.family in ("dense", "moe")
         self.decode_sync: Optional[DecodeSync] = None
         #: if set, every model step runs as ``step_hook(kind, fn, *args)``
         #: and must return ``fn(*args)``: the seam where a caller times or
@@ -189,9 +194,9 @@ class ServeEngine:
                                                    device=self.device)
         self._steps = {
             "prefill": lambda toks, table, start: transformer.prefill_chunk_paged(
-                params, toks, self._pages, table, start, cfg)[0],
+                params, toks, self._pages, table, start, cfg, dist)[0],
             "decode": lambda tok, tables, lengths: transformer.decode_step_paged(
-                params, tok, self._pages, tables, lengths, cfg)[0]}
+                params, tok, self._pages, tables, lengths, cfg, dist)[0]}
         if dist is not None:
             self.decode_sync = DecodeSync(dist.abi, dist.tp_comm, max_batch, dist.device)
 

@@ -24,7 +24,9 @@ microseconds a step.  One
 process is one rank, so the code that the reference runs inside a
 ``shard_map`` region runs directly; the batch a step receives is this
 rank's rows.  The step updates the parameter module in place (the
-reference returns new arrays) — that keeps one copy of the weights.  Its
+reference returns new arrays) — that keeps one copy of the weights.  A
+moe step at ``model_axis > 1`` raises: its expert-parallel alltoall has no
+gradient until ``runtime/sharding.py`` is ported.  Its
 one in-place write (the parameters, from the all-gathered vector) comes
 after every collective of the step; with the transport tier's integrity
 mode on, the step first verifies those collectives' results
@@ -148,6 +150,11 @@ def _assign(params: list, values: list) -> None:
 def make_train_step_abi(api: ModelApi, dist: DistContext, opt_cfg: AdamWConfig, *,
                         schedule: Optional[Callable] = None):
     cfg = api.cfg
+    if cfg.moe is not None and dist.tp_size > 1:
+        raise NotImplementedError(
+            f"a moe train step at model_axis={dist.tp_size} needs the gradient through the "
+            f"expert-parallel alltoall and sharded experts: runtime/sharding.py is not "
+            f"ported yet (ROADMAP queue 1 item 6)")
     par = cfg.parallelism
     n_micro = max(par.microbatch, 1)
     buckets = max(par.zero1_buckets, 1)

@@ -323,3 +323,51 @@ def zero1_ring_rank(rank, world, init_method, out_dir, impl, compression):
         np.savez(Path(out_dir) / f"rank{rank}.npz", shard=shard.numpy(),
                  granule=np.array(granule), padded=np.array(padded),
                  fused=np.array(fused), refused=np.array(refused))
+
+
+# ---------------------------------------------------------------------------
+# the moe block's expert parallelism, and the moe train step's refusal
+# ---------------------------------------------------------------------------
+def _tensor_tree(node):
+    import torch
+
+    if isinstance(node, dict):
+        return {k: _tensor_tree(v) for k, v in node.items()}
+    return torch.from_numpy(np.asarray(node))
+
+
+def moe_ep_rank(rank, world, init_method, out_dir, cfg, np_params, x):
+    """``moe_block`` on the model axis (``model_axis=world``): this rank's
+    sequence slice through the ABI alltoall and the closing allgather."""
+    import torch
+
+    from repro_torch.models.moe import moe_block
+    from repro_torch.runtime.dist import make_dist
+
+    torch.set_num_threads(1)
+    with make_dist(device="cpu", model_axis=world, world_size=world, rank=rank,
+                   init_method=init_method) as dist, torch.no_grad():
+        y, aux = moe_block(_tensor_tree(np_params), torch.from_numpy(x), cfg, dist)
+        np.savez(Path(out_dir) / f"rank{rank}.npz", y=y.numpy(), aux=aux.numpy(),
+                 tp_size=np.array(dist.tp_size))
+
+
+def moe_train_step_rank(rank, world, init_method, out_dir, cfg):
+    """A moe ZeRO-1 step at ``model_axis=world`` must raise before it
+    trains."""
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.dist import make_dist
+    from repro_torch.train import train_loop
+
+    torch.set_num_threads(1)
+    with make_dist(device="cpu", model_axis=world, world_size=world, rank=rank,
+                   init_method=init_method) as dist:
+        try:
+            train_loop.make_train_step(build_model(cfg), dist, AdamWConfig())
+            msg = ""
+        except NotImplementedError as e:
+            msg = str(e)
+        np.savez(Path(out_dir) / f"rank{rank}.npz", msg=np.array(msg))

@@ -25,6 +25,10 @@ same global batch split over two ranks and must give the same parameters
 as the world of one; a second one starts each rank through the launcher's
 own flags and must give the world of one's losses and grad norms.
 
+The moe case (qwen2-moe's smoke config) trains two steps under
+``remat="full"`` with two microbatches, its loss cross-entropy plus the
+router's aux loss in both packages.
+
 The ssm (rwkv6) and hybrid (zamba2) cases train three steps as their full
 configs do, under ``remat="full"`` with two microbatches, in both
 packages: the port's scans run their plain versions forward and the plain
@@ -71,7 +75,11 @@ CASES = {"b1": dict(zero1_buckets=1, microbatch=0),
          "rwkv6_b1_micro2": dict(arch="rwkv6-7b", zero1_buckets=1, microbatch=2,
                                  remat="full", steps=3, moment_floor=1e-5),
          "zamba2_b2_micro2": dict(arch="zamba2-2.7b", zero1_buckets=2, microbatch=2,
-                                  remat="full", steps=3)}
+                                  remat="full", steps=3),
+         # the moe family as its full config trains (remat "full",
+         # microbatches): the loss carries the router's aux loss
+         "moe_b1_micro2": dict(arch="qwen2-moe-a2.7b", zero1_buckets=1, microbatch=2,
+                               remat="full")}
 
 
 def _cfg(mod, arch="qwen2-0.5b", steps=STEPS, moment_floor=None, **par):
