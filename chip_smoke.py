@@ -10,6 +10,8 @@
     python3 chip_smoke.py --only ssm    # build + [train-ssm], [train-hybrid], [serve-ssm], [serve-hybrid]
     python3 chip_smoke.py --only moe    # build + [train-moe], [forward-moe], [serve-moe]
     python3 chip_smoke.py --only moe4   # build + [moe4] only, four cards
+    python3 chip_smoke.py --only ep4    # build + [ep4] only, four cards
+    python3 chip_smoke.py --only pp4    # [pp4] only, four cards (no kernel to build)
     python3 chip_smoke.py --baseline wkv6=build/wkv6_parent.cu  # [time] also an earlier wkv6
 
 ``--baseline NAME=PATH`` (repeatable; NAME ``wkv6`` or ``ssd``) builds an
@@ -88,6 +90,10 @@ Phases (any failure exits non-zero and prints no result line):
    rank the ring is the identity, so no hop kernel launches and both
    steps' losses and grad norms equal the uncompressed run's bitwise (same
    seed, one bucket);
+7a. [train-gspmd] the [main] cell through ``make_train_step`` under
+   ``grad_sync="gspmd"`` and ``"abi"``, 2 + 3 steps each: ``pack_transposed`` 0 and 5
+   times, the losses within 1e-4, ms/step of each; then the cell in
+   float32 for 3 steps each way, losses and grad norms within 1e-4;
 7b. [abi-swap] the backend swap (see :func:`phase_abi_swap`), then [fault]
    (:func:`phase_fault`): full-width qwen2-0.5b at two buckets resumed from
    a checkpoint and from a torn one bitwise, a corrupted reduce-scatter
@@ -193,6 +199,18 @@ token routed otherwise only at a router tie (top-k margin below 1e-5);
 the whole forward's first position off local, if any, a tie too; one
 prefill chunk within 1e-3; then µs per ``alltoall`` of the bf16 dispatch
 buffer at capacity 1.25 and ms per EP and local forward.
+
+``--only ep4`` (four cards, :func:`phase_ep4`) trains qwen2-moe-a2.7b at
+full width and 2 layers on ``model_axis=4``, 16 experts a card: the
+config's ZeRO-1 step (``pack_transposed`` once a step on every card, the
+replicated leaves' digests equal after 7 steps), and in float32 one
+microbatch's gradient through EP within 1e-3 of each leaf's scale of local
+mode's on the whole model (the first of up to 3 microbatches in which no
+token routes otherwise; any token that does must be a router tie).  ``--only pp4`` (four cards, :func:`phase_pp4`)
+runs full-width qwen2-0.5b in float32 as 4 GPipe stages of 6 layers over
+ABI ``sendrecv``, M = 4: the loss within 1e-5 and every gradient leaf
+within 1e-4 of its scale of the un-pipelined step on each card, 7 hops
+each way.
 
 ``--only ring4`` runs the one path a single card cannot: [ring4] starts
 ``launch.train`` as four ranks, one per card, on NCCL, for 2 ZeRO-1 steps
@@ -932,6 +950,106 @@ def phase_main_int8(uncompressed) -> dict:
     if any(hops.values()) or c["pack_transposed"] != 2:
         raise AssertionError(f"int8 launches at dp=1: {c}")
     return c
+
+
+GSPMD_WARM, GSPMD_TIMED = 2, 3
+#: the gspmd and abi steps agree to the reference's own bound
+#: (tests/test_substrate.py::test_train_modes_agree, on losses)
+GSPMD_RTOL = 1e-4
+#: steps of the float32 copy of the cell, as many as the reference's test
+GSPMD_F32_STEPS = 3
+
+
+def _gspmd_cell(mode: str, steps: int, f32: bool = False) -> tuple:
+    """The [main] cell (``ARCH`` at full width, batch 8 x 128, the config's
+    microbatch 4, seed 0, ``launch.train``'s batches, AdamW and schedule)
+    for ``steps`` steps through ``make_train_step`` with the config's
+    ``grad_sync`` replaced by ``mode``; ``f32``: float32 weights and
+    activations.  Returns ((loss, grad norm) per step, ms per step, kernel
+    launches of the run)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataPipeline, SyntheticSource
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig, warmup_cosine
+    from repro_torch.runtime.dist import make_dist
+    from repro_torch.train import train_loop as tl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = configs.get_config(ARCH)
+    cfg = dataclasses.replace(base, parallelism=dataclasses.replace(base.parallelism,
+                                                                    grad_sync=mode))
+    if f32:
+        cfg = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    api = build_model(cfg)
+    pipe = DataPipeline(SyntheticSource(cfg.vocab_size, seed=0), global_batch=8, seq_len=128)
+    rows, ms = [], []
+    with make_dist(device="cuda") as dist:
+        state = tl.init_state(api, 0, dist)
+        step = tl.make_train_step(api, dist, AdamWConfig(), schedule=lambda t: warmup_cosine(
+            t, warmup=20, total=steps))
+        _zero_counts()
+        for _ in range(steps):
+            batch = tl.local_batch(next(pipe), dist)
+            (state, met), t = _timed(lambda: step(state, batch), True, dist.device)
+            rows.append((float(met.loss), float(met.grad_norm)))
+            ms.append(t)
+        launches = _counts()
+        del state
+    pipe.close()
+    torch.cuda.empty_cache()
+    return rows, ms, launches
+
+
+def phase_train_gspmd() -> int:
+    """[train-gspmd]: the [main] cell (full-width qwen2-0.5b, bf16, batch 8
+    x 128, microbatch 4) for 2 + 3 steps through ``make_train_step`` with
+    ``grad_sync="gspmd"`` (the per-leaf AdamW step under the mesh's axis
+    rules), then with ``"abi"`` (the ZeRO-1 step) from the same seed
+    (:func:`_gspmd_cell`): ``pack_transposed`` launched 0 times under gspmd
+    and once a step under abi, the losses within ``GSPMD_RTOL`` of each
+    other, ms/step of each, and the grad norms' largest relative
+    difference (a record: the two steps sum the norm in other orders, and
+    where one f32 ulp of the norm changes the clip scale, the bf16 weights
+    round apart, since an early step's update is below a bf16 ulp of most
+    weights); then the same cell in float32 for ``GSPMD_F32_STEPS`` steps:
+    losses and grad norms within ``GSPMD_RTOL``.  Returns the abi run's
+    ``pack_transposed`` launches."""
+    t_phase = time.perf_counter()
+    steps = GSPMD_WARM + GSPMD_TIMED
+    runs = {mode: _gspmd_cell(mode, steps) for mode in ("gspmd", "abi")}
+    for mode, (rows, _, _) in runs.items():
+        if not all(math.isfinite(v) for row in rows for v in row):
+            raise AssertionError(f"[train-gspmd] {mode}: (loss, grad norm) {rows}")
+    (g, g_ms, g_n), (a, a_ms, a_n) = runs["gspmd"], runs["abi"]
+    rel = lambda xs, ys: max(abs(x - y) / abs(y) for x, y in zip(xs, ys))  # noqa: E731
+    rel_loss = rel([r[0] for r in g], [r[0] for r in a])
+    rel_norm = rel([r[1] for r in g], [r[1] for r in a])
+    log(f"[train-gspmd] {ARCH} full width, bf16, batch 8x128, microbatch 4: (loss, grad norm) "
+        f"gspmd {g}; abi (ZeRO-1) {a}; largest relative difference of the losses "
+        f"{rel_loss:.3e} (bound {GSPMD_RTOL}), of the grad norms {rel_norm:.3e}")
+    log(f"[train-gspmd] ms/step gspmd {[round(t, 1) for t in g_ms]} (median of the "
+        f"{GSPMD_TIMED} after {GSPMD_WARM} warm {statistics.median(g_ms[GSPMD_WARM:]):.1f}), "
+        f"abi {[round(t, 1) for t in a_ms]} (median {statistics.median(a_ms[GSPMD_WARM:]):.1f}); "
+        f"pack_transposed launches gspmd {g_n['pack_transposed']}, abi {a_n['pack_transposed']}")
+    others = {m: {k: v for k, v in c.items() if v and k != "pack_transposed"}
+              for m, c in (("gspmd", g_n), ("abi", a_n))}
+    if (rel_loss > GSPMD_RTOL or g_n["pack_transposed"] != 0
+            or a_n["pack_transposed"] != steps or any(others.values())):
+        raise AssertionError(f"[train-gspmd] losses' relative difference {rel_loss}, "
+                             f"launches gspmd {g_n}, abi {a_n}")
+    f32 = {mode: _gspmd_cell(mode, GSPMD_F32_STEPS, f32=True)[0] for mode in ("gspmd", "abi")}
+    flat = {m: [v for row in rows for v in row] for m, rows in f32.items()}
+    rel32 = rel(flat["gspmd"], flat["abi"])
+    log(f"[train-gspmd] float32 copy of the cell, {GSPMD_F32_STEPS} steps: (loss, grad norm) "
+        f"gspmd {f32['gspmd']}, abi {f32['abi']}; largest relative difference {rel32:.3e} "
+        f"(bound {GSPMD_RTOL}); phase wall {time.perf_counter() - t_phase:.1f} s")
+    if rel32 > GSPMD_RTOL or not all(math.isfinite(v) for v in flat["gspmd"]):
+        raise AssertionError(f"[train-gspmd] float32: relative difference {rel32}")
+    return a_n["pack_transposed"]
 
 
 SWAP_IMPLS = ("paxi", "minimal", "ompix", "muk:paxi")
@@ -3698,6 +3816,488 @@ def phase_moe4(card: str, device: str = "cuda", out_dir: Path = HERE / "build" /
     return r0
 
 
+def _spawn_ranks(name: str, target, world: int, out_dir: Path, device: str,
+                 timeout: float = 900) -> list:
+    """``target(rank, world, init_method, out_dir, device)`` on ``world``
+    spawned ranks meeting at a free localhost port; each writes
+    ``rank<r>.json``, returned in rank order.  Fails if a rank fails (the
+    others, which may wait on it in a collective, are killed at once) or
+    the ranks outlive ``timeout``."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, world, f"tcp://localhost:{port}",
+                                              str(out_dir), device))
+             for r in range(world)]
+    for proc in procs:
+        proc.start()
+    deadline = time.monotonic() + timeout
+    while (any(proc.is_alive() for proc in procs) and time.monotonic() < deadline
+           and not any(proc.exitcode for proc in procs)):
+        time.sleep(0.5)
+    for proc in procs:
+        if proc.is_alive():
+            proc.kill()
+        proc.join(10)
+    codes = [proc.exitcode for proc in procs]
+    if codes != [0] * world:
+        raise RuntimeError(f"[{name}] rank exit codes {codes}")
+    return [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+class _RouteSpy:
+    """Within ``with``, records each ``moe._route`` call's experts (sorted
+    per token) and top-k margins (the k-th minus the (k+1)-th router
+    probability); :meth:`take` returns and clears them."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+
+        self.calls = []
+        self._route = moe._route
+
+        def route(router, xf, m):
+            out = self._route(router, xf, m)
+            with torch.no_grad():
+                probs = torch.softmax(xf.float() @ router, -1)
+                top = torch.topk(probs, m.top_k + 1, -1)
+                self.calls.append((top.indices[:, :m.top_k].sort(-1).values,
+                                   top.values[:, m.top_k - 1] - top.values[:, m.top_k]))
+            return out
+
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._route = self._route
+
+    def take(self) -> list:
+        out, self.calls = self.calls, []
+        return out
+
+
+def _digest(tensors) -> str:
+    """SHA-256 of tensors' bytes in order (bfloat16 as its raw bits)."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t.detach()
+        h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def _timed(fn, on_card: bool, dev) -> tuple:
+    """(fn's result, its wall ms around a synced call)."""
+    import torch
+
+    if on_card:
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    if on_card:
+        torch.cuda.synchronize(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+#: [ep4]: four cards, model_axis=4 (16 experts a card), the config's step
+EP4 = 4
+EP4_DEPTH = 2
+#: gradient gate: each leaf within this share of its scale of local mode
+EP4_GRAD_TOL = 1e-3
+#: microbatches the gradient gate may try for one where no token routes
+#: otherwise under EP than locally
+EP4_GRAD_TRIES = 3
+
+
+def _ep4_rank(rank: int, world: int, init_method: str, out_dir: str,
+              device: str = "cuda") -> None:
+    """One rank of [ep4]: qwen2-moe-a2.7b at full width and ``EP4_DEPTH``
+    layers (``device="cpu"``: the smoke config on gloo) on
+    ``model_axis=4``, each rank holding its 16 experts.  (1) float32, aux
+    weight 0, a capacity at which nothing drops: one microbatch's gradient
+    through EP against local mode's on the whole model (this card), each
+    expert leaf against its slice, with each token's routing in both; where
+    a token on any rank routes otherwise, again on the next microbatch, up
+    to ``EP4_GRAD_TRIES``; (2)
+    the config's bf16 ZeRO-1 step, 2 + 5 steps of batch 8 x 1024: losses,
+    grad norms, ms/step, ``pack_transposed`` launches and ABI alltoalls a
+    step, peak memory, the replicated and the expert leaves' digests; (3)
+    µs per alltoall of the step's dispatch buffer, and one microbatch's
+    forward and backward ms."""
+    sys.path.insert(0, str(SRC))
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import PAX_SUM, CallCounter
+    from repro_torch.data.pipeline import DataPipeline, SyntheticSource
+    from repro_torch.models import build_model, param_leaves
+    from repro_torch.models.moe import _capacity
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.dist import make_dist
+    from repro_torch.train import train_loop as tl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    on_card = device != "cpu"
+    if not on_card:
+        torch.set_num_threads(1)
+    full = configs.get_config(MOE_ARCH) if on_card else configs.smoke_config(MOE_ARCH)
+    base = dataclasses.replace(full, num_layers=EP4_DEPTH)
+    if on_card:
+        base = dataclasses.replace(base, parallelism=full.parallelism)
+    B, S = (TRAIN_BATCH, TRAIN_SEQ) if on_card else (8, 32)
+    n_micro = max(base.parallelism.microbatch, 1)
+    rec: dict = {}
+    with make_dist(device=f"cuda:{rank}" if on_card else "cpu", model_axis=world,
+                   world_size=world, rank=rank, init_method=init_method) as dist:
+        dev = dist.device
+        r = dist.abi.comm_rank(dist.tp_comm)
+        cc = CallCounter()
+        dist.abi.attach_tool(cc)
+        pipe = DataPipeline(SyntheticSource(base.vocab_size, seed=0), global_batch=B, seq_len=S)
+        drawn = [next(pipe) for _ in range(TRAIN_WARM + TRAIN_TIMED)]
+        pipe.close()
+        micro = [{k: torch.as_tensor(v[:B // n_micro]).to(dev) for k, v in d.items()}
+                 for d in drawn[:EP4_GRAD_TRIES]]
+        mb = micro[0]
+        # (1) the gradient, EP against local, float32, nothing dropped, on
+        # the first microbatch in which every token routes alike on every
+        # rank (a token routed otherwise moves every leaf's gradient)
+        cfg = dataclasses.replace(base, param_dtype="float32", compute_dtype="float32",
+                                  moe=dataclasses.replace(base.moe, aux_loss_weight=0.0,
+                                                          capacity_factor=MOE4_NO_DROP))
+        api = build_model(cfg)
+        models = {"ep": api.init(0, dev, model_rank=r, model_axis=world),
+                  "local": api.init(0, dev)}
+        spy = _RouteSpy()
+        Sl = S // world
+        tries = []
+        for batch in micro:
+            runs = {}
+            for mode, model in models.items():
+                named = param_leaves(model)
+                with spy:
+                    loss = api.loss_fn(model, batch, dist if mode == "ep" else None)
+                    routes = spy.take()[:EP4_DEPTH]       # the forward's, not remat's
+                    grads = torch.autograd.grad(loss, [p for _, p in named])
+                runs[mode] = (float(loss.detach()), {n: g for (n, _), g in zip(named, grads)},
+                              routes)
+                del named, grads, loss
+            (l_ep, g_ep, r_ep), (l_loc, g_loc, r_loc) = runs["ep"], runs["local"]
+            worst, worst_leaf = 0.0, ""
+            for name, g in g_ep.items():
+                want = g_loc[name]
+                if g.shape != want.shape:        # an expert leaf: this rank's slice
+                    El = g.shape[1]
+                    want = want[:, r * El:(r + 1) * El]
+                err = float((g - want).abs().max() / want.abs().max().clamp_min(1e-30))
+                if err > worst:
+                    worst, worst_leaf = err, name
+            flipped, flip_margin, min_margin = 0, 0.0, float("inf")
+            for (e_ep, _), (e_loc, m_loc) in zip(r_ep, r_loc):
+                k = e_loc.shape[-1]
+                mine = e_loc.view(B // n_micro, S, k)[:, r * Sl:(r + 1) * Sl].reshape(-1, k)
+                m_mine = m_loc.view(B // n_micro, S)[:, r * Sl:(r + 1) * Sl].reshape(-1)
+                off = (mine != e_ep).any(-1)
+                flipped += int(off.sum())
+                if off.any():
+                    flip_margin = max(flip_margin, float(m_mine[off].max()))
+                min_margin = min(min_margin, float(m_mine.min()))
+            held = int(g_ep["layers.moe.experts.wi"].shape[1])
+            del runs, g_ep, g_loc
+            anywhere = dist.abi.allreduce(torch.tensor(float(flipped), device=dev), PAX_SUM,
+                                          dist.tp_comm)
+            tries.append(dict(loss_ep=l_ep, loss_local=l_loc, grad_err=worst,
+                              grad_worst=worst_leaf, flipped=flipped, flipped_margin=flip_margin,
+                              min_margin=min_margin, flipped_anywhere=int(anywhere)))
+            if not tries[-1]["flipped_anywhere"]:
+                break
+        del models, model, g, want
+        rec.update(tries=tries, held_experts=held,
+                   experts=base.moe.padded_experts or base.moe.num_experts, batch=[B, S],
+                   dtype=base.param_dtype)
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        # (2) the config's ZeRO-1 step, bf16
+        api = build_model(base)
+        t0 = time.perf_counter()
+        state = tl.init_state(api, 0, dist)
+        rec["init_s"] = time.perf_counter() - t0
+        rec["params"] = sum(p.numel() for p in state.params.parameters())
+        step = tl.make_train_step(api, dist, AdamWConfig())
+        losses, norms, ms, packs, a2a, launched = [], [], [], [], [], {}
+        for b in drawn:
+            batch = tl.local_batch(b, dist)
+            dist.abi.barrier(dist.tp_comm)
+            _zero_counts()
+            cc.reset()
+            (state, met), t = _timed(lambda: step(state, batch), on_card, dev)
+            losses.append(float(met.loss))
+            norms.append(float(met.grad_norm))
+            ms.append(t)
+            c = _counts()
+            packs.append(c["pack_transposed"])
+            a2a.append(cc.counts.get("alltoall", 0))
+            for name, v in c.items():
+                if v and name != "pack_transposed":
+                    launched[name] = launched.get(name, 0) + v
+        named = param_leaves(state.params)
+        expert = [n.startswith("layers.moe.experts.") for n, _ in named]
+        rec.update(losses=losses, grad_norms=norms, ms=ms, packs=packs, alltoalls=a2a,
+                   other_launches=launched,
+                   replicated_sha=_digest(p for (_, p), e in zip(named, expert) if not e),
+                   expert_sha=_digest(p for (_, p), e in zip(named, expert) if e),
+                   peak_gb=(torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else 0.0))
+        # (3) one microbatch's forward and backward, and the alltoall alone
+        params = [p for _, p in named]
+        fb = {"forward": [], "backward": []}
+        for _ in range(3):
+            dist.abi.barrier(dist.tp_comm)
+            loss, t = _timed(lambda: api.loss_fn(state.params, mb, dist), on_card, dev)
+            fb["forward"].append(t)
+            _, t = _timed(lambda: torch.autograd.grad(loss, params), on_card, dev)
+            fb["backward"].append(t)
+        del loss
+        m = base.moe
+        E_pad = m.padded_experts or m.num_experts
+        T_local = (B // n_micro) * S // world
+        C = _capacity(T_local, m.top_k, m.num_experts, m.capacity_factor)
+        buf = torch.randn((E_pad, C, base.d_model), generator=torch.Generator().manual_seed(1))
+        buf = buf.to(dev, torch.bfloat16 if on_card else torch.float32)
+        times = []
+        for _ in range(3 + TIMING_ITERS):
+            dist.abi.barrier(dist.tp_comm)
+            _, t = _timed(lambda: dist.abi.alltoall(buf, dist.tp_comm, split_axis=0,
+                                                    concat_axis=1), on_card, dev)
+            times.append(t * 1e3)
+        rec.update(fwd_bwd_ms=fb, alltoall_us=statistics.median(times[3:]),
+                   alltoall_bytes=buf.numel() * buf.element_size(), capacity=C,
+                   T_local=T_local)
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def phase_ep4(card: str, device: str = "cuda", out_dir: Path = HERE / "build" / "ep4") -> dict:
+    """[ep4] (four cards, NCCL through ``paxi``): :func:`_ep4_rank` on four
+    spawned ranks.  Gates: each rank holds E_pad/4 experts; finite losses,
+    the same on every rank; ``pack_transposed`` once a step on every rank
+    (on the CPU, where the plain version runs, never) and no other kernel;
+    after the last step the replicated leaves' digest equal on the four
+    ranks; in float32 with the aux weight 0 and nothing dropped, every
+    token routed otherwise a router tie (top-k margin below
+    ``ROUTER_TIE``), and on the microbatch where no token on any rank
+    routes otherwise, every gradient leaf within ``EP4_GRAD_TOL`` of its
+    scale of local mode's (a microbatch with such a token is not gated on
+    its gradient: the token moves every leaf's)."""
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks("ep4", _ep4_rank, EP4, out_dir, device)
+    r0 = ranks[0]
+    where = card if device != "cpu" else "gloo"
+    steps = TRAIN_WARM + TRAIN_TIMED
+    log(f"[ep4] {MOE_ARCH} {'full width' if device != 'cpu' else 'smoke'}, {EP4_DEPTH} layers, "
+        f"model_axis={EP4} on {where}: {r0['held_experts']} of {r0['experts']} experts a rank, "
+        f"{r0['params']} parameters a rank ({r0['dtype']}) drawn in {r0['init_s']:.1f} s")
+    for i, first in enumerate(r0["tries"]):
+        tr = [r["tries"][i] for r in ranks]
+        log(f"[ep4] f32 gradient of microbatch {i}, aux 0, capacity {MOE4_NO_DROP} (nothing "
+            f"drops): EP loss {first['loss_ep']:.6f} vs local {first['loss_local']:.6f}; worst "
+            f"leaf per rank {[(t['grad_worst'], f'{t['grad_err']:.3e}') for t in tr]} of its "
+            f"scale (bound {EP4_GRAD_TOL}); tokens routed otherwise {[t['flipped'] for t in tr]} "
+            f"(largest margin {max(t['flipped_margin'] for t in tr):.3e}, smallest "
+            f"{min(t['min_margin'] for t in tr):.3e})")
+    log(f"[ep4] the config's ZeRO-1 step, batch {r0['batch'][0]}x{r0['batch'][1]}: losses "
+        f"{[round(v, 4) for v in r0['losses']]} grad norms "
+        f"{[round(v, 4) for v in r0['grad_norms']]}; ms/step per rank "
+        f"{[[round(t, 1) for t in r['ms']] for r in ranks]} (rank 0's median of the "
+        f"{TRAIN_TIMED} after {TRAIN_WARM} warm {statistics.median(r0['ms'][TRAIN_WARM:]):.1f}); "
+        f"peak GB per card {[round(r['peak_gb'], 2) for r in ranks]}; pack_transposed a step "
+        f"{[r['packs'] for r in ranks]}; ABI alltoalls a step {r0['alltoalls']}")
+    log(f"[ep4] replicated leaves' SHA-256 per rank {[r['replicated_sha'][:16] for r in ranks]}; "
+        f"experts' {[r['expert_sha'][:16] for r in ranks]}; one microbatch's forward ms "
+        f"{[round(t, 1) for t in r0['fwd_bwd_ms']['forward']]} and backward ms "
+        f"{[round(t, 1) for t in r0['fwd_bwd_ms']['backward']]} (rank 0); alltoall of the "
+        f"step's ({r0['capacity']}-slot, T = {r0['T_local']}) dispatch buffer, "
+        f"{r0['alltoall_bytes'] / 1e6:.2f} MB: {[round(r['alltoall_us'], 1) for r in ranks]} µs "
+        f"(median of {TIMING_ITERS}); phase wall {time.perf_counter() - t0:.1f} s")
+    want_pack = [1] * steps if device != "cpu" else [0] * steps
+    for r, rec in enumerate(ranks):
+        last = rec["tries"][-1]
+        ties = all(t["flipped_margin"] < ROUTER_TIE for t in rec["tries"])
+        grad_ok = ties and last["flipped_anywhere"] == 0 and last["grad_err"] <= EP4_GRAD_TOL
+        if (rec["held_experts"] != rec["experts"] // EP4 or rec["losses"] != r0["losses"]
+                or not all(math.isfinite(v) for v in rec["losses"] + rec["grad_norms"])
+                or rec["packs"] != want_pack or rec["other_launches"]
+                or rec["replicated_sha"] != r0["replicated_sha"] or not grad_ok):
+            raise AssertionError(
+                f"[ep4] rank {r}: experts {rec['held_experts']}, losses {rec['losses']} (rank 0 "
+                f"{r0['losses']}), pack_transposed {rec['packs']}, other launches "
+                f"{rec['other_launches']}, replicated digest {rec['replicated_sha'][:16]} (rank "
+                f"0 {r0['replicated_sha'][:16]}), gradient per microbatch tried "
+                f"{[(t['grad_err'], t['grad_worst']) for t in rec['tries']]}, tokens routed "
+                f"otherwise {[(t['flipped'], t['flipped_margin']) for t in rec['tries']]} (on "
+                f"any rank {[t['flipped_anywhere'] for t in rec['tries']]})")
+    if len({r["expert_sha"] for r in ranks}) != EP4:
+        raise AssertionError("[ep4] two ranks hold the same experts")
+    return r0
+
+
+#: [pp4]: four cards, one pipeline stage each, M microbatches
+PP4 = 4
+PP4_M = 4
+PP4_BATCH, PP4_SEQ = 8, 128
+PP4_LOSS_RTOL = 1e-5
+PP4_GRAD_TOL = 1e-4
+PP4_WARM, PP4_TIMED = 2, 3
+
+
+def _pp4_rank(rank: int, world: int, init_method: str, out_dir: str,
+              device: str = "cuda") -> None:
+    """One rank of [pp4]: qwen2-0.5b at full width in float32 (the CPU:
+    the smoke config at 4 layers), 24 layers in 4 stages of 6 on a
+    ``(pod, model)`` mesh, this rank's stage built from the whole model's
+    seed-0 draw; ``pipelined_loss_fn`` over ``PP4_M`` microbatches of a
+    batch 8 x 128, its gradient, and the embedding's and final norm's
+    summed over the stages; the ABI calls of the forward and the backward;
+    against ``loss_fn`` of the whole model on this card: the loss, every
+    gradient leaf (the stage's layers as its slice); ms per pipelined step
+    and per one-card step."""
+    sys.path.insert(0, str(SRC))
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import CallCounter
+    from repro_torch.data.pipeline import DataPipeline, SyntheticSource
+    from repro_torch.models import build_model, param_leaves, transformer
+    from repro_torch.runtime.dist import make_dist
+    from repro_torch.runtime.pipeline import (make_pp_dist, pipelined_loss_fn,
+                                              replicated_grad_sum)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    on_card = device != "cpu"
+    if not on_card:
+        torch.set_num_threads(1)
+    base = (configs.get_config(ARCH) if on_card
+            else dataclasses.replace(configs.smoke_config(ARCH), num_layers=4))
+    cfg = dataclasses.replace(base, param_dtype="float32", compute_dtype="float32")
+    B, S = (PP4_BATCH, PP4_SEQ) if on_card else (8, 16)
+    rec: dict = {}
+    with make_dist(device=f"cuda:{rank}" if on_card else "cpu", world_size=world, rank=rank,
+                   init_method=init_method, axis_names=("pod", "model")) as dist:
+        dist = make_pp_dist(dist, "pod")
+        dev = dist.device
+        s = dist.abi.comm_rank(dist.pp_comm)
+        cc = CallCounter()
+        dist.abi.attach_tool(cc)
+        api = build_model(cfg)
+        whole = api.init(0, "cpu")
+        scfg, part = transformer.stage_model(whole, cfg, s, world, dev)
+        embed_fn, layer_stack_fn, head_fn = transformer.pipeline_fns(part, scfg)
+        pipe = DataPipeline(SyntheticSource(cfg.vocab_size, seed=0), global_batch=B, seq_len=S)
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in next(pipe).items()}
+        pipe.close()
+        named = param_leaves(part)
+        params = [p for _, p in named]
+        shared = [not n.startswith("layers.") for n, _ in named]
+
+        def pp_step():
+            loss = pipelined_loss_fn(embed_fn, layer_stack_fn, head_fn, part, batch, dist=dist,
+                                     n_microbatches=PP4_M, stage_axis="pod")
+            fwd = dict(cc.counts)
+            grads = list(torch.autograd.grad(loss, params))
+            summed = iter(replicated_grad_sum([g for g, k in zip(grads, shared) if k], dist))
+            grads = [next(summed) if k else g for g, k in zip(grads, shared)]
+            return loss, grads, fwd
+
+        cc.reset()
+        loss, grads, fwd = pp_step()
+        bwd = {k: v - fwd.get(k, 0) for k, v in cc.counts.items()}
+        pp_ms = []
+        for _ in range(PP4_WARM + PP4_TIMED):
+            dist.abi.barrier(dist.pp_comm)
+            _, t = _timed(pp_step, on_card, dev)
+            pp_ms.append(t)
+        # the whole model on this card, un-pipelined
+        ref = whole.to(dev)
+        ref_named = dict(param_leaves(ref))
+
+        def one_step():
+            l = api.loss_fn(ref, batch)
+            return l, torch.autograd.grad(l, list(ref_named.values()))
+
+        ref_loss, ref_grads = one_step()
+        ref_grads = dict(zip(ref_named, ref_grads))
+        one_ms = []
+        for _ in range(PP4_WARM + PP4_TIMED):
+            _, t = _timed(one_step, on_card, dev)
+            one_ms.append(t)
+        n = scfg.num_layers
+        worst, worst_leaf = 0.0, ""
+        for (name, _), g in zip(named, grads):
+            want = ref_grads[name]
+            if name.startswith("layers."):
+                want = want[s * n:(s + 1) * n]
+            err = float((g - want).abs().max() / want.abs().max().clamp_min(1e-30))
+            if err > worst:
+                worst, worst_leaf = err, name
+        rec.update(stage=s, layers=n, loss=float(loss.detach()),
+                   ref_loss=float(ref_loss.detach()), batch=[B, S],
+                   grad_err=worst, grad_worst=worst_leaf,
+                   fwd_calls={k: v for k, v in fwd.items() if k != "comm_rank"},
+                   bwd_calls={k: v for k, v in bwd.items() if k != "comm_rank"},
+                   pp_ms=pp_ms, one_ms=one_ms,
+                   peak_gb=(torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else 0.0))
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def phase_pp4(card: str, device: str = "cuda", out_dir: Path = HERE / "build" / "pp4") -> dict:
+    """[pp4] (four cards, NCCL through ``paxi``): :func:`_pp4_rank` on four
+    spawned ranks.  Gates: the pipelined loss within ``PP4_LOSS_RTOL`` of
+    the un-pipelined one on every rank; every gradient leaf within
+    ``PP4_GRAD_TOL`` of its scale; ``M + S - 1`` ABI ``sendrecv`` calls in
+    the forward and as many in the backward.  Records ms per pipelined
+    step against the one-card step, and the bubble share (S-1)/(M+S-1)."""
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks("pp4", _pp4_rank, PP4, out_dir, device)
+    r0 = ranks[0]
+    hops = PP4_M + PP4 - 1
+    med = lambda v: statistics.median(v[PP4_WARM:])  # noqa: E731
+    log(f"[pp4] {ARCH} {'full width' if device != 'cpu' else 'smoke'} in f32, "
+        f"{PP4 * r0['layers']} layers in {PP4} stages of {r0['layers']} on "
+        f"{card if device != 'cpu' else 'gloo'}, M={PP4_M} microbatches of batch "
+        f"{r0['batch'][0]}x{r0['batch'][1]}: loss per stage {[r['loss'] for r in ranks]} vs un-pipelined "
+        f"{[r['ref_loss'] for r in ranks]}; worst gradient leaf per stage "
+        f"{[(r['grad_worst'], f'{r['grad_err']:.3e}') for r in ranks]} of its scale (bound "
+        f"{PP4_GRAD_TOL}); ABI calls forward {r0['fwd_calls']}, backward {r0['bwd_calls']}")
+    log(f"[pp4] ms per pipelined step per stage {[[round(t, 1) for t in r['pp_ms']] for r in ranks]} "
+        f"(rank 0's median {med(r0['pp_ms']):.1f}) vs one card, un-pipelined "
+        f"{[round(t, 1) for t in r0['one_ms']]} (median {med(r0['one_ms']):.1f}); bubble share "
+        f"(S-1)/(M+S-1) = {PP4 - 1}/{hops} = {(PP4 - 1) / hops:.3f}; peak GB per card "
+        f"{[round(r['peak_gb'], 2) for r in ranks]}; phase wall {time.perf_counter() - t0:.1f} s")
+    for r, rec in enumerate(ranks):
+        if (rec["stage"] != r or not math.isclose(rec["loss"], rec["ref_loss"], rel_tol=PP4_LOSS_RTOL)
+                or rec["grad_err"] > PP4_GRAD_TOL
+                or rec["fwd_calls"].get("sendrecv") != hops
+                or rec["bwd_calls"].get("sendrecv") != hops):
+            raise AssertionError(
+                f"[pp4] stage {r}: loss {rec['loss']} vs {rec['ref_loss']}, gradient "
+                f"{rec['grad_err']} at {rec['grad_worst']}, sendrecv forward "
+                f"{rec['fwd_calls'].get('sendrecv')} backward {rec['bwd_calls'].get('sendrecv')} "
+                f"(want {hops} each)")
+    return r0
+
+
 CU = "src/repro_torch/kernels/ring_wire/csrc/"
 TPU = "src/repro/kernels/ring_wire/kernel.py:"
 #: name -> (CUDA source, the TPU kernel it replaces)
@@ -3719,12 +4319,21 @@ KERNELS = {
 }
 
 
+def _need_cards(name: str, n: int) -> None:
+    import torch
+
+    if torch.cuda.device_count() < n:
+        raise RuntimeError(f"[{name}] needs {n} cards, found {torch.cuda.device_count()}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("check", "ring4", "serve", "swap", "fault", "fault4",
-                                       "ssm", "moe", "moe4"),
+                                       "ssm", "moe", "moe4", "ep4", "pp4"),
                     default=None,
                     help="check: stop after building and checking the kernels; "
+                         "ep4: build, then only the four-card expert-parallel training; "
+                         "pp4: only the four-card pipeline (no build); "
                          "moe: build, then only [train-moe], [forward-moe] and [serve-moe]; "
                          "moe4: build, then only the four-card expert parallelism; "
                          "ssm: build, then only [train-ssm], [train-hybrid], [serve-ssm] "
@@ -3771,6 +4380,11 @@ def main() -> int:
             phase_serve(card)
             log("[only] serve: the engine served on the card; no result line")
             return 0
+        if args.only == "pp4":
+            _need_cards("pp4", PP4)
+            phase_pp4(card)
+            log("[only] pp4: the pipeline's loss and gradient matched one card; no result line")
+            return 0
         phase_build()
         if args.only == "ring4":
             if torch.cuda.device_count() < RING4:
@@ -3809,6 +4423,12 @@ def main() -> int:
             log("[only] moe4: expert parallelism on four cards matched local mode; no result "
                 "line")
             return 0
+        if args.only == "ep4":
+            _need_cards("ep4", EP4)
+            phase_ep4(card)
+            log("[only] ep4: expert-parallel training on four cards matched local mode; no "
+                "result line")
+            return 0
         if args.only == "fault4":
             if torch.cuda.device_count() < FAULT4:
                 raise RuntimeError(f"[fault4] needs {FAULT4} cards, found "
@@ -3833,10 +4453,12 @@ def main() -> int:
         launches["pack_transposed_ef"] = phase_main_bf16()["pack_transposed_ef"]
         int8 = phase_main_int8(uncompressed)
         launches.update({k: int8[k] for k in HOPS})
+        gspmd_pack = phase_train_gspmd()
         phase_abi_swap(card)
         phase_fault(card)
         by_phase = {"flash_attention": {"forward": phase_forward(card)},
-                    "pack_transposed": {"main": launches["pack_transposed"]}}
+                    "pack_transposed": {"main": launches["pack_transposed"],
+                                        "train-gspmd": gspmd_pack}}
         phase_forward_gemma(card)
         by_phase["pack_transposed"]["train-moe"] = phase_train_moe(card)
         by_phase["flash_attention"]["forward-moe"], model = phase_forward_moe(card)

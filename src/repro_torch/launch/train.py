@@ -10,7 +10,9 @@ gradient wire (``parallelism.grad_compression``), and
 ``--world-size``/``--rank``/``--init-method``
 place this process in a multi-rank world (one process per rank, each given
 the same rendezvous, e.g. ``tcp://localhost:<port>``; a world of one needs
-none of them).
+none of them).  ``--model-axis R`` lays the world out as
+``(world / R, R)``: the moe config then trains expert-parallel, each rank
+holding its ``E_pad / R`` experts (``train_loop.init_state``).
 
 The loop runs under ``runtime.fault.run_supervised``, as the reference's
 does: ``--ckpt-dir D --ckpt-every N`` saves every N steps (async) in the

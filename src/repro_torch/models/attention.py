@@ -52,6 +52,19 @@ def attention_shapes(cfg, dtype, lead: tuple = ()) -> dict:
     return out
 
 
+def spec_attention(cfg, fsdp, tp) -> dict:
+    """Projections over ``tp`` only where whole heads divide the
+    production model axis (``parallelism.tp_size``), else replicated over
+    it (Megatron's GQA/MQA practice)."""
+    ts = cfg.parallelism.tp_size
+    q_tp = tp if ts and cfg.num_heads % ts == 0 else None
+    kv_tp = tp if ts and cfg.num_kv_heads % ts == 0 else None
+    p = {"wq": (fsdp, q_tp), "wk": (fsdp, kv_tp), "wv": (fsdp, kv_tp), "wo": (q_tp, fsdp)}
+    if cfg.qkv_bias:
+        p.update({"bq": (q_tp,), "bk": (kv_tp,), "bv": (kv_tp,)})
+    return p
+
+
 def _project_qkv(p: dict, x: torch.Tensor, cfg):
     hd = cfg.resolved_head_dim
     q = x @ p["wq"].to(x.dtype)

@@ -27,16 +27,24 @@ def dtype_of(name: str) -> torch.dtype:
 # numbers come from a CPU generator, so one seed gives the same weights on
 # every device.
 # ---------------------------------------------------------------------------
-def normal_init_(w: torch.Tensor, gen: torch.Generator, std: float) -> None:
+def normal_init_(w: torch.Tensor, gen: torch.Generator, std: float,
+                 part: tuple = (0, 1)) -> None:
     """Fill ``w`` with N(0, 1) * std, one slice of its leading (layer) axis
-    at a time when it is stacked, so the host holds one layer's draw."""
-    for part in (w if w.ndim > 2 else (w,)):
-        part.copy_(torch.randn(part.shape, generator=gen).mul_(std))
+    at a time when it is stacked, so the host holds one layer's draw.
+    ``part=(r, n)``: each slice holds part ``r`` of ``n`` of a draw ``n``
+    times its first axis long (one rank's experts of the whole layer's), so
+    every split draws the same weights from one seed."""
+    r, n = part
+    for s in (w if w.ndim > 2 else (w,)):
+        k = s.shape[0]
+        s.copy_(torch.randn((k * n, *s.shape[1:]), generator=gen)[r * k:(r + 1) * k].mul_(std))
 
 
-def dense_init_(w: torch.Tensor, gen: torch.Generator, scale: float = 1.0) -> None:
-    """Fill ``w`` (…, in, out) with N(0, 1) * scale / sqrt(in)."""
-    normal_init_(w, gen, scale / math.sqrt(w.shape[-2]))
+def dense_init_(w: torch.Tensor, gen: torch.Generator, scale: float = 1.0,
+                part: tuple = (0, 1)) -> None:
+    """Fill ``w`` (…, in, out) with N(0, 1) * scale / sqrt(in)
+    (:func:`normal_init_`'s ``part``)."""
+    normal_init_(w, gen, scale / math.sqrt(w.shape[-2]), part)
 
 
 def embed_init_(w: torch.Tensor, gen: torch.Generator) -> None:
@@ -72,6 +80,29 @@ def norm_shapes(shape: tuple, kind: str) -> dict:
     if kind != "rmsnorm":
         out["bias"] = (shape, torch.float32)
     return out
+
+
+def spec_norm(kind: str) -> dict:
+    """A norm node's parameter specs (the reference's ``spec_norm``)."""
+    if kind == "rmsnorm":
+        return {"scale": (None,)}
+    return {"scale": (None,), "bias": (None,)}
+
+
+def spec_embedding(tie: bool, tp: str, fsdp, vocab: int = 0, tp_size: int = 0) -> dict:
+    """The embedding's specs: vocab over ``tp`` where the model axis
+    divides it, ``d_model`` over ``fsdp``."""
+    v_tp = tp if not tp_size or (vocab and vocab % tp_size == 0) else None
+    p = {"tok": (v_tp, fsdp)}
+    if not tie:
+        p["unembed"] = (fsdp, v_tp)
+    return p
+
+
+def stack_specs(tree: dict) -> dict:
+    """Every spec of ``tree`` with a leading ``None``: the layer axis of
+    stacked per-layer parameters."""
+    return {k: stack_specs(v) if isinstance(v, dict) else (None, *v) for k, v in tree.items()}
 
 
 def embed_shapes(cfg, dtype) -> dict:

@@ -31,7 +31,7 @@ import torch
 from torch import nn
 
 from ..runtime.device import resolve_device
-from .attention import KVCache, attention, attention_shapes, init_kv_cache
+from .attention import KVCache, attention, attention_shapes, init_kv_cache, spec_attention
 from .common import (
     ParamBlock,
     dense_init_,
@@ -43,11 +43,14 @@ from .common import (
     norm,
     norm_shapes,
     softmax_cross_entropy,
+    spec_embedding,
+    spec_norm,
+    stack_specs,
     unembed,
 )
 from .mamba import (MambaState, init_mamba_param_, init_mamba_state, mamba_block,
-                    mamba_layer_shapes)
-from .mlp import mlp, mlp_shapes
+                    mamba_layer_shapes, spec_mamba_layer)
+from .mlp import mlp, mlp_shapes, spec_mlp
 
 
 class HybridState(NamedTuple):
@@ -77,6 +80,25 @@ class HybridLM(nn.Module):
         self.shared.attn = ParamBlock(attention_shapes(cfg, pdt), device)
         self.shared.ln2 = ParamBlock(norm_shapes((d,), cfg.norm), device)
         self.shared.mlp = ParamBlock(mlp_shapes(d, cfg.d_ff, cfg.activation, pdt), device)
+
+
+def spec_lm(cfg, fsdp="data", tp="model") -> dict:
+    """Parameter specs with :class:`HybridLM`'s keys (the reference's)."""
+    shared = {
+        "in_proj": (fsdp, tp),
+        "ln1": spec_norm(cfg.norm),
+        "attn": spec_attention(cfg, fsdp, tp),
+        "ln2": spec_norm(cfg.norm),
+        "mlp": spec_mlp(cfg.activation, fsdp, tp),
+        "out_proj": (fsdp, tp),
+    }
+    return {
+        "embed": spec_embedding(cfg.tie_embeddings, tp, fsdp,
+                                vocab=cfg.vocab_size, tp_size=cfg.parallelism.tp_size),
+        "layers": stack_specs(spec_mamba_layer(cfg, fsdp, tp)),
+        "shared": shared,
+        "final_norm": spec_norm(cfg.norm),
+    }
 
 
 @torch.no_grad()

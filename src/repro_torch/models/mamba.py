@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from ..kernels.mamba2_ssd.ops import ssd_apply
 from ..kernels.mamba2_ssd.ref import ssd_chunked  # noqa: F401  (the reference's name)
 from ..runtime.device import resolve_device
-from .common import dense_init_, dtype_of, norm, norm_shapes, normal_init_
+from .common import dense_init_, dtype_of, norm, norm_shapes, normal_init_, spec_norm
 
 
 class MambaState(NamedTuple):
@@ -58,6 +58,21 @@ def mamba_layer_shapes(cfg, dtype, L: int) -> tuple[dict, dict]:
     norms = {"norm": norm_shapes((L, d), cfg.norm),
              "out_norm": norm_shapes((L, d_inner), "rmsnorm")}
     return params, norms
+
+
+def spec_mamba_layer(cfg, fsdp, tp) -> dict:
+    """One Mamba2 layer's parameter specs (the reference's)."""
+    return {
+        "norm": spec_norm(cfg.norm),
+        "in_proj": (fsdp, tp),
+        "conv_w": (None, tp),
+        "conv_b": (tp,),
+        "A_log": (None,),
+        "D": (None,),
+        "dt_bias": (None,),
+        "out_norm": spec_norm("rmsnorm"),
+        "out_proj": (tp, fsdp),
+    }
 
 
 @torch.no_grad()

@@ -18,6 +18,12 @@ def mlp_shapes(d: int, f: int, activation: str, dtype, lead: tuple = ()) -> dict
     return out
 
 
+def spec_mlp(activation: str, fsdp, tp) -> dict:
+    if is_glu(activation):
+        return {"wi": (fsdp, tp), "wg": (fsdp, tp), "wo": (tp, fsdp)}
+    return {"wi": (fsdp, tp), "wo": (tp, fsdp)}
+
+
 def mlp(p: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
     """``p``: one layer's weights (``wi``, ``wo`` and, for GLU, ``wg``)."""
     if is_glu(activation):

@@ -1,7 +1,11 @@
 """Model factory and the weight bridge from the reference package.
 
-``build_model(cfg)`` returns a :class:`ModelApi` with ``init(seed, device)``
-(-> the parameter module), ``loss_fn(model, batch)``,
+``build_model(cfg)`` returns a :class:`ModelApi` with ``init(seed, device,
+model_rank=0, model_axis=1)`` (-> the parameter module; the moe family
+under expert parallelism holds that model rank's part of the experts),
+``param_specs(fsdp, tp)`` (-> the reference's parameter specs, a nested
+dict with the parameters' keys, see ``runtime/sharding.py``),
+``loss_fn(model, batch)``,
 ``forward(model, batch, last_only=False)`` (-> logits),
 ``decode_init(batch, max_seq, device=None)`` (-> the decode state: the
 dense and moe families' contiguous KV cache, the ssm family's recurrent
@@ -28,9 +32,12 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..optim.adamw import tree_leaves
 from ..runtime.device import resolve_device
+from ..runtime.sharding import _strip_axes
 from . import hybrid, rwkv, transformer
-from .common import is_glu
+from .common import is_glu, stack_specs
+from .moe import _ep_expert_specs
 
 #: family -> (its module, its parameter module)
 _FAMILIES = {"dense": (transformer, transformer.TransformerLM),
@@ -51,6 +58,7 @@ def _family(cfg: ModelConfig):
 class ModelApi:
     cfg: ModelConfig
     init: Callable
+    param_specs: Callable
     loss_fn: Callable
     forward: Callable
     decode_init: Optional[Callable] = None
@@ -61,9 +69,14 @@ def build_model(cfg: ModelConfig) -> ModelApi:
     fam, _ = _family(cfg)
     # only the transformer's functions take the dist (the MoE block's EP)
     on = (lambda dist: {"dist": dist}) if fam is transformer else (lambda dist: {})
+    # only the transformer's moe layers split a parameter over the model axis
+    part = ((lambda r, n: {"model_rank": r, "model_axis": n}) if fam is transformer
+            else (lambda r, n: {}))
     api = ModelApi(
         cfg,
-        init=lambda seed=0, device=None: fam.init_lm(cfg, seed, resolve_device(device)),
+        init=lambda seed=0, device=None, model_rank=0, model_axis=1: fam.init_lm(
+            cfg, seed, resolve_device(device), **part(model_rank, model_axis)),
+        param_specs=lambda fsdp="data", tp="model": fam.spec_lm(cfg, fsdp, tp),
         loss_fn=lambda m, b, dist=None: fam.loss_fn(m, b, cfg, **on(dist)),
         forward=lambda m, b, dist=None, last_only=False: fam.forward(
             m, b["tokens"], cfg, last_only=last_only, **on(dist)),
@@ -87,6 +100,30 @@ def param_leaves(model: nn.Module) -> list[tuple[str, nn.Parameter]]:
     return sorted(model.named_parameters(), key=lambda kv: kv[0].split("."))
 
 
+def held_specs(api: ModelApi, expert_parts: int = 1, tp: str = "model") -> dict:
+    """The specs of what a rank holds of a model whose experts are split
+    into ``expert_parts`` (its ``expert_part[1]``): the reference's
+    ``param_specs(fsdp=None, tp)`` with ``tp`` kept only on the leaves the
+    port splits over the model axis — each layer's experts under expert
+    parallelism at ``model_axis > 1`` — and every other leaf whole (the
+    port keeps the dense layers replicated where GSPMD would split them)."""
+    def whole(tree):
+        return {k: whole(v) if isinstance(v, dict) else _strip_axes(v, frozenset({tp}))
+                for k, v in tree.items()}
+
+    specs = whole(api.param_specs(fsdp=None, tp=tp))
+    if expert_parts > 1:
+        specs["layers"]["moe"]["experts"] = stack_specs(_ep_expert_specs(api.cfg, tp))
+    return specs
+
+
+def split_leaves(specs: dict, tp: str = "model") -> list[bool]:
+    """Per leaf, in ``param_leaves`` order: does its spec split it over
+    ``tp``."""
+    return [any(a == tp or (isinstance(a, tuple) and tp in a) for a in spec)
+            for spec in tree_leaves(specs)]
+
+
 def _to_tensor(a) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes bf16 from the reference
@@ -95,16 +132,26 @@ def _to_tensor(a) -> torch.Tensor:
 
 
 @torch.no_grad()
-def from_jax_params(np_tree: dict, cfg: ModelConfig, device=None) -> nn.Module:
+def from_jax_params(np_tree: dict, cfg: ModelConfig, device=None, model_rank: int = 0,
+                    model_axis: int = 1) -> nn.Module:
     """The reference's parameter pytree (nested dicts of numpy arrays, e.g.
     ``jax.tree.map(np.asarray, api.init(key))``) as the port's parameters.
-    Layouts agree, so this is a name map; shapes and dtypes are checked."""
-    model = _family(cfg)[1](cfg, resolve_device(device))
+    Layouts agree, so this is a name map; shapes and dtypes are checked.
+    Under expert parallelism on ``model_axis`` ranks (the moe family) the
+    model keeps rank ``model_rank``'s part of each layer's experts."""
+    fam, cls = _family(cfg)
+    kw = ({"model_rank": model_rank, "model_axis": model_axis} if fam is transformer
+          else {})
+    model = cls(cfg, resolve_device(device), **kw)
+    r, n = getattr(model, "expert_part", (0, 1))
     for name, p in model.named_parameters():
         node = np_tree
         for part in name.split("."):
             node = node[part]
         t = _to_tensor(node)
+        if n > 1 and name.startswith("layers.moe.experts."):
+            El = t.shape[1] // n
+            t = t[:, r * El:(r + 1) * El]
         if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
             raise ValueError(f"{name}: reference leaf {tuple(t.shape)} {t.dtype} "
                              f"does not fit {tuple(p.shape)} {p.dtype}")

@@ -24,9 +24,27 @@ The dispatch is an index copy and the combine an un-permutation to
 the reference's scatter-add visits a token's rows: neither uses float
 atomics, so the card's result is deterministic.  The expert FFNs are
 batched matrix products over the expert axis (the reference's ``vmap``).
-One process is one rank; the EP exchange has no gradient (``_moe_ep``
-raises under autograd: training through it waits for
-``runtime/sharding.py``).
+One process is one rank.  At ``model_axis = R > 1`` a model built for
+training (``init``/``from_jax_params`` given the model rank, see
+:func:`expert_shards`) holds only experts ``[r E_pad/R, (r+1) E_pad/R)`` of
+each layer, as ``spec_moe`` places them; a model built whole (serving, the
+EP-against-local checks) slices its own out.  EP has the gradient of the
+reference's ``shard_map`` (``jax.grad`` through it, ``check_vma=False``):
+each exchange is a ``torch.autograd.Function`` whose backward goes through
+``dist.abi`` on the tensor-parallel communicator —
+
+* the sequence slice: the slices' gradients all-gathered, so every rank
+  gets the full ``dx`` (its producer is replicated);
+* each alltoall: the inverse alltoall (split and concat axes swapped);
+* the closing allgather: this rank's slice of the cotangent, no traffic
+  (its consumer is replicated, so a reduce-scatter would scale by R);
+* the router, replicated but read on this rank's tokens only: its
+  gradient summed over the ranks by ``abi.allreduce``.
+
+The experts' gradients are complete on their own rank.  The aux loss's
+value is the ranks' mean; its gradient is the reference's, 1/R of the
+mean's (its ``shard_map`` gives each rank 1/R of a replicated output's
+cotangent).
 """
 from __future__ import annotations
 
@@ -36,18 +54,32 @@ import torch
 import torch.nn.functional as F
 
 from ..core import PAX_SUM
-from .mlp import mlp, mlp_shapes
+from .common import is_glu
+from .mlp import mlp, mlp_shapes, spec_mlp
 
 
 # ---------------------------------------------------------------------------
 # params
 # ---------------------------------------------------------------------------
-def moe_shapes(cfg, dtype, lead: tuple = ()) -> tuple:
-    """The block's parameter shapes stacked on ``lead``: (its own leaves,
-    {child name: the child's leaves}).  The router stays float32 whatever
-    the model's dtype."""
+def expert_shards(cfg, model_axis: int) -> int:
+    """Into how many parts a model on ``model_axis`` ranks splits each
+    layer's experts: the axis under expert parallelism, else 1."""
     m = cfg.moe
-    E = m.padded_experts or m.num_experts
+    if m is None or m.parallelism != "ep" or model_axis <= 1:
+        return 1
+    E_pad = m.padded_experts or m.num_experts
+    if E_pad % model_axis:
+        raise ValueError(f"EP needs the model axis ({model_axis}) to divide {E_pad} experts")
+    return model_axis
+
+
+def moe_shapes(cfg, dtype, lead: tuple = (), shards: int = 1) -> tuple:
+    """The block's parameter shapes stacked on ``lead``: (its own leaves,
+    {child name: the child's leaves}); the experts' axis holds
+    ``E_pad / shards`` of them.  The router stays float32 whatever the
+    model's dtype."""
+    m = cfg.moe
+    E = (m.padded_experts or m.num_experts) // shards
     d, f = cfg.d_model, m.expert_d_ff
     own = {"router": ((*lead, d, m.num_experts), torch.float32)}
     children = {"experts": mlp_shapes(d, f, cfg.activation, dtype, (*lead, E))}
@@ -56,6 +88,36 @@ def moe_shapes(cfg, dtype, lead: tuple = ()) -> tuple:
         children["shared"] = mlp_shapes(d, m.num_shared_experts * f, cfg.activation, dtype,
                                         lead)
     return own, children
+
+
+def spec_moe(cfg, fsdp, tp) -> dict:
+    """The block's parameter specs (the reference's): under ``ep`` the
+    expert axis over ``tp`` and the expert weights' ``d_model`` over
+    ``fsdp``; under ``tp`` each expert's ``d_ff`` over ``tp``."""
+    m = cfg.moe
+    if m.parallelism == "ep":
+        ew = {"wi": (tp, fsdp, None), "wo": (tp, None, fsdp)}
+        if is_glu(cfg.activation):
+            ew["wg"] = (tp, fsdp, None)
+    else:
+        ew = {"wi": (None, fsdp, tp), "wo": (None, tp, fsdp)}
+        if is_glu(cfg.activation):
+            ew["wg"] = (None, fsdp, tp)
+    p = {"router": (None, None), "experts": ew}
+    if m.num_shared_experts:
+        p["shared"] = spec_mlp(cfg.activation, fsdp, tp)
+        p["shared_gate"] = (None, None)
+    return p
+
+
+def _ep_expert_specs(cfg, tp_axis) -> dict:
+    """The expert leaves' specs inside the EP region: the expert axis over
+    the model axis, the rest whole (what each rank holds at
+    ``model_axis > 1``)."""
+    specs = {"wi": (tp_axis, None, None), "wo": (tp_axis, None, None)}
+    if is_glu(cfg.activation):
+        specs["wg"] = (tp_axis, None, None)
+    return specs
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +197,11 @@ def moe_block(p: dict, x: torch.Tensor, cfg, dist=None) -> tuple:
     S = x.shape[1]
     use_ep = (m.parallelism == "ep" and dist is not None and dist.tp_size > 1
               and S % dist.tp_size == 0)
+    held = p["experts"]["wo"].shape[0]
+    if not use_ep and held != (m.padded_experts or m.num_experts):
+        raise ValueError(f"this model holds {held} experts of a layer (one rank's part): "
+                         f"it runs expert-parallel only, with a dist whose model axis "
+                         f"divides the sequence ({S})")
     y_shared = _shared_path(p, x, cfg)
     y, aux = _moe_ep(p, x, cfg, dist) if use_ep else _moe_local(p, x, cfg)
     if y_shared is not None:
@@ -162,15 +229,73 @@ def _moe_local(p: dict, x: torch.Tensor, cfg) -> tuple:
     return y.reshape(B, S, d), aux
 
 
+class _SeqSlice(torch.autograd.Function):
+    """(B, S, d), the same on every rank -> this rank's (B, S/R, d);
+    backward: the slices' gradients all-gathered along the sequence."""
+
+    @staticmethod
+    def forward(ctx, x, abi, comm, r, R):
+        ctx.abi, ctx.comm = abi, comm
+        Sl = x.shape[1] // R
+        return x[:, r * Sl:(r + 1) * Sl].clone(memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.abi.allgather(g.contiguous(), ctx.comm, axis=1), None, None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """``abi.alltoall``; backward: the inverse alltoall (the split and
+    concat axes swapped)."""
+
+    @staticmethod
+    def forward(ctx, x, abi, comm, split_axis, concat_axis):
+        ctx.abi, ctx.comm, ctx.axes = abi, comm, (split_axis, concat_axis)
+        return abi.alltoall(x, comm, split_axis=split_axis, concat_axis=concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split, concat = ctx.axes
+        return (ctx.abi.alltoall(g.contiguous(), ctx.comm, split_axis=concat,
+                                 concat_axis=split), None, None, None, None)
+
+
+class _AllGatherSeq(torch.autograd.Function):
+    """``abi.allgather`` of the (B, S/R, d) slices along the sequence;
+    backward: this rank's slice of the cotangent (the consumer is the same
+    on every rank, so each holds the whole cotangent already)."""
+
+    @staticmethod
+    def forward(ctx, y, abi, comm, r, R):
+        ctx.r, ctx.R = r, R
+        return abi.allgather(y, comm, axis=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        Sl = g.shape[1] // ctx.R
+        return g[:, ctx.r * Sl:(ctx.r + 1) * Sl].contiguous(), None, None, None, None
+
+
+class _SumGrad(torch.autograd.Function):
+    """The identity on a tensor the same on every rank that each rank reads
+    for its own part of the work; backward: the gradients summed over the
+    ranks by ``abi.allreduce``."""
+
+    @staticmethod
+    def forward(ctx, w, abi, comm):
+        ctx.abi, ctx.comm = abi, comm
+        return w.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.abi.allreduce(g.contiguous(), PAX_SUM, ctx.comm), None, None
+
+
 def _moe_ep(p: dict, x: torch.Tensor, cfg, dist) -> tuple:
     """This rank's sequence slice, routed with the capacity of its own
     ``B * S / R`` tokens; ``(E_pad, C, d)`` -> alltoall -> ``(E_pad / R,
     R * C, d)`` through this rank's experts -> alltoall back -> combine;
     then the slices are all-gathered along the sequence."""
-    if torch.is_grad_enabled() and (x.requires_grad or p["router"].requires_grad):
-        raise NotImplementedError(
-            "expert parallelism runs forward only: its gradient through the alltoall "
-            "comes with runtime/sharding.py (ROADMAP queue 1 item 6)")
     m = cfg.moe
     abi, comm = dist.abi, dist.tp_comm
     R = dist.tp_size
@@ -183,17 +308,22 @@ def _moe_ep(p: dict, x: torch.Tensor, cfg, dist) -> tuple:
     S_local = S // R
     T_local = B * S_local
     C = _capacity(T_local, m.top_k, m.num_experts, m.capacity_factor)
-    xf = x[:, r * S_local:(r + 1) * S_local].reshape(T_local, d)
-    gates, experts, aux = _route(p["router"], xf, m)
+    xf = _SeqSlice.apply(x, abi, comm, r, R).reshape(T_local, d)
+    gates, experts, aux = _route(_SumGrad.apply(p["router"], abi, comm), xf, m)
     buf, combine = _dispatch_sort(xf, experts, gates, E_pad, C)
-    recv = abi.alltoall(buf, comm, split_axis=0, concat_axis=1)
-    mine = {name: w[r * E_local:(r + 1) * E_local] for name, w in p["experts"].items()}
+    recv = _AllToAll.apply(buf, abi, comm, 0, 1)
+    # a model built for training holds its own experts only
+    mine = {name: w if w.shape[0] == E_local else w[r * E_local:(r + 1) * E_local]
+            for name, w in p["experts"].items()}
     out = mlp(mine, recv, cfg.activation)
-    back = abi.alltoall(out, comm, split_axis=1, concat_axis=0)
+    back = _AllToAll.apply(out, abi, comm, 1, 0)
     y = _combine_sort(back, combine, T_local, d).reshape(B, S_local, d)
-    # the mean over the ranks, its gradient weight 1/R on each (the
-    # reference's split of value and gradient)
+    # the value is the mean over the ranks.  The reference splits value and
+    # gradient so that each rank's term weighs 1/R, and its shard_map
+    # (check_vma=False) hands each rank 1/R of the replicated output's
+    # cotangent: jax.grad gives each rank's term the weight 1/R**2, 1/R of
+    # the mean's gradient, and so does this
     sg = aux.detach()
-    aux = aux / R + (abi.allreduce(sg, PAX_SUM, comm) / R - sg / R)
-    return abi.allgather(y, comm, axis=1), aux
+    aux = aux / R**2 + (abi.allreduce(sg, PAX_SUM, comm) / R - sg / R**2)
+    return _AllGatherSeq.apply(y, abi, comm, r, R), aux
 

@@ -52,6 +52,9 @@ from .common import (
     norm_shapes,
     normal_init_,
     softmax_cross_entropy,
+    spec_embedding,
+    spec_norm,
+    stack_specs,
     unembed,
 )
 
@@ -92,6 +95,42 @@ class RwkvLM(nn.Module):
         self.layers.ln1 = ParamBlock(norm_shapes((L, d), cfg.norm), device)
         self.layers.ln2 = ParamBlock(norm_shapes((L, d), cfg.norm), device)
         self.layers.ln_x = ParamBlock(norm_shapes((L, N), "layernorm"), device)  # per head
+
+
+def spec_rwkv_layer(cfg, fsdp, tp) -> dict:
+    """One rwkv6 layer's parameter specs (the reference's)."""
+    return {
+        "ln1": spec_norm(cfg.norm),
+        "ln2": spec_norm(cfg.norm),
+        "mu_base": (None,),
+        "mu": (None, None),
+        "lora_a": (fsdp, None),
+        "lora_b": (None, None, fsdp),
+        "wr": (fsdp, tp),
+        "wk": (fsdp, tp),
+        "wv": (fsdp, tp),
+        "wg": (fsdp, tp),
+        "wo": (tp, fsdp),
+        "w0": (None,),
+        "u": (None,),
+        "ln_x": spec_norm("layernorm"),
+        "cm_mu_k": (None,),
+        "cm_mu_r": (None,),
+        "cm_wk": (fsdp, tp),
+        "cm_wv": (tp, fsdp),
+        "cm_wr": (fsdp, tp),
+    }
+
+
+def spec_lm(cfg, fsdp="data", tp="model") -> dict:
+    """Parameter specs with :class:`RwkvLM`'s keys; the stacked layer
+    leaves lead with the layer axis (``None``)."""
+    return {
+        "embed": spec_embedding(cfg.tie_embeddings, tp, fsdp,
+                                vocab=cfg.vocab_size, tp_size=cfg.parallelism.tp_size),
+        "layers": stack_specs(spec_rwkv_layer(cfg, fsdp, tp)),
+        "final_norm": spec_norm(cfg.norm),
+    }
 
 
 @torch.no_grad()

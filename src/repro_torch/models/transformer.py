@@ -25,6 +25,7 @@ otherwise, as in the reference, and are written in place.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -32,7 +33,8 @@ import torch
 from torch import nn
 
 from ..runtime.device import resolve_device
-from .attention import KVCache, attention, attention_paged, attention_shapes, init_kv_cache
+from .attention import (KVCache, attention, attention_paged, attention_shapes, init_kv_cache,
+                        spec_attention)
 from .common import (
     ParamBlock,
     dense_init_,
@@ -44,20 +46,31 @@ from .common import (
     norm,
     norm_shapes,
     softmax_cross_entropy,
+    spec_embedding,
+    spec_norm,
+    stack_specs,
     unembed,
 )
-from .mlp import mlp, mlp_shapes
-from .moe import moe_block, moe_shapes
+from .mlp import mlp, mlp_shapes, spec_mlp
+from .moe import expert_shards, moe_block, moe_shapes, spec_moe
 
 
 class TransformerLM(nn.Module):
-    """Parameters of the dense or MoE LM; the forward math is :func:`forward`."""
+    """Parameters of the dense or MoE LM; the forward math is :func:`forward`.
+    ``model_rank``/``model_axis``: under expert parallelism on a model axis
+    of ``model_axis`` ranks, this rank's part of the experts only
+    (``moe.expert_shards``); every other leaf whole."""
 
-    def __init__(self, cfg, device) -> None:
+    def __init__(self, cfg, device, model_rank: int = 0, model_axis: int = 1) -> None:
         super().__init__()
         if cfg.family not in ("dense", "moe"):
             raise ValueError(f"TransformerLM builds the dense and moe families, "
                              f"got {cfg.family!r}")
+        shards = expert_shards(cfg, model_axis)
+        if not 0 <= model_rank < max(shards, 1) or (shards == 1 and model_rank):
+            raise ValueError(f"model rank {model_rank} of {model_axis} holds no expert part")
+        #: (this rank, the parts) of each layer's experts it holds
+        self.expert_part = (model_rank, shards)
         L, d = cfg.num_layers, cfg.d_model
         pdt = dtype_of(cfg.param_dtype)
         self.embed = ParamBlock(embed_shapes(cfg, pdt), device)
@@ -67,7 +80,7 @@ class TransformerLM(nn.Module):
         self.layers.ln1 = ParamBlock(norm_shapes((L, d), cfg.norm), device)
         self.layers.ln2 = ParamBlock(norm_shapes((L, d), cfg.norm), device)
         if cfg.moe is not None:
-            own, children = moe_shapes(cfg, pdt, (L,))
+            own, children = moe_shapes(cfg, pdt, (L,), shards)
             self.layers.moe = ParamBlock(own, device)
             for name, shapes in children.items():
                 self.layers.moe.add_module(name, ParamBlock(shapes, device))
@@ -76,16 +89,43 @@ class TransformerLM(nn.Module):
                                          device)
 
 
+def spec_layer(cfg, fsdp, tp) -> dict:
+    """One layer's parameter specs (the reference's)."""
+    p = {"ln1": spec_norm(cfg.norm), "attn": spec_attention(cfg, fsdp, tp),
+         "ln2": spec_norm(cfg.norm)}
+    if cfg.moe is not None:
+        p["moe"] = spec_moe(cfg, fsdp, tp)
+    else:
+        p["mlp"] = spec_mlp(cfg.activation, fsdp, tp)
+    return p
+
+
+def spec_lm(cfg, fsdp="data", tp="model") -> dict:
+    """Parameter specs with :class:`TransformerLM`'s keys; the stacked
+    layer leaves lead with the layer axis (``None``)."""
+    return {
+        "embed": spec_embedding(cfg.tie_embeddings, tp, fsdp,
+                                vocab=cfg.vocab_size, tp_size=cfg.parallelism.tp_size),
+        "layers": stack_specs(spec_layer(cfg, fsdp, tp)),
+        "final_norm": spec_norm(cfg.norm),
+    }
+
+
 @torch.no_grad()
-def init_lm(cfg, seed: int, device) -> TransformerLM:
+def init_lm(cfg, seed: int, device, model_rank: int = 0, model_axis: int = 1) -> TransformerLM:
     """Random weights from ``seed``, with the reference's distributions:
     N(0,1)/sqrt(in) projections (``wo`` of attention further scaled by
-    1/sqrt(2L)), N(0, 0.02) embeddings, zero biases, unit norm scales."""
-    model = TransformerLM(cfg, device)
+    1/sqrt(2L)), N(0, 0.02) embeddings, zero biases, unit norm scales.  A
+    model holding one rank's part of the experts holds those experts of
+    the whole model's draw."""
+    model = TransformerLM(cfg, device, model_rank, model_axis)
+    part = model.expert_part
     gen = torch.Generator().manual_seed(seed)
     for name, p in sorted(model.named_parameters()):
         leaf = name.rsplit(".", 1)[-1]
-        if name.startswith("embed."):
+        if name.startswith("layers.moe.experts."):
+            dense_init_(p, gen, part=part)
+        elif name.startswith("embed."):
             if leaf == "tok":
                 embed_init_(p, gen)
             else:
@@ -101,6 +141,15 @@ def init_lm(cfg, seed: int, device) -> TransformerLM:
     return model
 
 
+def _dense_layers(lay, x: torch.Tensor, cfg, attend) -> torch.Tensor:
+    """The dense family's layers ``lay`` on the residual ``x``: pre-norm
+    attention (``attend(p, h, l)``), then the pre-norm MLP, each added."""
+    for l in range(cfg.num_layers):
+        x = x + attend(lay.attn.layer(l), norm(lay.ln1.layer(l), x, cfg.norm), l)
+        x = x + mlp(lay.mlp.layer(l), norm(lay.ln2.layer(l), x, cfg.norm), cfg.activation)
+    return x
+
+
 def _trunk(model: TransformerLM, tokens: torch.Tensor, cfg, attend, dist=None) -> tuple:
     """Embed ``tokens`` and run every layer: pre-norm attention, then the
     pre-norm MLP or MoE block, each added to the residual.  ``attend(p, h,
@@ -110,10 +159,7 @@ def _trunk(model: TransformerLM, tokens: torch.Tensor, cfg, attend, dist=None) -
     x = embed_tokens(model.embed.tok, tokens, dtype_of(cfg.compute_dtype))
     lay = model.layers
     if cfg.moe is None:
-        for l in range(cfg.num_layers):
-            x = x + attend(lay.attn.layer(l), norm(lay.ln1.layer(l), x, cfg.norm), l)
-            x = x + mlp(lay.mlp.layer(l), norm(lay.ln2.layer(l), x, cfg.norm), cfg.activation)
-        return x, None
+        return _dense_layers(lay, x, cfg, attend), None
 
     def body(p, xx, l):
         xx = xx + attend(p["attn"], norm(p["ln1"], xx, cfg.norm), l)
@@ -137,6 +183,47 @@ def _positions(start, n: int, batch: int, device) -> torch.Tensor:
     """(batch, n) int32 positions ``start .. start+n``."""
     return (int(start) + torch.arange(n, dtype=torch.int32, device=device))[None, :].expand(
         batch, n)
+
+
+@torch.no_grad()
+def stage_model(model: TransformerLM, cfg, stage: int, stages: int, device=None) -> tuple:
+    """One pipeline stage of a dense ``model``: (the stage's config,
+    a :class:`TransformerLM` holding layers ``[stage L/S, (stage+1) L/S)``
+    and the embedding and final norm) on ``device``."""
+    if cfg.moe is not None:
+        raise ValueError("the pipeline stages run the dense family")
+    L = cfg.num_layers
+    if L % stages:
+        raise ValueError(f"{L} layers do not split into {stages} stages")
+    n = L // stages
+    scfg = dataclasses.replace(cfg, num_layers=n)
+    part = TransformerLM(scfg, resolve_device(device))
+    whole = dict(model.named_parameters())
+    for name, p in part.named_parameters():
+        src = whole[name]
+        p.copy_(src[stage * n:(stage + 1) * n] if name.startswith("layers.") else src)
+    return scfg, part
+
+
+def pipeline_fns(part: TransformerLM, cfg) -> tuple:
+    """(embed_fn, layer_stack_fn, head_fn) of
+    ``runtime.pipeline.pipelined_loss_fn`` over a stage model
+    (:func:`stage_model`): the embedding of ``batch["tokens"]``, the
+    stage's layers on a (mb, S, d) microbatch, and the final norm, the
+    unembedding and the token-mean cross-entropy of ``batch["targets"]``."""
+    def embed_fn(batch):
+        return embed_tokens(part.embed.tok, batch["tokens"], dtype_of(cfg.compute_dtype))
+
+    def layer_stack_fn(stage: TransformerLM, x):
+        B, S = x.shape[:2]
+        positions = _positions(0, S, B, x.device)
+        return _dense_layers(stage.layers, x, cfg, lambda p, h, l: attention(
+            p, h, cfg, positions=positions, causal=True))
+
+    def head_fn(y, batch):
+        return softmax_cross_entropy(_logits(part, y, cfg), batch["targets"])
+
+    return embed_fn, layer_stack_fn, head_fn
 
 
 def forward_aux(model: TransformerLM, tokens: torch.Tensor, cfg, last_only: bool = False,

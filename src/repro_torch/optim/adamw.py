@@ -78,12 +78,14 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tensors))
 
 
-def update_tree(cfg: AdamWConfig, grads, state: AdamState, params, lr_scale=1.0):
+def update_tree(cfg: AdamWConfig, grads, state: AdamState, params, gnorm: torch.Tensor,
+                lr_scale=1.0):
     """``grads`` and ``params`` in ``param_leaves`` order -> (new parameter
-    values in that order, new state, grad norm)."""
+    values in that order, new state).  ``gnorm``: the global norm to clip
+    by (``global_norm(grads)`` when ``grads`` are the whole set; a larger
+    set's when they are one rank's part of it)."""
     step = state.step + 1
     t = step.float()
-    gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
     new_p, new_m, new_v = [], [], []
     for g, m, v, p in zip(grads, tree_leaves(state.m), tree_leaves(state.v), params):
@@ -97,7 +99,7 @@ def update_tree(cfg: AdamWConfig, grads, state: AdamState, params, lr_scale=1.0)
         new_m.append(m2)
         new_v.append(v2)
     return new_p, AdamState(step, _tree_like(state.m, iter(new_m)),
-                            _tree_like(state.v, iter(new_v))), gnorm
+                            _tree_like(state.v, iter(new_v)))
 
 
 # ---------------------------------------------------------------------------

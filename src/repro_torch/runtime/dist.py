@@ -1,7 +1,13 @@
 """DistContext: the distributed-runtime handle threaded through the stack.
 
-Bundles the ABI context, the process mesh and the standard communicators
-(data-parallel group, tensor-parallel group).  Model and training code
+Bundles the ABI context, the process mesh, the axis rules
+(``runtime/sharding.py``'s ``production_rules`` for the mesh) and the
+standard communicators (data-parallel group, tensor-parallel group, and
+the pipeline's stage group once ``runtime.pipeline.make_pp_dist`` adds
+it).  The mesh is ``(data, model)`` by default; any leading axis name may
+replace ``data`` (``("pod", "model")`` for a pipeline over the ``pod``
+axis), and every axis but the model axis is data-parallel, as in the
+reference.  Model and training code
 receive this object and never touch backend internals.  After an elastic
 recovery, :func:`survivor_mesh` and ``make_dist(mesh=...)`` build the
 context over the surviving ranks (their groups created by the survivors
@@ -41,6 +47,7 @@ import torch.distributed as dist
 
 from ..core import PAX_COMM_WORLD, Mesh, PaxABI, pax_init
 from .device import resolve_device
+from .sharding import AxisRules, production_rules
 
 
 @dataclasses.dataclass
@@ -67,6 +74,10 @@ class DistContext:
     #: the deadline of the ZeRO-1 step's waits (None: a dropped collective
     #: hangs, faithfully; a bound raises ``PAX_ERR_TIMEOUT`` instead)
     wait_timeout_s: Optional[float] = None
+    #: the logical-axis rules of this mesh (``production_rules``)
+    rules: Optional[AxisRules] = None
+    #: the pipeline's stage communicator (``runtime.pipeline.make_pp_dist``)
+    pp_comm: Optional[int] = None
 
     @property
     def device(self) -> torch.device:
@@ -79,6 +90,12 @@ class DistContext:
     @property
     def tp_size(self) -> int:
         return self.mesh.shape[self.tp_axis]
+
+    @property
+    def dp_group(self):
+        """The ``torch.distributed`` process group of ``dp_comm`` (the
+        ``gspmd`` step's collectives run on it directly, beside the ABI)."""
+        return self.abi.comms.info(self.dp_comm).group
 
     def drop_zero1_plans(self) -> None:
         """Retire the zero1 plans' and groups' request slots."""
@@ -171,11 +188,14 @@ def make_dist(
     init_method: Optional[str] = None,
     integrity: Optional[bool] = None,
     mesh: Optional[Mesh] = None,
+    axis_names: tuple = ("data", "model"),
 ) -> DistContext:
     """Build the distributed context: start the world (see
-    :func:`init_world`), lay it out as a ``(data, model)`` mesh with
-    ``model_axis`` ranks on the model axis, and register the data- and
-    tensor-parallel communicators.  ``compression`` (``"bf16"`` or
+    :func:`init_world`), lay it out as an ``axis_names`` mesh (default
+    ``(data, model)``) with ``model_axis`` ranks on the last axis and the
+    rest on the first, register the data-parallel (every axis but the
+    model axis) and tensor-parallel communicators, and build the mesh's
+    axis rules.  ``compression`` (``"bf16"`` or
     ``"int8"``) adds the ``ring-<compression>`` context of the compressed
     gradient wire.  ``device`` defaults to the card.  ``impl`` is a backend
     name or a prebuilt backend (a ``faulty:`` wrapper with its schedule);
@@ -193,19 +213,25 @@ def make_dist(
         if world_size % model_axis:
             raise ValueError(f"world size {world_size} is not a multiple of "
                              f"model_axis={model_axis}")
+        if len(axis_names) != 2:
+            raise ValueError(f"a mesh has two axes here (leading, model), got {axis_names}")
         started = init_world(dev, world_size, rank, init_method)
-        mesh = Mesh(("data", "model"), (world_size // model_axis, model_axis), dev)
+        mesh = Mesh(tuple(axis_names), (world_size // model_axis, model_axis), dev)
     abi = pax_init(mesh, impl=impl, tools=tools, integrity=integrity)
-    tp_axis = "model"
-    dp_axes = ("data",)
+    names = tuple(mesh.axis_names)
+    tp_axis = "model" if "model" in names else names[-1]
+    dp_axes = tuple(a for a in names if a != tp_axis)
     dp_comm = abi.comm_from_axes(dp_axes, "dp")
     tp_comm = abi.comm_from_axes((tp_axis,), "tp")
     abi_c = None
     if compression is not None:
         abi_c = pax_init(mesh, impl=f"ring-{compression}", tools=tools)
         abi_c.comm_from_axes(dp_axes, "dp")  # mirror the handle allocation order
+    rules = production_rules(pod="pod" in names, tp_axis=tp_axis,
+                             data_axes=tuple(a for a in dp_axes if a != "pod"),
+                             axis_sizes=dict(mesh.shape), mesh=mesh)
     return DistContext(abi, mesh, dp_axes, tp_axis, dp_comm, tp_comm,
-                       abi_compressed=abi_c, owns_world=started)
+                       abi_compressed=abi_c, owns_world=started, rules=rules)
 
 
 def survivor_mesh(mesh: Mesh, failed_ranks, keep: Optional[int] = None) -> Mesh:

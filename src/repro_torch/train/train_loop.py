@@ -1,6 +1,7 @@
-"""Training step builders (the reference's ``abi`` mode).
+"""The training steps: the reference's two modes, chosen by
+``parallelism.grad_sync`` (:func:`make_train_step`).
 
-Two gradient-sync layouts, as in the reference:
+``abi`` has two gradient-sync layouts, as in the reference:
 
 * **ZeRO-1 flat** (``parallelism.zero1``): the flat gradient is
   reduce-scattered through one plan-group start, the AdamW update runs on
@@ -24,17 +25,36 @@ microseconds a step.  One
 process is one rank, so the code that the reference runs inside a
 ``shard_map`` region runs directly; the batch a step receives is this
 rank's rows.  The step updates the parameter module in place (the
-reference returns new arrays) — that keeps one copy of the weights.  A
-moe step at ``model_axis > 1`` raises: its expert-parallel alltoall has no
-gradient until ``runtime/sharding.py`` is ported.  Its
+reference returns new arrays) — that keeps one copy of the weights.
+
+At ``model_axis = R > 1`` the moe family trains expert-parallel: each rank
+holds its ``E_pad / R`` experts of each layer (``init_state`` builds it so)
+and every other leaf whole, and the EP block's exchanges carry the
+gradient through ``dist.abi`` (``models/moe.py``).  A rank's ZeRO-1 flat
+vector is its *own* leaves, reduce-scattered over ``dp_comm`` (its column
+of the mesh); the per-leaf layout all-reduces its own leaves.  The grad
+norm AdamW clips by counts each leaf once: the split leaves' squares
+(``held_specs``, through the reference's ``grad_specs``) are summed over
+``tp_comm`` first.  Every rank of a column sees the same replicated
+gradients, so the replicated leaves stay bitwise equal on the model axis.
+The ABI step's
 one in-place write (the parameters, from the all-gathered vector) comes
 after every collective of the step; with the transport tier's integrity
 mode on, the step first verifies those collectives' results
 (``verify_clean``, one host sync), so a corrupted step raises
 ``PAX_ERR_DATA_CORRUPTION`` with the state untouched and a retry from the
 same state is bitwise the unfailed step.  The elastic recovery policy
-(:func:`elastic_recovery_policy`) rebuilds the step on the survivors.  The
-reference's ``gspmd`` step waits for a later slice.
+(:func:`elastic_recovery_policy`) rebuilds the step on the survivors.
+
+``gspmd`` (:func:`make_train_step_gspmd`, the 300B-class configs' mode):
+microbatched gradients, the per-leaf AdamW update, under
+``use_rules(dist.rules)``.  In the reference XLA inserts its collectives
+beside PAX; here, at dp > 1, the gradients' and the loss's mean over the
+data axes runs through ``torch.distributed`` on the dp group directly, not
+through the ABI (that split is the mode's point).  Parameters stay
+replicated over the data axis: FSDP over ``parallelism.fsdp_axes`` is not
+ported.  :func:`state_specs` writes down the reference's layout of either
+mode's state.
 """
 from __future__ import annotations
 
@@ -44,10 +64,12 @@ import torch
 from torch.profiler import record_function
 
 from ..core import PAX_SUM
-from ..models.model import ModelApi, param_leaves
+from ..models.model import ModelApi, held_specs, param_leaves, split_leaves
+from ..models.moe import expert_shards
 from ..optim import adamw
 from ..optim.adamw import AdamState, AdamWConfig, FlatAdamState
 from ..runtime.dist import DistContext, dp_comm_of
+from ..runtime.sharding import use_rules
 from .grad_sync import (allgather_params, build_zero1_plans, pad_to,
                         reduce_scatter_grads_finish, reduce_scatter_grads_start,
                         zero1_granule, zero1_wire_dtype)
@@ -70,16 +92,21 @@ def init_state(api: ModelApi, seed: int, dist: DistContext, model=None) -> Train
     ZeRO-1 flat shard with its persistent plans when ``parallelism.zero1``
     is set (with the error-feedback residual on the bf16 wire, and padded
     to whole wire blocks per rank on a compressed ring), per-leaf
-    moments otherwise.  Re-init with an unchanged layout — padded length,
+    moments otherwise (and always under ``grad_sync="gspmd"``).  Re-init
+    with an unchanged layout — padded length,
     dp, buckets, wire dtype and compression — keeps the live plans; a
-    layout change retires them and re-plans."""
+    layout change retires them and re-plans.  Under expert parallelism at
+    ``model_axis > 1`` the weights are this model rank's part of the
+    seed's draw (``api.init(model_rank=, model_axis=)``)."""
+    r, R = _expert_part(api, dist)
     if model is None:
-        model = api.init(seed, dist.device)
+        model = api.init(seed, dist.device, model_rank=r, model_axis=R)
+    _check_expert_part(api, dist, model)
     params = [p for _, p in param_leaves(model)]
     par = api.cfg.parallelism
-    if par.grad_sync != "abi":
-        raise NotImplementedError(f"grad_sync={par.grad_sync!r} is not ported yet")
-    if par.zero1:
+    if par.grad_sync not in ("abi", "gspmd"):
+        raise ValueError(f"unknown grad_sync {par.grad_sync!r}")
+    if par.grad_sync == "abi" and par.zero1:
         buckets = max(par.zero1_buckets, 1)
         compression = par.grad_compression
         wire = zero1_wire_dtype(compression)
@@ -94,6 +121,67 @@ def init_state(api: ModelApi, seed: int, dist: DistContext, model=None) -> Train
     else:
         opt = adamw.init_tree(param_leaves(model))
     return TrainState(model, opt, torch.zeros((), dtype=torch.int32, device=dist.device))
+
+
+def _expert_part(api: ModelApi, dist: DistContext) -> tuple:
+    """(this rank, the parts) of each moe layer's experts a model on
+    ``dist`` holds: (tp rank, tp size) under expert parallelism at
+    ``model_axis > 1``, else (0, 1)."""
+    shards = expert_shards(api.cfg, dist.tp_size)
+    return (dist.abi.comm_rank(dist.tp_comm), shards) if shards > 1 else (0, 1)
+
+
+def _check_expert_part(api: ModelApi, dist: DistContext, model) -> None:
+    want = _expert_part(api, dist)
+    got = getattr(model, "expert_part", (0, 1))
+    if got != want:
+        raise ValueError(f"the model holds expert part {got} (rank, parts); a step at "
+                         f"model_axis={dist.tp_size} needs {want}: build it with "
+                         f"init_state or api.init(model_rank=, model_axis=)")
+
+
+def _split_leaves(api: ModelApi, dist: DistContext) -> list[bool]:
+    """Per leaf of a model on ``dist``: is it split over the model axis."""
+    return split_leaves(held_specs(api, _expert_part(api, dist)[1], dist.tp_axis),
+                        dist.tp_axis)
+
+
+def grad_norm(dist: Optional[DistContext], grads: list, split: list) -> torch.Tensor:
+    """The global norm of ``grads`` (this rank's leaves, each already the
+    data-parallel mean): a leaf split over the model axis (``split``, from
+    the held specs) contributes every rank's part, summed over
+    ``tp_comm``; a replicated leaf counts once."""
+    if not any(split):
+        return adamw.global_norm(grads)
+    sq = [torch.sum(torch.square(g.float())) for g in grads]
+    zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    rep = sum((s for s, k in zip(sq, split) if not k), zero)
+    part = dist.abi.allreduce(sum((s for s, k in zip(sq, split) if k), zero), PAX_SUM,
+                              dist.tp_comm)
+    return torch.sqrt(rep + part)
+
+
+def _shard_ranges(sizes: list, split: list, lo: int, hi: int) -> tuple:
+    """The flat vector's slice ``[lo, hi)`` as (replicated ranges, split
+    ranges), each in the slice's coordinates, adjacent ranges merged; the
+    padding past the leaves is left out (it is zero)."""
+    out: tuple = ([], [])
+    off = 0
+    for n, k in zip(sizes, split):
+        a, b = max(off, lo) - lo, min(off + n, hi) - lo
+        if a < b:
+            ranges = out[1 if k else 0]
+            if ranges and ranges[-1][1] == a:
+                ranges[-1] = (ranges[-1][0], b)
+            else:
+                ranges.append((a, b))
+        off += n
+    return out
+
+
+def _sq_sum(v: torch.Tensor, ranges: list) -> torch.Tensor:
+    zero = torch.zeros((), dtype=torch.float32, device=v.device)
+    return sum((torch.sum(torch.square(v[a:b])) for a, b in ranges), zero)
 
 
 def _grads(loss: torch.Tensor, params: list) -> list:
@@ -150,17 +238,15 @@ def _assign(params: list, values: list) -> None:
 def make_train_step_abi(api: ModelApi, dist: DistContext, opt_cfg: AdamWConfig, *,
                         schedule: Optional[Callable] = None):
     cfg = api.cfg
-    if cfg.moe is not None and dist.tp_size > 1:
-        raise NotImplementedError(
-            f"a moe train step at model_axis={dist.tp_size} needs the gradient through the "
-            f"expert-parallel alltoall and sharded experts: runtime/sharding.py is not "
-            f"ported yet (ROADMAP queue 1 item 6)")
     par = cfg.parallelism
     n_micro = max(par.microbatch, 1)
     buckets = max(par.zero1_buckets, 1)
     compression = par.grad_compression
     pad_multiple = dist.dp_size * buckets * zero1_granule(dist, compression)
     loss_fn = lambda m, b: api.loss_fn(m, b, dist)  # noqa: E731
+    # per leaf: split over the model axis (the experts under EP), fixed by
+    # the expert part every step's model must hold (_check_expert_part)
+    split = _split_leaves(api, dist)
 
     def lr_at(step):
         if schedule is not None:
@@ -168,14 +254,16 @@ def make_train_step_abi(api: ModelApi, dist: DistContext, opt_cfg: AdamWConfig, 
         return torch.ones((), dtype=torch.float32, device=step.device)
 
     def body(state: TrainState, batch: dict):
-        """Per-leaf DDP: one nonblocking all-reduce per gradient leaf."""
+        """Per-leaf DDP: one nonblocking all-reduce per gradient leaf; the
+        norm over the leaves as the held specs place them."""
         dp = dist.dp_size
         params = [p for _, p in param_leaves(state.params)]
         loss, grads = _microbatched_grads(loss_fn, state.params, params, batch, n_micro)
         grads = sync_grads_abi(dist, grads, compression)
         with torch.no_grad():
-            new_p, new_opt, gnorm = adamw.update_tree(
-                opt_cfg, grads, state.opt, params, lr_at(state.step))
+            gnorm = grad_norm(dist, grads, split)
+            new_p, new_opt = adamw.update_tree(opt_cfg, grads, state.opt, params, gnorm,
+                                               lr_at(state.step))
             loss = dist.abi.allreduce(loss, PAX_SUM, dist.dp_comm) / dp
             dist.abi.verify_clean((grads, loss), "ddp step")
         _assign(params, new_p)
@@ -212,9 +300,16 @@ def make_train_step_abi(api: ModelApi, dist: DistContext, opt_cfg: AdamWConfig, 
             g_shard = reduce_scatter_grads_finish(pending)
             del flat_g
         with torch.no_grad(), record_function("zero1.adamw"):
-            # ||mean grad||²: each element lives on exactly one rank's shard
-            gnorm = torch.sqrt(dist.abi.allreduce(
-                torch.sum(torch.square(g_shard)), PAX_SUM, dist.dp_comm))
+            # ||mean grad||²: each element lives on exactly one rank's
+            # shard of its column; a split leaf's part on one column each
+            if any(split):
+                rep, part = _shard_ranges([p.numel() for p in params], split,
+                                          r * shard_len, (r + 1) * shard_len)
+                sq = _sq_sum(g_shard, rep) + dist.abi.allreduce(
+                    _sq_sum(g_shard, part), PAX_SUM, dist.tp_comm)
+            else:
+                sq = torch.sum(torch.square(g_shard))
+            gnorm = torch.sqrt(dist.abi.allreduce(sq, PAX_SUM, dist.dp_comm))
             new_p_shard, new_opt = adamw.update_flat_shard(
                 opt_cfg, g_shard, state.opt, p_shard, gnorm, lr_at(state.step))
             if ef is not None and new_ef is not None:
@@ -230,6 +325,7 @@ def make_train_step_abi(api: ModelApi, dist: DistContext, opt_cfg: AdamWConfig, 
         return TrainState(state.params, new_opt, state.step + 1), Metrics(loss, gnorm)
 
     def step_fn(state: TrainState, batch: dict):
+        _check_expert_part(api, dist, state.params)
         if isinstance(state.opt, FlatAdamState):
             return body_zero1(state, batch)
         if isinstance(state.opt, AdamState):
@@ -239,11 +335,77 @@ def make_train_step_abi(api: ModelApi, dist: DistContext, opt_cfg: AdamWConfig, 
     return step_fn
 
 
-def make_train_step(api: ModelApi, dist: DistContext, opt_cfg: AdamWConfig, **kw):
-    if api.cfg.parallelism.grad_sync == "abi":
+def make_train_step_gspmd(api: ModelApi, dist: Optional[DistContext], opt_cfg: AdamWConfig,
+                          *, schedule: Optional[Callable] = None):
+    """The reference's ``gspmd`` step: microbatched gradients and the
+    per-leaf AdamW update under ``use_rules(dist.rules)``.  At dp > 1 the
+    gradients' and the loss's mean over the data axes is one
+    ``torch.distributed.all_reduce`` each on the dp group (the collectives
+    XLA inserts in the reference), not an ABI call.  ``dist`` may be None
+    (one process, no rules)."""
+    n_micro = max(api.cfg.parallelism.microbatch, 1)
+    rules = dist.rules if dist is not None else None
+    loss_fn = lambda m, b: api.loss_fn(m, b, dist)  # noqa: E731
+    split = _split_leaves(api, dist) if dist is not None else []
+
+    def step_fn(state: TrainState, batch: dict):
+        if not isinstance(state.opt, AdamState):
+            raise TypeError(f"the gspmd step updates per-leaf moments, got "
+                            f"{type(state.opt).__name__}")
+        if dist is not None:
+            _check_expert_part(api, dist, state.params)
+        params = [p for _, p in param_leaves(state.params)]
+        with use_rules(rules):
+            loss, grads = _microbatched_grads(loss_fn, state.params, params, batch, n_micro)
+            with torch.no_grad():
+                if dist is not None and dist.dp_size > 1:
+                    grads, loss = _dp_mean(dist, grads, loss)
+                gnorm = grad_norm(dist, grads, split)
+                lr = (schedule(state.step) if schedule is not None
+                      else torch.ones((), dtype=torch.float32, device=state.step.device))
+                new_p, new_opt = adamw.update_tree(opt_cfg, grads, state.opt, params, gnorm, lr)
+        _assign(params, new_p)
+        return TrainState(state.params, new_opt, state.step + 1), Metrics(loss, gnorm)
+
+    return step_fn
+
+
+def _dp_mean(dist: DistContext, grads: list, loss: torch.Tensor) -> tuple:
+    """The gradients' and the loss's mean over the data axes, through
+    ``torch.distributed`` on the dp group: the gradients as one flat f32
+    buffer, then the loss."""
+    group = dist.dp_group
+    flat = adamw.flatten(grads)
+    torch.distributed.all_reduce(flat, group=group)
+    loss = loss.detach().float().clone()
+    torch.distributed.all_reduce(loss, group=group)
+    dp = dist.dp_size
+    return [g.float() for g in adamw.unflatten_like(flat / dp, grads)], loss / dp
+
+
+def make_train_step(api: ModelApi, dist: Optional[DistContext], opt_cfg: AdamWConfig,
+                    **kw):
+    """The ``abi`` step when ``parallelism.grad_sync`` asks for it and a
+    dist is given, else the ``gspmd`` step (the reference's dispatch)."""
+    if api.cfg.parallelism.grad_sync == "abi" and dist is not None:
         return make_train_step_abi(api, dist, opt_cfg, **kw)
-    raise NotImplementedError(
-        f"grad_sync={api.cfg.parallelism.grad_sync!r} is not ported yet")
+    return make_train_step_gspmd(api, dist, opt_cfg, **kw)
+
+
+def state_specs(api: ModelApi, mode: str, fsdp="data", tp="model", dp_axes=None) -> TrainState:
+    """The reference's spec tree of a ``TrainState`` (checkpoint and
+    placement layouts): ``abi`` mode — parameters split over ``tp`` only
+    (replicated over the data axes), moments likewise in the per-leaf
+    layout, or with ``dp_axes`` the ZeRO-1 flat layout's vectors over the
+    dp axes (step replicated); ``gspmd`` mode — parameters and moments
+    split over ``fsdp`` and ``tp``."""
+    pspecs = api.param_specs(fsdp=fsdp if mode == "gspmd" else None, tp=tp)
+    if mode == "abi" and dp_axes is not None:
+        # a PartitionSpec reads one axis in a tuple as the axis itself
+        axes = tuple(dp_axes)
+        dp = ((axes[0] if len(axes) == 1 else axes),) if axes else ()
+        return TrainState(pspecs, FlatAdamState((), dp, dp, dp), ())
+    return TrainState(pspecs, AdamState((), pspecs, pspecs), ())
 
 
 # ---------------------------------------------------------------------------

@@ -352,22 +352,220 @@ def moe_ep_rank(rank, world, init_method, out_dir, cfg, np_params, x):
                  tp_size=np.array(dist.tp_size))
 
 
-def moe_train_step_rank(rank, world, init_method, out_dir, cfg):
-    """A moe ZeRO-1 step at ``model_axis=world`` must raise before it
-    trains."""
+# ---------------------------------------------------------------------------
+# the model axis's gradients: expert-parallel training and the pipeline
+# ---------------------------------------------------------------------------
+def _named_np(model) -> dict:
+    from repro_torch.models import param_leaves
+
+    return {n: p.detach().numpy() for n, p in param_leaves(model)}
+
+
+def ep_train_rank(rank, world, init_method, out_dir, cfg, np_params, batch, aux_weights,
+                  steps):
+    """Expert parallelism at ``model_axis=world``: (1) per aux weight, the
+    loss and every gradient leaf of ``loss_fn`` on a model holding this
+    rank's experts, and the ABI calls of its forward and of its backward;
+    (2) the ZeRO-1 and the per-leaf step, ``steps`` times each: losses,
+    grad norms and the parameters after them."""
+    import dataclasses
+
     import torch
 
-    from repro_torch.models import build_model
+    from repro_torch.core import CallCounter
+    from repro_torch.models import build_model, from_jax_params, param_leaves
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.runtime.dist import make_dist
     from repro_torch.train import train_loop
 
     torch.set_num_threads(1)
+    out = {}
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     with make_dist(device="cpu", model_axis=world, world_size=world, rank=rank,
                    init_method=init_method) as dist:
+        cc = CallCounter()
+        dist.abi.attach_tool(cc)
+        r = dist.abi.comm_rank(dist.tp_comm)
+        for aux in aux_weights:
+            c = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, aux_loss_weight=aux))
+            api = build_model(c)
+            model = from_jax_params(np_params, c, device="cpu", model_rank=r, model_axis=world)
+            named = param_leaves(model)
+            cc.reset()
+            loss = api.loss_fn(model, tb, dist)
+            fwd = dict(cc.counts)
+            grads = torch.autograd.grad(loss, [p for _, p in named])
+            bwd = {k: v - fwd.get(k, 0) for k, v in cc.counts.items()}
+            out[f"{aux}:loss"] = loss.detach().numpy()
+            out[f"{aux}:fwd"] = np.array([fwd.get(k, 0) for k in COLLECTIVES])
+            out[f"{aux}:bwd"] = np.array([bwd.get(k, 0) for k in COLLECTIVES])
+            for (n, _), g in zip(named, grads):
+                out[f"{aux}:grad:{n}"] = g.numpy()
+        for layout, zero1 in (("zero1", True), ("leaf", False)):
+            c = dataclasses.replace(cfg, parallelism=dataclasses.replace(cfg.parallelism,
+                                                                         zero1=zero1))
+            api = build_model(c)
+            model = from_jax_params(np_params, c, device="cpu", model_rank=r,
+                                    model_axis=world)
+            state = train_loop.init_state(api, 0, dist, model=model)
+            step = train_loop.make_train_step(api, dist, AdamWConfig())
+            losses, norms = [], []
+            for _ in range(steps):
+                state, met = step(state, tb)
+                losses.append(float(met.loss))
+                norms.append(float(met.grad_norm))
+            out[f"{layout}:losses"] = np.array(losses)
+            out[f"{layout}:grad_norms"] = np.array(norms)
+            for n, v in _named_np(state.params).items():
+                out[f"{layout}:param:{n}"] = v
+            if zero1:
+                out["held_experts"] = np.array(state.params.layers.moe.experts.wi.shape[1])
+                out["flat_shard"] = np.array(state.opt.m.shape[0])
+        np.savez(Path(out_dir) / f"rank{rank}.npz", **out)
+
+
+#: the ABI calls the EP block's forward and backward make, in this order
+COLLECTIVES = ("alltoall", "allgather", "allreduce", "sendrecv", "bcast")
+
+
+def pipeline_rank(rank, world, init_method, out_dir, W, x, l_per):
+    """The GPipe schedule on a ``(pod, model)`` mesh of ``world`` stages:
+    the forward (``broadcast_out``), ``pipelined_loss``'s gradient of this
+    stage's weights for ``sum(y * y)``, the ABI calls of each, what stage 0
+    receives from nobody, and whether ``broadcast_out`` under autograd
+    raises."""
+    import torch
+
+    from repro_torch.core import CallCounter
+    from repro_torch.runtime.dist import make_dist
+    from repro_torch.runtime.pipeline import make_pp_dist, pipeline_forward, pipelined_loss
+
+    torch.set_num_threads(1)
+
+    def layer_stack_fn(w_stage, v):
+        for w in w_stage:
+            v = torch.tanh(v @ w)
+        return v
+
+    with make_dist(device="cpu", world_size=world, rank=rank, init_method=init_method,
+                   axis_names=("pod", "model")) as dist:
+        dist = make_pp_dist(dist, "pod")
+        cc = CallCounter()
+        dist.abi.attach_tool(cc)
+        s = dist.abi.comm_rank(dist.pp_comm)
+        w = torch.from_numpy(W[s * l_per:(s + 1) * l_per].copy()).requires_grad_()
+        xm = torch.from_numpy(x)
+        with torch.no_grad():
+            out = pipeline_forward(layer_stack_fn, w, xm, dist=dist, stage_axis="pod")
+        fwd_calls = dict(cc.counts)
+        cc.reset()
+        loss = pipelined_loss(layer_stack_fn, w, xm, lambda y: torch.sum(y * y), dist=dist,
+                              stage_axis="pod")
+        loss_fwd = dict(cc.counts)
+        (g,) = torch.autograd.grad(loss, [w])
+        loss_bwd = {k: v - loss_fwd.get(k, 0) for k, v in cc.counts.items()}
         try:
-            train_loop.make_train_step(build_model(cfg), dist, AdamWConfig())
+            pipeline_forward(layer_stack_fn, w, xm, dist=dist, stage_axis="pod")
             msg = ""
-        except NotImplementedError as e:
+        except RuntimeError as e:
             msg = str(e)
-        np.savez(Path(out_dir) / f"rank{rank}.npz", msg=np.array(msg))
+        # the forward hop: stage 0 is sent nothing
+        recv = dist.abi.sendrecv(xm[0] + 1.0, [(i, i + 1) for i in range(world - 1)],
+                                 dist.pp_comm)
+        np.savez(Path(out_dir) / f"rank{rank}.npz", out=out.numpy(), grad=g.numpy(),
+                 loss=loss.detach().numpy(), stage=np.array(s), raise_msg=np.array(msg),
+                 recv=recv.numpy(),
+                 fwd=np.array([fwd_calls.get(k, 0) for k in COLLECTIVES]),
+                 loss_fwd=np.array([loss_fwd.get(k, 0) for k in COLLECTIVES]),
+                 loss_bwd=np.array([loss_bwd.get(k, 0) for k in COLLECTIVES]))
+
+
+def gspmd_rank(rank, world, init_method, out_dir, cfg, np_params, batch, steps):
+    """The ``gspmd`` step at dp=``world``: this rank's rows, the gradients'
+    mean through ``torch.distributed`` on the dp group."""
+    import torch
+
+    from repro_torch.core import CallCounter
+    from repro_torch.models import build_model, from_jax_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.dist import make_dist
+    from repro_torch.train import train_loop
+
+    torch.set_num_threads(1)
+    with make_dist(device="cpu", world_size=world, rank=rank, init_method=init_method) as dist:
+        cc = CallCounter()
+        dist.abi.attach_tool(cc)
+        api = build_model(cfg)
+        state = train_loop.init_state(api, 0, dist,
+                                      model=from_jax_params(np_params, cfg, device="cpu"))
+        step = train_loop.make_train_step(api, dist, AdamWConfig())
+        local = train_loop.local_batch(batch, dist)
+        losses, norms = [], []
+        for _ in range(steps):
+            state, met = step(state, local)
+            losses.append(float(met.loss))
+            norms.append(float(met.grad_norm))
+        out = {f"param:{n}": v for n, v in _named_np(state.params).items()}
+        np.savez(Path(out_dir) / f"rank{rank}.npz", losses=np.array(losses),
+                 grad_norms=np.array(norms), abi_calls=np.array(sorted(cc.counts)),
+                 **out)
+
+
+def placements_rank(rank, world, init_method, out_dir):
+    """``AxisRules.placements`` on a ``DeviceMesh`` of this CPU world
+    (``(data, model)`` = (1, world)), and a tensor distributed with them."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.runtime.dist import make_dist
+
+    with make_dist(device="cpu", model_axis=world, world_size=world, rank=rank,
+                   init_method=init_method) as dist:
+        mesh = init_device_mesh("cpu", (1, world), mesh_dim_names=("data", "model"))
+        rules = dist.rules
+        cases = {"experts": ((8, 6, 4), ("experts", "embed", None)),
+                 "batch": ((4, 6), ("batch", "embed")),
+                 "ffn": ((6, 8), ("embed", "ffn")),
+                 "uneven": ((6, 5), ("embed", "ffn"))}
+        out = {}
+        for name, (shape, logical) in cases.items():
+            pl = rules.placements(shape, mesh, *logical)
+            out[f"{name}:placements"] = np.array([repr(p) for p in pl])
+            out[f"{name}:same_as_port_mesh"] = np.array(
+                pl == rules.placements(shape, dist.mesh, *logical))
+            full = torch.arange(float(np.prod(shape))).reshape(shape)
+            out[f"{name}:local"] = distribute_tensor(full, mesh, pl).to_local().numpy()
+        np.savez(Path(out_dir) / f"rank{rank}.npz", **out)
+
+
+def pipeline_lm_rank(rank, world, init_method, out_dir, cfg, np_params, batch, n_micro):
+    """The dense LM in ``world`` pipeline stages (``transformer.stage_model``):
+    ``pipelined_loss_fn`` over ``n_micro`` microbatches, its gradient, the
+    embedding's and final norm's summed over the stages."""
+    import torch
+
+    from repro_torch.models import from_jax_params, param_leaves, transformer
+    from repro_torch.runtime.dist import make_dist
+    from repro_torch.runtime.pipeline import (make_pp_dist, pipelined_loss_fn,
+                                              replicated_grad_sum)
+
+    torch.set_num_threads(1)
+    with make_dist(device="cpu", world_size=world, rank=rank, init_method=init_method,
+                   axis_names=("pod", "model")) as dist:
+        dist = make_pp_dist(dist, "pod")
+        s = dist.abi.comm_rank(dist.pp_comm)
+        whole = from_jax_params(np_params, cfg, device="cpu")
+        scfg, part = transformer.stage_model(whole, cfg, s, world, "cpu")
+        embed_fn, layer_stack_fn, head_fn = transformer.pipeline_fns(part, scfg)
+        tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+        loss = pipelined_loss_fn(embed_fn, layer_stack_fn, head_fn, part, tb, dist=dist,
+                                 n_microbatches=n_micro, stage_axis="pod")
+        named = param_leaves(part)
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+        shared = [not n.startswith("layers.") for n, _ in named]
+        summed = iter(replicated_grad_sum([g for g, k in zip(grads, shared) if k], dist))
+        out = {f"grad:{n}": (next(summed) if k else g).numpy()
+               for (n, _), g, k in zip(named, grads, shared)}
+        np.savez(Path(out_dir) / f"rank{rank}.npz", loss=loss.detach().numpy(),
+                 stage=np.array(s), layers=np.array(scfg.num_layers), **out)
