@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only fault4 # build + [fault4] only, four cards
     python3 chip_smoke.py --only ssm    # build + [train-ssm], [train-hybrid], [serve-ssm], [serve-hybrid]
     python3 chip_smoke.py --only moe    # build + [train-moe], [forward-moe], [serve-moe]
+    python3 chip_smoke.py --only mm     # build + flash's [check] + the encdec and vlm phases
     python3 chip_smoke.py --only moe4   # build + [moe4] only, four cards
     python3 chip_smoke.py --only ep4    # build + [ep4] only, four cards
     python3 chip_smoke.py --only pp4    # [pp4] only, four cards (no kernel to build)
@@ -48,7 +49,9 @@ Phases (any failure exits non-zero and prints no result line):
    2e-5; bf16 within two bf16 roundings, 2^-6 of |want|, plus 1e-5), and
    non-causally at S=256 and at a ragged S=192, and the tensor-core
    kernel's bf16 edges (D = 8, 32, 40, 72, 128, 256, S = 1 and 65, groups
-   1 and 7 non-causal at a ragged S, views at a misaligned base) within
+   1 and 7 non-causal at a ragged S, views at a misaligned base) and the
+   other forwards' shapes (D=80, 256, 128; phi-3-vision's D=96 at 2048 and
+   at a ragged 776 positions; whisper-tiny's decoder at 448) within
    two bf16 roundings, each row logging the entry point it launched (bf16:
    the tensor-core kernel, f32: the CUDA-core kernel); the ``wkv6`` and ``ssd``
    scans against their plain chunked versions (3e-4) and the sequential
@@ -73,8 +76,9 @@ Phases (any failure exits non-zero and prints no result line):
    are less; the scans' own 3xTF32 floor logged beside), the causal FLOPs
    over the peak for the inputs' type for
    flash attention (library call: ``scaled_dot_product_attention``), at
-   the main path's shape in bf16 and f32 and at [forward-hybrid]'s D=80,
-   with the achieved TFLOP/s;
+   the main path's shape in bf16 and f32 and at the other forwards' shapes
+   (D=80, 256, 128, phi-3-vision's D=96 at 2048 and 776 positions,
+   whisper-tiny's decoder), with the achieved TFLOP/s;
 4. check the training path end to end at a small size: the reduced
    qwen2-0.5b config in float32 trains 3 steps on the card and on the CPU
    (a subprocess, the plain kernel versions) and the losses agree;
@@ -112,7 +116,7 @@ Phases (any failure exits non-zero and prints no result line):
    last row of the full logits within one bf16 rounding (2^-7 relative, plus
    1e-5);
 9. [forward-ssm] rwkv6-7b at full width and 16 of 32 layers (bf16, random
-   weights from seed 0 drawn on the CPU generator, the time ``init`` took
+   weights from seed 0 drawn on the CPU, the time ``init`` took
    reported), batch 4, sequence 2048: 16 ``wkv6`` launches a forward and no
    other kernel,
    finite logits, ``last_only`` against the last row; ms per forward and
@@ -154,10 +158,34 @@ Phases (any failure exits non-zero and prints no result line):
    and the CPU (where they differ, the step must show a router near-tie,
    top-k margin below 1e-5, and the first decode logits agree within
    1e-3);
-11. [card-vs-cpu] both families at full width and reduced depth (rwkv6 2
-   layers, zamba2 6 so that the shared block fires once), float32, B=1,
-   S=256, the same CPU-drawn weights: the card runs the kernels, the CPU
-   their plain versions, and the logits agree within 1e-3;
+10d. the encdec and vlm families (after [serve-moe], :func:`phase_mm`):
+   [forward-encdec] whisper-tiny at full width and depth (4 + 4 layers,
+   d=384, bf16, seed 0), B=4, 1500 frames, 448 decoder positions, under
+   ``"flash"`` (4 flash launches a forward: the decoder's causal
+   self-attention only; the last call held to ``attention_ref``) and
+   ``"xla"`` (none) on the same weights: ms per forward of both, the bf16
+   logits' max difference and top-1 agreement, ``last_only``;
+   [decode-encdec] ``encdec.init_cache`` on those frames and 64 greedy
+   ``decode_step`` calls (no launch), ms per step, and a 2-layer f32 pair
+   with equal tokens on the card and the CPU; [train-encdec] the config's
+   ZeRO-1 step (microbatch 4, remat "full", the f32 wire, ``"xla"``) at
+   full depth, batch 8 x 448 with (8, 1500, 384) frames, 2 + 5 steps:
+   ``pack_transposed`` once a step and nothing else, finite losses, ms/step,
+   peak memory, and the step's gradient at 2 layers in f32 on the card and
+   the CPU (loss, grad norm and every leaf within 1e-3 of its scale);
+   [forward-vlm] phi-3-vision-4.2b at full width and depth (32 layers,
+   32/32 heads at D=96), B=4, 576 patches and 1472 text tokens, the same
+   way (32 flash launches a forward over 2048 positions); [serve-vlm] on
+   those weights ``prefill_multimodal`` and 64 greedy tokens at B=4, then
+   the static engine on text-only requests, no launch, and a 2-layer f32
+   pair card vs CPU; [train-vlm] the config's step at 8 of 32 layers on the
+   forward's first layers, batch 8 x 1024 text tokens with 576 patches,
+   as [train-encdec];
+11. [card-vs-cpu] the ssm, hybrid, encdec and vlm families at full width
+   and reduced depth (rwkv6 2 layers, zamba2 6 so that the shared block
+   fires once, whisper-tiny 2 decoder layers, phi-3-vision 2), float32,
+   B=1, S=256, the same CPU-drawn weights: the card runs the kernels, the
+   CPU their plain versions, and the logits agree within 1e-3;
 12. [serve] full-width qwen2-0.5b (bf16, seed 0) behind
    ``ServeEngine(max_batch=8, block_size=16, prefill_chunk=32, max_seq=640)``
    with a ``decode-tp`` plan group on NCCL: 16 greedy and 2 sampled requests
@@ -184,6 +212,9 @@ dp=4 run of full-width qwen2-0.5b on ``faulty:paxi`` before step 3 of 4;
 the survivors shrink, rebuild a dp=2 world (their groups created by them
 alone) and resume from the step-2 checkpoint, bitwise equal to a dp=2
 oracle restored from the same checkpoint.
+
+``--only mm`` builds, checks flash (every [check] row of it, D=96 among
+them), then runs the encdec and vlm phases (10d) alone.
 
 ``--only ssm`` builds, then runs [train-ssm], [train-hybrid],
 [serve-ssm] and [serve-hybrid] alone (each serving phase draws its own
@@ -225,6 +256,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import gc
 import json
 import math
 import multiprocessing
@@ -698,12 +730,18 @@ FA_CHECKS = (
     (1, 333, 14, 2, 80, False, "bfloat16", BF16_ROUNDINGS),   # group 7, non-causal, ragged S
     (4, 2048, 16, 16, 256, True, "bfloat16", BF16_ROUNDINGS),  # GEMMA_ATTN, [forward-gemma]'s
     (4, 2048, 16, 16, 128, True, "bfloat16", BF16_ROUNDINGS),  # MOE_ATTN, [forward-moe]'s
+    (4, 2048, 32, 32, 96, True, "bfloat16", BF16_ROUNDINGS),   # VLM_ATTN, [forward-vlm]'s
+    (4, 776, 32, 32, 96, True, "bfloat16", BF16_ROUNDINGS),    # VLM_RAGGED: 576 + 200
+    (4, 448, 6, 6, 64, True, "bfloat16", BF16_ROUNDINGS),      # WHISPER_ATTN, [forward-encdec]'s
 )
 FWD_BATCH, FWD_SEQ = 4, 2048                        # [forward]'s batch and sequence
 FULL_ATTN = (FWD_BATCH, FWD_SEQ, 14, 2, 64)         # qwen2-0.5b's heads at that batch
 HYBRID_ATTN = (FWD_BATCH, FWD_SEQ, 32, 32, 80)      # zamba2-2.7b's shared block
 GEMMA_ATTN = (FWD_BATCH, FWD_SEQ, 16, 16, 256)      # gemma-7b's heads (D=256)
 MOE_ATTN = (FWD_BATCH, FWD_SEQ, 16, 16, 128)        # qwen2-moe-a2.7b's heads (D=128)
+VLM_ATTN = (FWD_BATCH, FWD_SEQ, 32, 32, 96)         # phi-3-vision: 576 patches + 1472 text
+VLM_RAGGED = (FWD_BATCH, 776, 32, 32, 96)           # phi-3-vision at 576 + 200 positions
+WHISPER_ATTN = (FWD_BATCH, 448, 6, 6, 64)           # whisper-tiny's decoder self-attention
 
 
 def _qkv(B, S, H, Hkv, D, dtype, gen):
@@ -765,8 +803,10 @@ def phase_time_flash() -> dict:
     """Kernel, plain version and ``scaled_dot_product_attention`` at the
     main path's shape, in bf16 (the tensor-core kernel, the record) and f32
     (the CUDA-core kernel), and the bf16 kernel and library at
-    [forward-hybrid]'s shape (D=80), [forward-gemma]'s (D=256) and
-    [forward-moe]'s (D=128).  Bound: the causal FLOPs (QK^T and PV over
+    [forward-hybrid]'s shape (D=80), [forward-gemma]'s (D=256),
+    [forward-moe]'s (D=128), [forward-vlm]'s (D=96 over 2048 positions, and
+    a ragged 776) and [forward-encdec]'s (D=64, 6/6 heads over 448).
+    Bound: the causal FLOPs (QK^T and PV over
     the S(S+1)/2 pairs) over the peak for the inputs' type, or q, k, v read
     and o written once over the memory bandwidth, whichever is longer;
     achieved TFLOP/s: those FLOPs over the kernel's time."""
@@ -781,7 +821,10 @@ def phase_time_flash() -> dict:
             ("bfloat16", FULL_ATTN, "bfloat16", BF16_FLOP_PER_S),
             ("hybrid", HYBRID_ATTN, "bfloat16", BF16_FLOP_PER_S),
             ("gemma", GEMMA_ATTN, "bfloat16", BF16_FLOP_PER_S),
-            ("moe", MOE_ATTN, "bfloat16", BF16_FLOP_PER_S)):
+            ("moe", MOE_ATTN, "bfloat16", BF16_FLOP_PER_S),
+            ("vlm", VLM_ATTN, "bfloat16", BF16_FLOP_PER_S),
+            ("vlm776", VLM_RAGGED, "bfloat16", BF16_FLOP_PER_S),
+            ("whisper", WHISPER_ATTN, "bfloat16", BF16_FLOP_PER_S)):
         flops = 4 * B * H * D * S * (S + 1) / 2
         q, k, v = _qkv(B, S, H, Hkv, D, dtype, gen)
         nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
@@ -804,7 +847,7 @@ def phase_time_flash() -> dict:
         del q, k, v, q4, k4, v4
     record = dict(out["bfloat16"])
     record.update({f"{name}_{key}": out[name][key]
-                   for name in ("float32", "hybrid", "gemma", "moe")
+                   for name in ("float32", "hybrid", "gemma", "moe", "vlm", "vlm776", "whisper")
                    for key in ("ms", "library_ms", "bound_ms", "tflops")})
     return {"flash_attention": record}
 
@@ -1379,6 +1422,7 @@ def phase_forward_gemma(card: str) -> int:
 #: are float32, so their operations bound is taken at this rate
 TF32_FLOP_PER_S = 495e12
 SSM_ARCH, HYBRID_ARCH = "rwkv6-7b", "zamba2-2.7b"
+ENCDEC_ARCH, VLM_ARCH = "whisper-tiny", "phi-3-vision-4.2b"
 # B, T, H, N, chunk: the reference's WKV_SWEEP (tests/test_kernels.py), then
 # the main path's shape (rwkv6-7b at [forward-ssm]'s batch and sequence), then
 # the tensor-core kernel's edges (N and chunk not multiples of 8; N=3, rows of
@@ -1751,10 +1795,11 @@ def phase_time_scans(card: str, baselines: dict) -> dict:
     return out
 
 
-def _forward_check(api, model, batch, cfg, tag: str, want: dict):
+def _forward_check(api, model, batch, cfg, tag: str, want: dict, shape=None):
     """One full-width forward with the counts zeroed just before it and read
     just after; fails unless the launches are ``want`` (every other kernel
-    0) and the logits are finite.  Returns the logits and the counts."""
+    0) and the logits are finite, of ``shape`` (default (B, S, vocab) at
+    [forward]'s batch and sequence).  Returns the logits and the counts."""
     import torch
 
     _zero_counts()
@@ -1766,7 +1811,7 @@ def _forward_check(api, model, batch, cfg, tag: str, want: dict):
         + ", ".join(f"{k} {v}" for k, v in counts.items() if v or k in want))
     if counts != expected:
         raise AssertionError(f"[{tag}] launched {counts}, expected {expected}")
-    shape = (FWD_BATCH, FWD_SEQ, cfg.vocab_size)
+    shape = shape or (FWD_BATCH, FWD_SEQ, cfg.vocab_size)
     if tuple(logits.shape) != shape or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"[{tag}] logits {tuple(logits.shape)}, finite "
                              f"{bool(torch.isfinite(logits).all())}")
@@ -1796,8 +1841,9 @@ def _init_timed(api, tag: str):
     torch_sync()
     n = sum(p.numel() for p in model.parameters())
     nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    log(f"[{tag}] init: {n} parameters ({nbytes / 1e9:.2f} GB) drawn from the CPU "
-        f"generator (seed 0) in {time.perf_counter() - t0:.1f} s")
+    log(f"[{tag}] init: {n} parameters ({nbytes / 1e9:.2f} GB) drawn on the CPU (seed 0, "
+        f"{os.cpu_count()} threads) in {time.perf_counter() - t0:.1f} s "
+        f"({n / (time.perf_counter() - t0) / 1e6:.0f} M parameters a second)")
     return model
 
 
@@ -1900,9 +1946,10 @@ def phase_forward_hybrid(card: str) -> tuple:
     return counts, model
 
 
-#: [card-vs-cpu]: both families at full width and reduced depth (the hybrid's
-#: shared block fires once), float32, B=1, S=256
-CPU_DEPTH = {SSM_ARCH: 2, HYBRID_ARCH: 6}
+#: [card-vs-cpu]: the ssm, hybrid, encdec and vlm families at full width and
+#: reduced depth (the hybrid's shared block fires once; whisper's encoder
+#: keeps its 4 layers), float32, B=1, S=256 (text positions)
+CPU_DEPTH = {SSM_ARCH: 2, HYBRID_ARCH: 6, ENCDEC_ARCH: 2, VLM_ARCH: 2}
 CPU_SEQ = 256
 
 
@@ -1913,7 +1960,7 @@ def phase_card_vs_cpu() -> None:
 
     import torch
     from repro_torch import configs
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, make_batch
 
     for arch, depth in CPU_DEPTH.items():
         cfg = dataclasses.replace(configs.get_config(arch), num_layers=depth,
@@ -1921,18 +1968,22 @@ def phase_card_vs_cpu() -> None:
                                   attention_impl="flash")
         api = build_model(cfg)
         model = api.init(0, device="cpu")
-        gen = torch.Generator().manual_seed(2)
-        tokens = torch.randint(0, cfg.vocab_size, (1, CPU_SEQ), generator=gen)
+        if arch in (SSM_ARCH, HYBRID_ARCH):
+            gen = torch.Generator().manual_seed(2)
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, CPU_SEQ), generator=gen)}
+        else:  # with the frames or the patches
+            batch = make_batch(2, cfg, 1, CPU_SEQ, "cpu")
         with torch.no_grad():
             t0 = time.perf_counter()
-            cpu = api.forward(model, {"tokens": tokens})
+            cpu = api.forward(model, batch)
             cpu_s = time.perf_counter() - t0
             model = model.to("cuda")
             before = _counts()
-            card = api.forward(model, {"tokens": tokens.cuda()}).cpu()
+            card = api.forward(model, {k: v.cuda() for k, v in batch.items()}).cpu()
         launched = {k: v - before[k] for k, v in _counts().items() if v != before[k]}
         want = ({"wkv6": depth} if arch == SSM_ARCH else
-                {"flash_attention": depth // cfg.hybrid.shared_attn_every, "ssd": depth})
+                {"flash_attention": depth // cfg.hybrid.shared_attn_every, "ssd": depth}
+                if arch == HYBRID_ARCH else {"flash_attention": depth})
         diff = _max_err(card, cpu)
         log(f"[card-vs-cpu] {arch} full width, {depth} layers, f32, B=1 S={CPU_SEQ}: card "
             f"(kernels {launched}) vs CPU (plain versions, {cpu_s:.1f} s) logits max abs diff "
@@ -3051,7 +3102,7 @@ def phase_train_recurrent(card: str, arch: str) -> int:
         torch_sync()
         n = sum(p.numel() for p in state.params.parameters())
         log(f"[{tag}] {arch} full width, {cfg.num_layers} of {full.num_layers} layers: {n} "
-            f"parameters (bf16) drawn from the CPU generator (seed 0) in "
+            f"parameters (bf16) drawn on the CPU (seed 0) in "
             f"{time.perf_counter() - t0:.1f} s; the step launches {scan} {per_step} times "
             f"({cfg.num_layers} layers x {par.microbatch} microbatches x 2: the forward and "
             "remat's recompute)")
@@ -3562,7 +3613,7 @@ def phase_train_moe(card: str) -> int:
         torch_sync()
         n = sum(p.numel() for p in state.params.parameters())
         log(f"[train-moe] {MOE_ARCH} full width, {cfg.num_layers} of {full.num_layers} layers: "
-            f"{n} parameters (bf16) drawn from the CPU generator (seed 0) in "
+            f"{n} parameters (bf16) drawn on the CPU (seed 0) in "
             f"{time.perf_counter() - t0:.1f} s")
         step = tl.make_train_step(api, dist, AdamWConfig())
         for i, b in enumerate(drawn):
@@ -4298,6 +4349,443 @@ def phase_pp4(card: str, device: str = "cuda", out_dir: Path = HERE / "build" / 
     return r0
 
 
+# ---------------------------------------------------------------------------
+# the encdec and vlm families: [forward-encdec], [decode-encdec],
+# [train-encdec], [forward-vlm], [serve-vlm], [train-vlm]
+# ---------------------------------------------------------------------------
+#: [forward-encdec]: B=4, the decoder's 448 positions (whisper's) over the
+#: config's 1500 frames
+ENC_BATCH, ENC_SEQ = 4, 448
+#: [forward-vlm]: B=4, the config's 576 image tokens before 1472 text tokens:
+#: 2048 positions a row
+VLM_BATCH, VLM_TEXT = 4, 1472
+#: greedy decodes: new tokens; [serve-vlm]'s text prompt after the image
+MM_NEW, VLM_PROMPT = 64, 64
+#: [train-encdec], [train-vlm]: the configs' steps, global batch 8 of 448
+#: (whisper's decoder length) and of 1024 text tokens; phi-3-vision at 8 of
+#: 32 layers (1.12 G parameters take 55.86 GB at this batch, PERF.md section
+#: 6; all 32 would need about 190 GB)
+MM_TRAIN_SEQ = {ENCDEC_ARCH: 448, VLM_ARCH: 1024}
+VLM_TRAIN_DEPTH = 8
+#: the card-vs-CPU checks: float32, 2 decoder (and encoder) layers; the
+#: gradient at batch 4 in the configs' 4 microbatches over 32 text tokens,
+#: the decodes at B=2 for 16 tokens
+MM_CPU_DEPTH = 2
+MM_CPU_BATCH, MM_CPU_SEQ = 4, 32
+MM_CPU_NEW = 16
+
+
+def _mm_config(arch: str, depth=None, **change):
+    """The arch's config, with ``depth`` decoder (and encoder) layers."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch)
+    if depth is not None:
+        change["num_layers"] = depth
+        if cfg.encdec is not None:
+            change["encdec"] = dataclasses.replace(cfg.encdec, encoder_layers=depth)
+    return dataclasses.replace(cfg, **change)
+
+
+def _flash_and_xla(tag: str, cfg, model, batch, card: str) -> int:
+    """The forward under ``"flash"`` (one launch a causal self-attention,
+    every other kernel 0, the last call held to ``attention_ref`` on its
+    own activations) and under ``"xla"`` (no launch) on the same weights:
+    the bf16 logits' max difference and top-1 agreement, ``last_only``
+    against the last row, ms per forward of both in turns (CUDA events)
+    and the host's time to enqueue one.  Returns the flash launches of one
+    forward."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import build_model
+
+    apis = {impl: build_model(dataclasses.replace(cfg, attention_impl=impl))
+            for impl in ("flash", "xla")}
+    B, S = batch["tokens"].shape
+    shape = (B, S, cfg.vocab_size)
+    with torch.no_grad():
+        with _FlashSpy() as spy:
+            flash, counts = _forward_check(apis["flash"], model, batch, cfg, tag,
+                                           {"flash_attention": cfg.num_layers}, shape)
+        spy.check(tag)
+        xla, _ = _forward_check(apis["xla"], model, batch, cfg, tag, {}, shape)
+        top1 = float((flash.argmax(-1) == xla.argmax(-1)).float().mean())
+        log(f"[{tag}] bf16 logits flash vs xla: max abs diff {_max_err(flash, xla):.4e} "
+            f"(logits' max abs {float(xla.float().abs().max()):.3f}), top-1 agreement "
+            f"{top1:.4f}")
+        del xla
+        _last_only_check(apis["flash"], model, batch, flash, tag)
+        del flash
+        turns = ("flash", "xla", "xla", "flash")
+        ms = {}
+        for impl in turns:
+            ms.setdefault(impl, []).append(
+                _time_ms(lambda: apis[impl].forward(model, batch), FWD_ITERS))
+        enqueue = {impl: _enqueue_ms(lambda: apis[impl].forward(model, batch))
+                   for impl in ("flash", "xla")}
+    log(f"[{tag}] {cfg.name} full width ({cfg.num_layers} decoder layers), B={B}, "
+        f"{S} text positions, bf16 on {card}: flash_attention {counts['flash_attention']} "
+        f"launches a forward; ms per forward (median of {FWD_ITERS}, in turns "
+        f"{', '.join(turns)}): " + "; ".join(f"{impl} {t[0]:.2f}, {t[1]:.2f}"
+                                             for impl, t in ms.items()))
+    log(f"[{tag}] host ms to enqueue one forward (median of {FWD_ITERS}, each on a drained "
+        "card): " + "; ".join(f"{impl} {t:.2f}" for impl, t in enqueue.items()))
+    return counts["flash_attention"]
+
+
+def phase_forward_encdec(card: str) -> tuple:
+    """[forward-encdec]: whisper-tiny at full width and depth (4 encoder and
+    4 decoder layers, d=384, 6/6 heads at D=64, vocabulary 51,865; bf16,
+    seed 0), B=4, 1500 frames, 448 decoder positions: under ``"flash"`` one
+    flash launch a decoder layer (4 a forward; the encoder's bidirectional
+    attention and cross-attention take ``_sdpa``), under ``"xla"`` none
+    (:func:`_flash_and_xla`).  Returns (the flash launches of one forward,
+    the model, the batch)."""
+    from repro_torch.models import build_model, make_batch
+
+    cfg = _mm_config(ENCDEC_ARCH)
+    model = _init_timed(build_model(cfg), "forward-encdec")
+    batch = make_batch(1, cfg, ENC_BATCH, ENC_SEQ, "cuda")
+    return _flash_and_xla("forward-encdec", cfg, model, batch, card), model, batch
+
+
+def _greedy(api, model, tok, state, index: int, n: int) -> tuple:
+    """``n`` greedy decode steps from ``tok`` (B, 1) at position ``index``:
+    (the tokens (B, n) on the host, each step's ms on the host clock; a step
+    ends in its token's copy to the host, so it holds the step's device
+    time)."""
+    import torch
+
+    out, ms = [], []
+    for i in range(n):
+        t = time.perf_counter()
+        logits, state = api.decode_step(model, tok, state, index + i)
+        tok = logits.argmax(-1, keepdim=True)
+        out.append(tok.cpu())
+        ms.append((time.perf_counter() - t) * 1e3)
+    return torch.cat(out, 1), ms
+
+
+def _decode_card_vs_cpu(arch: str, tag: str) -> None:
+    """The same CPU-drawn float32 weights (full width, ``MM_CPU_DEPTH``
+    layers) decode greedily on the CPU and on the card from the same
+    inputs, B=2: encdec through ``init_cache`` and ``decode_step`` from one
+    token, vlm through ``prefill_multimodal`` (576 image tokens, 8 text)
+    and ``decode_step``; equal tokens, and the first step's logits within
+    1e-3."""
+    import torch
+    from repro_torch.models import build_model, encdec, make_batch, vlm
+
+    cfg = _mm_config(arch, MM_CPU_DEPTH, param_dtype="float32", compute_dtype="float32")
+    api = build_model(cfg)
+    model = api.init(0, device="cpu")
+    batch = make_batch(3, cfg, 2, 8, "cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = model.to(dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        with torch.no_grad():
+            if arch == ENCDEC_ARCH:
+                state = encdec.init_cache(model, b["frames"], cfg, 2, MM_CPU_NEW)
+                first, state = api.decode_step(model, b["tokens"][:, :1], state, 0)
+                index = 1
+            else:
+                first, state, index = vlm.prefill_multimodal(
+                    model, b["tokens"], b["patches"], cfg, max_seq=cfg.vlm.num_patches + 8
+                    + MM_CPU_NEW)
+            toks, _ = _greedy(api, model, first.argmax(-1, keepdim=True), state, index,
+                              MM_CPU_NEW - 1)
+        out[dev] = (torch.cat([first.argmax(-1, keepdim=True).cpu(), toks], 1),
+                    first.float().cpu())
+    diff = _max_err(out["cuda"][1], out["cpu"][1])
+    same = torch.equal(out["cuda"][0], out["cpu"][0])
+    log(f"[{tag}] card vs CPU, {arch} full width, {MM_CPU_DEPTH} layers, f32, B=2: "
+        f"{MM_CPU_NEW} greedy tokens equal {same}; the first step's logits max abs diff "
+        f"{diff:.3e} (bound {F32_LOGIT_TOL})")
+    if not same or diff > F32_LOGIT_TOL:
+        raise AssertionError(f"[{tag}] card and CPU decodes differ: "
+                             f"{out['cuda'][0].tolist()} vs {out['cpu'][0].tolist()}, "
+                             f"logits {diff}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_decode_encdec(card: str, model, batch) -> None:
+    """[decode-encdec]: on [forward-encdec]'s weights and frames, B=4:
+    ``encdec.init_cache`` (the encoder once, every decoder layer's cross K/V
+    in bf16), then ``MM_NEW`` greedy ``decode_step`` calls, the counts
+    zeroed just before and read just after (no kernel: cached attention);
+    ms for the cache, per decode step (host clock, median) and one step's
+    launches under ``torch.profiler``; then the card-vs-CPU pair."""
+    import torch
+    from repro_torch.models import build_model, encdec
+
+    tag = "decode-encdec"
+    cfg = _mm_config(ENCDEC_ARCH)
+    api = build_model(cfg)
+    B = batch["tokens"].shape[0]
+    with torch.no_grad():
+        torch_sync()
+        _zero_counts()
+        t0 = time.perf_counter()
+        cache = encdec.init_cache(model, batch["frames"], cfg, B, MM_NEW)
+        torch_sync()
+        cache_ms = (time.perf_counter() - t0) * 1e3
+        toks, ms = _greedy(api, model, batch["tokens"][:, :1], cache, 0, MM_NEW)
+        launched = {k: v for k, v in _counts().items() if v}
+        tok = toks[:, -1:].cuda()
+        prof = _profile_model_step(lambda: api.decode_step(model, tok, cache, MM_NEW - 1))
+    log(f"[{tag}] {cfg.name} full width bf16 on {card}, B={B}: init_cache {cache_ms:.2f} ms "
+        f"(cross K/V {tuple(cache.cross_k.shape)} {cache.cross_k.dtype}); {MM_NEW} greedy "
+        f"steps, ms per step median {statistics.median(ms):.2f} (first {ms[0]:.2f}), "
+        f"{B * MM_NEW / (sum(ms) / 1e3):.1f} tokens/s; kernels launched {launched or 'none'}; "
+        f"one step under torch.profiler: {prof['launches']:.0f} launches, device busy "
+        f"{prof['busy_ms']:.3f} ms")
+    if launched or tuple(toks.shape) != (B, MM_NEW):
+        raise AssertionError(f"[{tag}] tokens {tuple(toks.shape)}, kernels {launched}")
+    del cache
+    _decode_card_vs_cpu(ENCDEC_ARCH, tag)
+
+
+def _mm_grads_card_vs_cpu(arch: str, tag: str) -> None:
+    """The step's gradient (``train_loop._microbatched_grads``: the config's
+    4 microbatches under remat "full") of the same CPU-drawn float32
+    weights (full width, ``MM_CPU_DEPTH`` layers) and batch on the CPU and
+    on the card: the loss within 1e-3, the grad norm within 1e-3 of the
+    CPU's and every leaf within 1e-3 of its largest CPU entry; no kernel on
+    the card (``"xla"`` attention, no optimizer)."""
+    import torch
+    from repro_torch.models import build_model, make_batch, param_leaves
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train import train_loop as tl
+
+    cfg = _mm_config(arch, MM_CPU_DEPTH, param_dtype="float32", compute_dtype="float32")
+    api = build_model(cfg)
+    model = api.init(0, device="cpu")
+    batch = make_batch(4, cfg, MM_CPU_BATCH, MM_CPU_SEQ, "cpu")
+    names = [n for n, _ in param_leaves(model)]
+    micro = cfg.parallelism.microbatch
+
+    def grads(batch):
+        params = [p for _, p in param_leaves(model)]
+        loss, g = tl._microbatched_grads(lambda m, b: api.loss_fn(m, b), model, params, batch,
+                                         micro)
+        return float(loss), [x.detach().cpu() for x in g]
+
+    t0 = time.perf_counter()
+    loss_c, g_c = grads(batch)
+    cpu_s = time.perf_counter() - t0
+    model = model.to("cuda")
+    _zero_counts()
+    loss_k, g_k = grads({k: v.cuda() for k, v in batch.items()})
+    torch_sync()
+    launched = {k: v for k, v in _counts().items() if v}
+    n_c, n_k = float(global_norm(g_c)), float(global_norm(g_k))
+    worst = max(zip(_leaf_dist(g_k, g_c), names))
+    log(f"[{tag}] card vs CPU, {arch} full width, {MM_CPU_DEPTH} layers, f32, batch "
+        f"{MM_CPU_BATCH}x{MM_CPU_SEQ}, {micro} microbatches, remat {cfg.parallelism.remat}: "
+        f"loss {loss_k:.6f} vs {loss_c:.6f}, grad norm {n_k:.6f} vs {n_c:.6f}; worst leaf (of "
+        f"its largest entry) {worst[1]} {worst[0]:.3e}; kernels {launched or 'none'}; CPU "
+        f"{cpu_s:.1f} s")
+    if (abs(loss_k - loss_c) > 1e-3 or abs(n_k - n_c) > 1e-3 * n_c or worst[0] > 1e-3
+            or launched):
+        raise AssertionError(f"[{tag}] card and CPU gradients differ: loss {loss_k} vs "
+                             f"{loss_c}, norm {n_k} vs {n_c}, worst leaf {worst}, kernels "
+                             f"{launched}")
+    del model, g_c, g_k
+    torch.cuda.empty_cache()
+
+
+def phase_train_mm(card: str, arch: str, model=None) -> int:
+    """[train-encdec] / [train-vlm]: the config's own ZeRO-1 step
+    (microbatch 4, remat "full", the f32 wire, ``attention_impl="xla"``)
+    at full width, whisper-tiny at full depth and phi-3-vision at
+    ``VLM_TRAIN_DEPTH`` of 32 layers (``model``: [forward-vlm]'s first
+    layers, so its weights are drawn once), global batch 8 of
+    ``MM_TRAIN_SEQ`` tokens with its frames or patches (``make_batch``),
+    2 + 5 steps, the counts zeroed just before each step and read just
+    after: ``pack_transposed`` once a step and nothing else (flash has no
+    backward and the configs train under ``"xla"``); finite losses,
+    ms/step and the peak memory; then the card-vs-CPU gradient check.
+    Returns ``pack_transposed``'s launches over the 7 steps."""
+    import torch
+    from repro_torch.models import build_model, make_batch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.dist import make_dist
+    from repro_torch.train import train_loop as tl
+
+    t_phase = time.perf_counter()
+    tag = "train-" + ("encdec" if arch == ENCDEC_ARCH else "vlm")
+    cfg = _mm_config(arch, VLM_TRAIN_DEPTH if arch == VLM_ARCH else None)
+    par = cfg.parallelism
+    if (par.remat, par.microbatch, par.zero1, par.grad_compression,
+            cfg.attention_impl) != ("full", 4, True, None, "xla"):
+        raise AssertionError(f"[{tag}] the config's step changed: {par}, {cfg.attention_impl}")
+    api = build_model(cfg)
+    seq = MM_TRAIN_SEQ[arch]
+    drawn = [make_batch(10 + i, cfg, TRAIN_BATCH, seq, "cpu")
+             for i in range(TRAIN_WARM + TRAIN_TIMED)]
+    gc.collect()  # an earlier phase's model may wait in a reference cycle
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 1e9
+    losses, norms, ms, total = [], [], [], 0
+    with make_dist(device="cuda") as dist:
+        t0 = time.perf_counter()
+        state = tl.init_state(api, 0, dist, model=model)
+        del model
+        torch_sync()
+        n = sum(p.numel() for p in state.params.parameters())
+        log(f"[{tag}] {arch} full width, {cfg.num_layers} of "
+            f"{_mm_config(arch).num_layers} decoder layers: {n} parameters (bf16), state "
+            f"built in {time.perf_counter() - t0:.1f} s; batch {TRAIN_BATCH}x{seq} with "
+            + ", ".join(f"{k} {tuple(v.shape)}" for k, v in drawn[0].items()
+                        if k not in ("tokens", "targets")))
+        step = tl.make_train_step(api, dist, AdamWConfig())
+        for i, b in enumerate(drawn):
+            batch = tl.local_batch(b, dist)
+            torch_sync()
+            _zero_counts()
+            t = time.perf_counter()
+            state, met = step(state, batch)
+            loss, norm = float(met.loss), float(met.grad_norm)
+            torch_sync()
+            ms.append((time.perf_counter() - t) * 1e3)
+            c = _counts()
+            losses.append(loss)
+            norms.append(norm)
+            total += c["pack_transposed"]
+            others = {k: v for k, v in c.items() if v and k != "pack_transposed"}
+            if c["pack_transposed"] != 1 or others:
+                raise AssertionError(f"[{tag}] step {i + 1} launched pack_transposed "
+                                     f"{c['pack_transposed']} times (expected 1) and {others}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del state
+    torch.cuda.empty_cache()
+    free = torch.cuda.get_device_properties(0).total_memory / 1e9 - peak
+    log(f"[{tag}] losses {[round(v, 4) for v in losses]} grad norms "
+        f"{[round(v, 4) for v in norms]}; pack_transposed once on every step")
+    log(f"[{tag}] {arch} full width, {cfg.num_layers} decoder layers, batch "
+        f"{TRAIN_BATCH}x{seq} on {card}: ms/step {[round(v, 1) for v in ms]} (median of the "
+        f"{TRAIN_TIMED} after {TRAIN_WARM} warm {statistics.median(ms[TRAIN_WARM:]):.1f}); "
+        f"peak {peak:.2f} GB ({resident:.2f} GB resident before the state; {free:.1f} GB of "
+        f"the card left)")
+    if not all(math.isfinite(v) for v in losses + norms):
+        raise AssertionError(f"[{tag}] non-finite losses {losses} or grad norms {norms}")
+    _mm_grads_card_vs_cpu(arch, tag)
+    log(f"[{tag}] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def phase_forward_vlm(card: str) -> tuple:
+    """[forward-vlm]: phi-3-vision-4.2b at full width and depth (32 layers,
+    d=3072, 32/32 heads at D=96, vocabulary 32,064, the projector from
+    1024-wide patches; bf16, seed 0), B=4, 576 patches and 1472 text
+    tokens: under ``"flash"`` 32 launches a forward over 2048 positions,
+    under ``"xla"`` none (:func:`_flash_and_xla`).  Returns (the flash
+    launches of one forward, the model)."""
+    from repro_torch.models import build_model, make_batch
+
+    cfg = _mm_config(VLM_ARCH)
+    model = _init_timed(build_model(cfg), "forward-vlm")
+    batch = make_batch(1, cfg, VLM_BATCH, VLM_TEXT, "cuda")
+    return _flash_and_xla("forward-vlm", cfg, model, batch, card), model
+
+
+def phase_serve_vlm(card: str, model) -> None:
+    """[serve-vlm]: on [forward-vlm]'s weights, B=4: ``prefill_multimodal``
+    (576 image tokens and a 64-token prompt into a fresh cache) and
+    ``MM_NEW`` greedy tokens through ``decode_step``; then the static engine
+    on text-only requests (``ServeEngine(max_batch=8, max_seq=320)``, 6
+    greedy and 2 sampled, prompts 32-256, 32 new tokens), as the reference
+    serves the family; the counts zeroed just before each and read just
+    after (no kernel: cached attention); ms per prefill and decode step,
+    tokens/s; then the card-vs-CPU pair."""
+    import torch
+    from repro_torch.models import build_model, make_batch, vlm
+    from repro_torch.serve import ServeEngine
+
+    t_phase = time.perf_counter()
+    tag = "serve-vlm"
+    cfg = _mm_config(VLM_ARCH)
+    api = build_model(cfg)
+    b = make_batch(2, cfg, VLM_BATCH, VLM_PROMPT, "cuda")
+    n = cfg.vlm.num_patches + VLM_PROMPT
+    with torch.no_grad():
+        torch_sync()
+        _zero_counts()
+        t0 = time.perf_counter()
+        logits, cache, index = vlm.prefill_multimodal(model, b["tokens"], b["patches"], cfg,
+                                                      max_seq=n + MM_NEW)
+        tok = logits.argmax(-1, keepdim=True)
+        torch_sync()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        toks, ms = _greedy(api, model, tok, cache, index, MM_NEW - 1)
+        launched = {k: v for k, v in _counts().items() if v}
+    del cache
+    wall = (prefill_ms + sum(ms)) / 1e3
+    log(f"[{tag}] {cfg.name} full width ({cfg.num_layers} layers) bf16 on {card}, B="
+        f"{VLM_BATCH}: prefill_multimodal of {n} positions {prefill_ms:.1f} ms, then "
+        f"{MM_NEW - 1} greedy steps at ms per step median {statistics.median(ms):.2f}; "
+        f"{VLM_BATCH * MM_NEW / wall:.1f} generated tokens/s; kernels launched "
+        f"{launched or 'none'}")
+    if launched or index != n or tuple(toks.shape) != (VLM_BATCH, MM_NEW - 1):
+        raise AssertionError(f"[{tag}] index {index} (want {n}), tokens {tuple(toks.shape)}, "
+                             f"kernels {launched}")
+    reqs = _serve_r_requests(cfg)
+    eng = ServeEngine(api, model, seed=0, **SERVE_R_ENGINE)
+    timer = _StepTimer(drain=False)
+    eng.step_hook = timer
+    _zero_counts()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch_sync()
+    wall = time.perf_counter() - t0
+    launched = {k: v for k, v in _counts().items() if v}
+    new = sum(len(r.out_tokens) for r in reqs)
+    pre, dec = timer.medians("prefill"), timer.medians("decode")
+    log(f"[{tag}] static engine, text only: {len(reqs)} requests (prompts "
+        f"{sorted(len(r.prompt) for r in reqs)}, 2 sampled), {new} tokens in {wall:.2f} s "
+        f"({new / wall:.1f} generated tok/s); stats {eng.stats}; per prefill step (one "
+        f"position of {len(reqs)} sequences) stream span {pre['event_span_ms']:.2f} ms, "
+        f"enqueue {pre['enqueue_ms']:.2f} ms; per decode step {dec['event_span_ms']:.2f} ms, "
+        f"enqueue {dec['enqueue_ms']:.2f} ms; kernels launched {launched or 'none'}")
+    if launched or any(len(r.out_tokens) != SERVE_R_NEW or not r.done for r in reqs):
+        raise AssertionError(f"[{tag}] requests unfinished "
+                             f"{[len(r.out_tokens) for r in reqs]} or kernels {launched}")
+    del eng
+    _decode_card_vs_cpu(VLM_ARCH, tag)
+    log(f"[{tag}] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_mm(card: str) -> dict:
+    """Both families' phases in turn: [forward-encdec], [decode-encdec],
+    [train-encdec], [forward-vlm], [serve-vlm], then [train-vlm] on the
+    forward's first layers (the whole model freed first).  Returns each
+    kernel's launches by phase."""
+    import torch
+    from repro_torch.models import transformer
+
+    flash, model, batch = phase_forward_encdec(card)
+    phase_decode_encdec(card, model, batch)
+    del model, batch
+    torch.cuda.empty_cache()
+    by_phase = {"flash_attention": {"forward-encdec": flash},
+                "pack_transposed": {"train-encdec": phase_train_mm(card, ENCDEC_ARCH)}}
+    by_phase["flash_attention"]["forward-vlm"], model = phase_forward_vlm(card)
+    phase_serve_vlm(card, model)
+    cfg = _mm_config(VLM_ARCH)
+    # [train-vlm]'s weights: the forward's first layers, not a second draw
+    _, part = transformer.stage_model(model, cfg, 0, cfg.num_layers // VLM_TRAIN_DEPTH, "cuda")
+    del model
+    torch.cuda.empty_cache()
+    by_phase["pack_transposed"]["train-vlm"] = phase_train_mm(card, VLM_ARCH, part)
+    return by_phase
+
+
 CU = "src/repro_torch/kernels/ring_wire/csrc/"
 TPU = "src/repro/kernels/ring_wire/kernel.py:"
 #: name -> (CUDA source, the TPU kernel it replaces)
@@ -4329,12 +4817,14 @@ def _need_cards(name: str, n: int) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("check", "ring4", "serve", "swap", "fault", "fault4",
-                                       "ssm", "moe", "moe4", "ep4", "pp4"),
+                                       "ssm", "moe", "mm", "moe4", "ep4", "pp4"),
                     default=None,
                     help="check: stop after building and checking the kernels; "
                          "ep4: build, then only the four-card expert-parallel training; "
                          "pp4: only the four-card pipeline (no build); "
                          "moe: build, then only [train-moe], [forward-moe] and [serve-moe]; "
+                         "mm: build, then only flash's [check] and the encdec and vlm "
+                         "phases; "
                          "moe4: build, then only the four-card expert parallelism; "
                          "ssm: build, then only [train-ssm], [train-hybrid], [serve-ssm] "
                          "and [serve-hybrid]; "
@@ -4415,6 +4905,12 @@ def main() -> int:
             log("[only] moe: the moe family trained, ran forward and served on the card; "
                 "no result line")
             return 0
+        if args.only == "mm":
+            phase_check_flash()
+            phase_mm(card)
+            log("[only] mm: the encdec and vlm families ran forward, trained and decoded on "
+                "the card; no result line")
+            return 0
         if args.only == "moe4":
             if torch.cuda.device_count() < MOE4:
                 raise RuntimeError(f"[moe4] needs {MOE4} cards, found "
@@ -4465,6 +4961,8 @@ def main() -> int:
         phase_serve_moe(card, model)
         del model
         torch.cuda.empty_cache()
+        for name, runs in phase_mm(card).items():
+            by_phase[name].update(runs)
         by_phase.update({"wkv6": {"train-ssm": phase_train_recurrent(card, SSM_ARCH)},
                          "ssd": {"train-hybrid": phase_train_recurrent(card, HYBRID_ARCH)}})
         by_phase["wkv6"]["forward-ssm"], model = phase_forward_ssm(card)

@@ -1,9 +1,10 @@
 """Config registry: ``get_config("<arch>")`` + reduced smoke variants.
 
-The port holds seven architectures of the reference's ten: the dense
+The port holds nine architectures of the reference's ten: the dense
 ``qwen2-0.5b``, ``chatglm3-6b`` and ``gemma-7b``, the moe
-``qwen2-moe-a2.7b`` and ``grok-1-314b``, the ssm ``rwkv6-7b`` and the
-hybrid ``zamba2-2.7b``; the others arrive with their model families.
+``qwen2-moe-a2.7b`` and ``grok-1-314b``, the ssm ``rwkv6-7b``, the
+hybrid ``zamba2-2.7b``, the encdec ``whisper-tiny`` and the vlm
+``phi-3-vision-4.2b``; ``nemotron-4-340b`` is still to come.
 ``smoke_config`` makes the same reduction the reference makes, so both
 packages build identical small models.
 """
@@ -24,13 +25,13 @@ from .base import (  # noqa: F401
     shapes_for,
 )
 
-from . import (chatglm3_6b, gemma_7b, grok_1_314b, qwen2_0_5b, qwen2_moe_a2_7b, rwkv6_7b,
-               zamba2_2_7b)
+from . import (chatglm3_6b, gemma_7b, grok_1_314b, phi_3_vision_4_2b, qwen2_0_5b,
+               qwen2_moe_a2_7b, rwkv6_7b, whisper_tiny, zamba2_2_7b)
 
 _REGISTRY: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (qwen2_moe_a2_7b, grok_1_314b, qwen2_0_5b, chatglm3_6b, gemma_7b, rwkv6_7b,
-              zamba2_2_7b)}
+    for m in (qwen2_moe_a2_7b, grok_1_314b, qwen2_0_5b, chatglm3_6b, gemma_7b, whisper_tiny,
+              rwkv6_7b, zamba2_2_7b, phi_3_vision_4_2b)}
 
 ARCH_NAMES = tuple(_REGISTRY)
 
@@ -47,7 +48,8 @@ def smoke_config(name: str) -> ModelConfig:
     vocabulary 512, float32 — the reference's reduction (moe: four experts,
     top-2, width 32, at most one shared expert, capacity 4.0 so nothing
     drops; ssm: head_dim 16, state 8, chunk 8; hybrid: four layers, the
-    shared block every two)."""
+    shared block every two; encdec: two encoder layers over 16 frames;
+    vlm: 8 patches of width 32)."""
     cfg = get_config(name)
     changes: dict = dict(
         num_layers=2,
@@ -75,4 +77,9 @@ def smoke_config(name: str) -> ModelConfig:
     if cfg.hybrid is not None:
         changes["num_layers"] = 4
         changes["hybrid"] = dataclasses.replace(cfg.hybrid, shared_attn_every=2)
+    if cfg.encdec is not None:
+        changes["encdec"] = dataclasses.replace(cfg.encdec, encoder_layers=2,
+                                                encoder_frames=16)
+    if cfg.vlm is not None:
+        changes["vlm"] = dataclasses.replace(cfg.vlm, num_patches=8, patch_embed_dim=32)
     return dataclasses.replace(cfg, **changes)

@@ -3,10 +3,12 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_step --arch qwen2-0.5b \\
         --global-batch 8 --seq-len 128 --zero1-buckets 1 [--grad-compression bf16]
         [--num-layers N]   # full width at reduced depth (rwkv6-7b at 2, zamba2-2.7b at 12,
-                           # qwen2-moe-a2.7b at 1)
+                           # qwen2-moe-a2.7b at 1, phi-3-vision-4.2b at 8)
 
 Builds the same state as :mod:`repro_torch.launch.train` (world of one,
-``paxi``, and ``ring-<compression>`` for a compressed gradient wire), runs
+``paxi``, and ``ring-<compression>`` for a compressed gradient wire; the
+encdec and vlm archs' batches from ``models.make_batch``, the others' from
+the synthetic token stream), runs
 ``--warm`` steps, times ``--steps`` steps with no profiler
 (host clock, device synced), then runs ``--steps`` more under
 ``torch.profiler`` with CPU and CUDA activity.  The device numbers are read
@@ -39,7 +41,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from .. import configs as cfgs
 from ..data.pipeline import DataPipeline, SyntheticSource
-from ..models import build_model
+from ..models import batch_shapes, build_model, make_batch
 from ..optim.adamw import AdamWConfig
 from ..runtime.device import resolve_device
 from ..runtime.dist import make_dist
@@ -159,12 +161,17 @@ def main(argv=None) -> dict:
 def _profile(args, cfg, api, dist) -> dict:
     state = train_loop.init_state(api, 0, dist)
     step_fn = train_loop.make_train_step(api, dist, AdamWConfig())
-    pipe = DataPipeline(SyntheticSource(cfg.vocab_size, seed=0),
-                        global_batch=args.global_batch, seq_len=args.seq_len)
     n = args.steps
-    batches = [{k: torch.from_numpy(v).to(dist.device) for k, v in next(pipe).items()}
-               for _ in range(args.warm + 2 * n)]
-    pipe.close()
+    if set(batch_shapes(cfg, 1, 1)) - {"tokens", "targets"}:
+        # frames or patches beside the tokens, which the token stream lacks
+        batches = [make_batch(i, cfg, args.global_batch, args.seq_len, dist.device)
+                   for i in range(args.warm + 2 * n)]
+    else:
+        pipe = DataPipeline(SyntheticSource(cfg.vocab_size, seed=0),
+                            global_batch=args.global_batch, seq_len=args.seq_len)
+        batches = [{k: torch.from_numpy(v).to(dist.device) for k, v in next(pipe).items()}
+                   for _ in range(args.warm + 2 * n)]
+        pipe.close()
 
     def run(bs):
         nonlocal state

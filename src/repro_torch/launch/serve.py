@@ -1,7 +1,10 @@
 """Serving launcher — the port of ``repro.launch.serve``: batched generation
 with :class:`~repro_torch.serve.engine.ServeEngine`, continuously batched on
-the paged KV cache (the dense and moe families) or statically batched over
-the recurrent state (``--arch rwkv6-7b``, ``zamba2-2.7b``).
+the paged KV cache (the dense and moe families), statically batched over
+the recurrent state (``--arch rwkv6-7b``, ``zamba2-2.7b``) or, text only,
+over the contiguous cache (``--arch phi-3-vision-4.2b``).  ``--arch
+whisper-tiny`` is refused by the engine (``ValueError``: the encdec cache
+needs the encoder's frames), where the reference's fails too.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --smoke \\
         --batch 4 --prompt-len 16 --new-tokens 16

@@ -22,10 +22,12 @@ synthetic stream (earlier batches are drawn and kept), so a resumed or
 replayed step reads the batch the uninterrupted run read.  Without
 ``--ckpt-dir`` nothing is saved and a failure propagates (the step writes
 its parameters in place, so there is no state to restart from).
-``--impl faulty:<inner>`` injects the ``PAX_FAULT_SCHEDULE`` fault,
-``PAX_WIRE_INTEGRITY=1`` checksums the wire, and ``--retries N`` retries a
-corrupted or timed-out step in place.  The run
-ends with ``DistContext.shutdown``, whether or not a step raised.
+The encdec and vlm archs are refused: their batches also carry frames or
+patches, which the synthetic token stream does not (the reference's
+launcher fails on them).  ``--impl faulty:<inner>`` injects the
+``PAX_FAULT_SCHEDULE`` fault, ``PAX_WIRE_INTEGRITY=1`` checksums the wire,
+and ``--retries N`` retries a corrupted or timed-out step in place.  The
+run ends with ``DistContext.shutdown``, whether or not a step raised.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ import torch
 from .. import configs as cfgs
 from ..checkpoint.checkpointer import Checkpointer
 from ..data.pipeline import DataPipeline, SyntheticSource
-from ..models import build_model, param_leaves
+from ..models import batch_shapes, build_model, param_leaves
 from ..optim.adamw import AdamWConfig, warmup_cosine
 from ..runtime.dist import dp_comm_of, make_dist
 from ..runtime.fault import RetryPolicy, run_supervised
@@ -111,6 +113,12 @@ def main(argv=None) -> TrainReport:
 
     _reference_numerics()
     cfg = cfgs.smoke_config(args.arch) if args.smoke else cfgs.get_config(args.arch)
+    frontend = sorted(set(batch_shapes(cfg, 1, 1)) - {"tokens", "targets"})
+    if frontend:
+        raise ValueError(f"--arch {cfg.name}: the {cfg.family} family also reads "
+                         f"{', '.join(frontend)}, which the synthetic token stream does not "
+                         f"carry (the reference's launcher fails there too); train it "
+                         f"through train_loop.make_train_step with models.make_batch")
     if args.zero1_buckets is not None:
         cfg = dataclasses.replace(cfg, parallelism=dataclasses.replace(
             cfg.parallelism, zero1_buckets=args.zero1_buckets))

@@ -1,3 +1,4 @@
-"""Model substrate: the dense, moe, ssm (rwkv6) and hybrid (Mamba2) families of the
-reference."""
-from .model import ModelApi, analytic_param_count, build_model, from_jax_params, param_leaves  # noqa: F401
+"""Model substrate: the dense, moe, ssm (rwkv6), hybrid (Mamba2), encdec
+(whisper) and vlm (phi-3-vision) families of the reference."""
+from .model import (ModelApi, analytic_param_count, batch_shapes, build_model,  # noqa: F401
+                    from_jax_params, make_batch, param_leaves)

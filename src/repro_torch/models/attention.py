@@ -12,7 +12,8 @@ reference's three causal paths, chosen by ``cfg.attention_impl``:
 * ``"flash"``: the flash-attention kernel through the kernel registry
   (``kernels/flash_attention/ops.py:flash_mha``), forward only.
 
-Supports MHA / GQA / MQA through ``num_kv_heads``.
+Supports MHA / GQA / MQA through ``num_kv_heads``, and cross-attention
+to precomputed encoder K/V (``cross_kv``, always :func:`_sdpa`).
 
 The cached forms follow the reference's ``_sdpa_decode``: scores by an
 einsum in the compute dtype, cast to f32 and scaled, a ``-1e30`` mask of
@@ -121,16 +122,25 @@ def _sdpa_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
               causal: bool = True, kv_cache: Optional[KVCache] = None,
-              cache_index: int = 0):
+              cache_index: int = 0, cross_kv: Optional[tuple] = None):
     """One layer's attention block on (B, S, d) -> (B, S, d).
 
     With ``kv_cache`` (one layer's (B, max_seq, Hkv, D) cache) the new K/V
     rows are written at ``cache_index`` onward, every query attends to the
     cache positions up to its own (``cache_index + i``), and the result is
-    ``(out, kv_cache)``; without one it is ``out``."""
+    ``(out, kv_cache)``; without one it is ``out``.  With ``cross_kv =
+    (k, v)``, each (B, Skv, Hkv, D), it is cross-attention (the encoder-
+    decoder's): q from ``wq`` alone, no bias and no RoPE, every query
+    attending to all ``Skv`` keys through :func:`_sdpa`, whatever
+    ``attention_impl`` says; the result is ``out``."""
     if cfg.attention_impl not in ATTENTION_IMPLS:
         raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, "
                          f"got {cfg.attention_impl!r}")
+    if cross_kv is not None:
+        q = (x @ p["wq"].to(x.dtype)).reshape(*x.shape[:2], cfg.num_heads,
+                                               cfg.resolved_head_dim)
+        out = _sdpa(q, *cross_kv, causal=False).reshape(*x.shape[:2], -1)
+        return out @ p["wo"].to(x.dtype)
     q, k, v = _project_qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)

@@ -4,12 +4,15 @@ operation for operation, on tensors.
 
 Numbers that matter for parity with the reference: RMSNorm computes in f32
 with ``eps=1e-6`` and its scales stay f32 in a bf16 model; RoPE
-frequencies are f32 and the rotation runs in the activation dtype; the loss
+frequencies are f32 and the rotation runs in the activation dtype; the
+sinusoidal position table is f32; the loss
 is a token mean over f32 logits with a ``z_loss=1e-4`` term.
 """
 from __future__ import annotations
 
 import math
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 import torch.nn.functional as F
@@ -24,20 +27,48 @@ def dtype_of(name: str) -> torch.dtype:
 
 # ---------------------------------------------------------------------------
 # initializers (the reference's distributions; its random bits differ).  The
-# numbers come from a CPU generator, so one seed gives the same weights on
+# numbers come from CPU generators, so one seed gives the same weights on
 # every device.
 # ---------------------------------------------------------------------------
+#: a draw is cut into chunks of this many elements, each from its own CPU
+#: generator, so the host's threads draw the chunks together
+DRAW_CHUNK = 1 << 20
+
+
+def normal_draw(shape: tuple, gen: torch.Generator, std: float) -> torch.Tensor:
+    """N(0, 1) * std of ``shape`` in f32 on the CPU: one seed taken from
+    ``gen``, then chunk ``i`` of :data:`DRAW_CHUNK` elements from a generator
+    seeded by (that seed, ``i``), the chunks drawn on the host's threads
+    together.  The numbers depend on ``gen``'s state alone, not on the
+    number of threads."""
+    base = int(torch.randint(0, 1 << 62, (), generator=gen))
+    out = torch.empty(shape, dtype=torch.float32)
+    flat = out.view(-1)
+
+    def fill(i: int) -> None:
+        g = torch.Generator().manual_seed((base + i * 0x9E3779B97F4A7C15) % (1 << 63))
+        flat[i * DRAW_CHUNK:(i + 1) * DRAW_CHUNK].normal_(0.0, std, generator=g)
+
+    chunks = -(-flat.numel() // DRAW_CHUNK)
+    if chunks <= 1:
+        fill(0)
+    else:
+        with ThreadPoolExecutor(max_workers=min(chunks, os.cpu_count() or 1)) as pool:
+            list(pool.map(fill, range(chunks)))
+    return out
+
+
 def normal_init_(w: torch.Tensor, gen: torch.Generator, std: float,
                  part: tuple = (0, 1)) -> None:
-    """Fill ``w`` with N(0, 1) * std, one slice of its leading (layer) axis
-    at a time when it is stacked, so the host holds one layer's draw.
-    ``part=(r, n)``: each slice holds part ``r`` of ``n`` of a draw ``n``
-    times its first axis long (one rank's experts of the whole layer's), so
-    every split draws the same weights from one seed."""
+    """Fill ``w`` with N(0, 1) * std (:func:`normal_draw`), one slice of its
+    leading (layer) axis at a time when it is stacked, so the host holds one
+    layer's draw.  ``part=(r, n)``: each slice holds part ``r`` of ``n`` of a
+    draw ``n`` times its first axis long (one rank's experts of the whole
+    layer's), so every split draws the same weights from one seed."""
     r, n = part
     for s in (w if w.ndim > 2 else (w,)):
         k = s.shape[0]
-        s.copy_(torch.randn((k * n, *s.shape[1:]), generator=gen)[r * k:(r + 1) * k].mul_(std))
+        s.copy_(normal_draw((k * n, *s.shape[1:]), gen, std)[r * k:(r + 1) * k])
 
 
 def dense_init_(w: torch.Tensor, gen: torch.Generator, scale: float = 1.0,
@@ -179,6 +210,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     r2 = x2 * cos + x1 * sin
     xr = torch.stack([r1, r2], dim=-1).reshape(xr.shape)
     return torch.cat([xr, xp], dim=-1) if rot_dim < head_dim else xr
+
+
+def sinusoidal_positions(length: int, dim: int, device=None) -> torch.Tensor:
+    """The fixed (length, dim) position table of the encoder-decoder's
+    encoder, in f32: ``pos * exp(j * -ln(10000) / dim)`` for ``j = 0, 2,
+    ...``, its sine on the even columns and its cosine on the odd ones."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / dim))
+    pe = torch.zeros((length, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
 
 
 # ---------------------------------------------------------------------------

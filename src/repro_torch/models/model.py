@@ -8,14 +8,18 @@ dict with the parameters' keys, see ``runtime/sharding.py``),
 ``loss_fn(model, batch)``,
 ``forward(model, batch, last_only=False)`` (-> logits),
 ``decode_init(batch, max_seq, device=None)`` (-> the decode state: the
-dense and moe families' contiguous KV cache, the ssm family's recurrent
-``RwkvState``, the hybrid's ``HybridState``) and
+dense, moe and vlm families' contiguous KV cache, the ssm family's
+recurrent ``RwkvState``, the hybrid's ``HybridState``; None for encdec,
+whose cache needs the frames: ``encdec.init_cache``) and
 ``decode_step(model, token, state, index)`` (-> logits, state; the state is
 written in place).  ``loss_fn``, ``forward`` and ``decode_step`` take the
-``dist`` the moe family's expert parallelism runs on.  The port holds four
+``dist`` the moe family's expert parallelism runs on.  The port holds six
 families of the reference: ``dense`` and ``moe`` (``transformer``), ``ssm``
-(rwkv6, ``rwkv``) and ``hybrid`` (Mamba2 + shared attention, ``hybrid``);
-each trains and decodes.
+(rwkv6, ``rwkv``), ``hybrid`` (Mamba2 + shared attention, ``hybrid``),
+``encdec`` (whisper, ``encdec``) and ``vlm`` (phi-3-vision, ``vlm``); each
+trains and decodes.  The forward and the loss of encdec and vlm read the
+whole batch (``frames``, ``patches``), the others its ``tokens``;
+:func:`make_batch` draws a batch of the reference's shapes.
 
 :func:`param_leaves` is the reference's ``jax.tree.leaves`` order — sorted
 keys at every level of the parameter tree, each leaf holding all ``L``
@@ -35,7 +39,7 @@ from ..configs.base import ModelConfig
 from ..optim.adamw import tree_leaves
 from ..runtime.device import resolve_device
 from ..runtime.sharding import _strip_axes
-from . import hybrid, rwkv, transformer
+from . import encdec, hybrid, rwkv, transformer, vlm
 from .common import is_glu, stack_specs
 from .moe import _ep_expert_specs
 
@@ -43,7 +47,9 @@ from .moe import _ep_expert_specs
 _FAMILIES = {"dense": (transformer, transformer.TransformerLM),
              "moe": (transformer, transformer.TransformerLM),
              "ssm": (rwkv, rwkv.RwkvLM),
-             "hybrid": (hybrid, hybrid.HybridLM)}
+             "hybrid": (hybrid, hybrid.HybridLM),
+             "encdec": (encdec, encdec.EncDecLM),
+             "vlm": (vlm, vlm.VlmLM)}
 
 
 def _family(cfg: ModelConfig):
@@ -67,11 +73,13 @@ class ModelApi:
 
 def build_model(cfg: ModelConfig) -> ModelApi:
     fam, _ = _family(cfg)
-    # only the transformer's functions take the dist (the MoE block's EP)
-    on = (lambda dist: {"dist": dist}) if fam is transformer else (lambda dist: {})
+    # the transformer's and the vlm's functions take the dist (the MoE block's EP)
+    on = (lambda dist: {"dist": dist}) if fam in (transformer, vlm) else (lambda dist: {})
     # only the transformer's moe layers split a parameter over the model axis
     part = ((lambda r, n: {"model_rank": r, "model_axis": n}) if fam is transformer
             else (lambda r, n: {}))
+    # encdec and vlm read the whole batch (frames, patches), the others its tokens
+    inputs = (lambda b: b) if fam in (encdec, vlm) else (lambda b: b["tokens"])
     api = ModelApi(
         cfg,
         init=lambda seed=0, device=None, model_rank=0, model_axis=1: fam.init_lm(
@@ -79,19 +87,19 @@ def build_model(cfg: ModelConfig) -> ModelApi:
         param_specs=lambda fsdp="data", tp="model": fam.spec_lm(cfg, fsdp, tp),
         loss_fn=lambda m, b, dist=None: fam.loss_fn(m, b, cfg, **on(dist)),
         forward=lambda m, b, dist=None, last_only=False: fam.forward(
-            m, b["tokens"], cfg, last_only=last_only, **on(dist)),
+            m, inputs(b), cfg, last_only=last_only, **on(dist)),
+        decode_step=lambda m, tok, state, idx, dist=None: fam.decode_step(
+            m, tok, state, idx, cfg, **on(dist)),
     )
-    if fam is transformer:
+    if fam in (transformer, vlm):
         api.decode_init = lambda batch, max_seq, device=None: transformer.init_cache(
             cfg, batch, max_seq, device=device)
-    elif cfg.family == "ssm":
+    elif fam is rwkv:
         api.decode_init = lambda batch, max_seq, device=None: rwkv.init_state(
             cfg, batch, device=device)
-    else:
+    elif fam is hybrid:
         api.decode_init = lambda batch, max_seq, device=None: hybrid.init_state(
             cfg, batch, max_seq, device=device)
-    api.decode_step = lambda m, tok, state, idx, dist=None: fam.decode_step(
-        m, tok, state, idx, cfg, **on(dist))
     return api
 
 
@@ -185,6 +193,12 @@ def analytic_param_count(cfg: ModelConfig) -> int:
         per_layer = d * (2 * d_inner + 2 * s.state_size + H) + d_inner * d  # in/out proj
         shared = (2 * d) * d + attn + _mlp_params(d, f, cfg.activation) + d * d
         return n + L * per_layer + shared
+    if cfg.family == "encdec":
+        mlp_n = _mlp_params(d, f, cfg.activation)
+        enc = cfg.encdec.encoder_layers * (attn + mlp_n)
+        return n + enc + L * (2 * attn + mlp_n) + cfg.max_seq_len * d
+    if cfg.family == "vlm":
+        n += cfg.vlm.patch_embed_dim * d + d * d  # the projector
     if cfg.moe is not None:
         m = cfg.moe
         ffn = m.num_experts * (_mlp_params(d, m.expert_d_ff, cfg.activation) + d)
@@ -193,3 +207,36 @@ def analytic_param_count(cfg: ModelConfig) -> int:
         return n + L * (attn + ffn)
     return n + L * (attn + _mlp_params(d, f, cfg.activation))
 
+
+# ---------------------------------------------------------------------------
+# batches (the reference's shapes; numpy-seeded numbers)
+# ---------------------------------------------------------------------------
+def batch_shapes(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """name -> (shape, dtype) of a training batch: ``tokens`` and
+    ``targets`` (B, S) int32, and the stubbed frontends' inputs in
+    bfloat16: encdec's ``frames`` (B, encoder_frames, d_model), vlm's
+    ``patches`` (B, num_patches, patch_embed_dim)."""
+    shapes = {"tokens": ((batch, seq), torch.int32), "targets": ((batch, seq), torch.int32)}
+    if cfg.family == "encdec":
+        shapes["frames"] = ((batch, cfg.encdec.encoder_frames, cfg.d_model), torch.bfloat16)
+    if cfg.family == "vlm":
+        shapes["patches"] = ((batch, cfg.vlm.num_patches, cfg.vlm.patch_embed_dim),
+                             torch.bfloat16)
+    return shapes
+
+
+def make_batch(seed: int, cfg: ModelConfig, batch: int, seq: int, device=None) -> dict:
+    """A batch of :func:`batch_shapes` from ``numpy.random.default_rng(seed)``
+    on ``device`` (default ``cuda``): tokens uniform over the vocabulary,
+    targets the tokens shifted left by one (the last wrapping round, as the
+    reference's ``jnp.roll``), frames and patches N(0, 1) rounded to
+    bfloat16."""
+    rng = np.random.default_rng(seed)
+    shapes = batch_shapes(cfg, batch, seq)
+    tokens = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    out = {"tokens": tokens, "targets": np.roll(tokens, -1, axis=1)}
+    for name, (shape, _) in shapes.items():
+        if name not in out:
+            out[name] = rng.standard_normal(shape, dtype=np.float32)
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(v).to(device=dev, dtype=shapes[k][1]) for k, v in out.items()}

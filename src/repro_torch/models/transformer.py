@@ -9,13 +9,15 @@ onto the module by name alone (``model.from_jax_params``) and the ZeRO-1
 flat vector can follow the reference's leaf order.
 
 The reference scans the layers with optional rematerialisation; neither
-changes a number, and here the layers run in a Python loop.  With
+changes a number, and here the layers run in a Python loop (:func:`_layers`,
+the one layer body of every path, from an embedded residual).  With
 ``cfg.moe`` set each layer's FFN is the MoE block (``layers.moe.*``,
-``models/moe.py``), the layer body runs under ``maybe_remat``, the
-forward carries the sum of the layers' router aux losses and the loss is
-cross-entropy plus that sum, as in the reference.  Every function takes the
-``dist`` the MoE block's expert parallelism runs on (the dense FFN ignores
-it).
+``models/moe.py``), the forward carries the sum of the layers' router aux
+losses and the loss is cross-entropy plus that sum, as in the reference.
+The layer body runs under ``maybe_remat`` for the moe family and for the
+vlm (``models/vlm.py``), not for the dense family (:func:`_remat`).
+Every function takes the ``dist`` the MoE block's expert parallelism runs
+on (the dense FFN ignores it).
 
 Serving: :func:`prefill` and :func:`decode_step` run on a contiguous
 cache (:func:`init_cache`); :func:`prefill_chunk_paged` and
@@ -61,11 +63,14 @@ class TransformerLM(nn.Module):
     of ``model_axis`` ranks, this rank's part of the experts only
     (``moe.expert_shards``); every other leaf whole."""
 
+    #: the families this module's parameter tree builds
+    FAMILIES = ("dense", "moe")
+
     def __init__(self, cfg, device, model_rank: int = 0, model_axis: int = 1) -> None:
         super().__init__()
-        if cfg.family not in ("dense", "moe"):
-            raise ValueError(f"TransformerLM builds the dense and moe families, "
-                             f"got {cfg.family!r}")
+        if cfg.family not in self.FAMILIES:
+            raise ValueError(f"{type(self).__name__} builds the {' and '.join(self.FAMILIES)} "
+                             f"families, got {cfg.family!r}")
         shards = expert_shards(cfg, model_axis)
         if not 0 <= model_rank < max(shards, 1) or (shards == 1 and model_rank):
             raise ValueError(f"model rank {model_rank} of {model_axis} holds no expert part")
@@ -113,12 +118,17 @@ def spec_lm(cfg, fsdp="data", tp="model") -> dict:
 
 @torch.no_grad()
 def init_lm(cfg, seed: int, device, model_rank: int = 0, model_axis: int = 1) -> TransformerLM:
-    """Random weights from ``seed``, with the reference's distributions:
+    """Random weights from ``seed`` (:func:`init_weights_`)."""
+    return init_weights_(TransformerLM(cfg, device, model_rank, model_axis), cfg, seed)
+
+
+@torch.no_grad()
+def init_weights_(model: TransformerLM, cfg, seed: int) -> TransformerLM:
+    """Fill ``model`` from ``seed`` with the reference's distributions:
     N(0,1)/sqrt(in) projections (``wo`` of attention further scaled by
     1/sqrt(2L)), N(0, 0.02) embeddings, zero biases, unit norm scales.  A
     model holding one rank's part of the experts holds those experts of
     the whole model's draw."""
-    model = TransformerLM(cfg, device, model_rank, model_axis)
     part = model.expert_part
     gen = torch.Generator().manual_seed(seed)
     for name, p in sorted(model.named_parameters()):
@@ -141,37 +151,45 @@ def init_lm(cfg, seed: int, device, model_rank: int = 0, model_axis: int = 1) ->
     return model
 
 
-def _dense_layers(lay, x: torch.Tensor, cfg, attend) -> torch.Tensor:
-    """The dense family's layers ``lay`` on the residual ``x``: pre-norm
-    attention (``attend(p, h, l)``), then the pre-norm MLP, each added."""
-    for l in range(cfg.num_layers):
-        x = x + attend(lay.attn.layer(l), norm(lay.ln1.layer(l), x, cfg.norm), l)
-        x = x + mlp(lay.mlp.layer(l), norm(lay.ln2.layer(l), x, cfg.norm), cfg.activation)
-    return x
+def _remat(cfg) -> str:
+    """The layer bodies' remat: the config's, except for the dense family,
+    whose layers run without it (ROADMAP queue 3; remat changes no number)."""
+    return "none" if cfg.family == "dense" else cfg.parallelism.remat
 
 
-def _trunk(model: TransformerLM, tokens: torch.Tensor, cfg, attend, dist=None) -> tuple:
-    """Embed ``tokens`` and run every layer: pre-norm attention, then the
-    pre-norm MLP or MoE block, each added to the residual.  ``attend(p, h,
-    l)`` is layer ``l``'s attention on its normed input (the forward's, a
-    contiguous cache's or the pages').  Returns the hidden state before the
-    final norm and the layers' summed aux loss (None for the dense FFN)."""
-    x = embed_tokens(model.embed.tok, tokens, dtype_of(cfg.compute_dtype))
-    lay = model.layers
-    if cfg.moe is None:
-        return _dense_layers(lay, x, cfg, attend), None
+def _embed(model: TransformerLM, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    return embed_tokens(model.embed.tok, tokens, dtype_of(cfg.compute_dtype))
 
+
+def _layers(lay, x: torch.Tensor, cfg, attend, dist=None, remat: str = "none") -> tuple:
+    """Every layer of ``lay`` on the residual ``x``: pre-norm attention
+    (``attend(p, h, l)``, layer ``l``'s attention on its normed input: the
+    forward's, a contiguous cache's or the pages'), then the pre-norm MLP
+    or MoE block, each added; each layer body under ``maybe_remat(remat)``.
+    Returns the residual and the layers' summed aux loss (None for the
+    dense FFN)."""
     def body(p, xx, l):
         xx = xx + attend(p["attn"], norm(p["ln1"], xx, cfg.norm), l)
-        f, aux = moe_block(p["moe"], norm(p["ln2"], xx, cfg.norm), cfg, dist)
+        h = norm(p["ln2"], xx, cfg.norm)
+        if cfg.moe is None:
+            return xx + mlp(p["mlp"], h, cfg.activation), None
+        f, aux = moe_block(p["moe"], h, cfg, dist)
         return xx + f, aux
 
-    body = maybe_remat(body, cfg.parallelism.remat)
+    body = maybe_remat(body, remat)
     auxes = []
     for l in range(cfg.num_layers):
         x, aux = body({name: node.layer(l) for name, node in lay.named_children()}, x, l)
         auxes.append(aux)
-    return x, torch.stack(auxes).sum()
+    return x, None if cfg.moe is None else torch.stack(auxes).sum()
+
+
+def _trunk(model: TransformerLM, x: torch.Tensor, cfg, attend, dist=None) -> tuple:
+    """:func:`_layers` over ``model``'s layers from the embedded residual
+    ``x`` (the tokens' embedding, or the vlm's image tokens before it),
+    under :func:`_remat`.  Returns the hidden state before the final norm
+    and the summed aux loss."""
+    return _layers(model.layers, x, cfg, attend, dist, _remat(cfg))
 
 
 def _logits(model: TransformerLM, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -187,9 +205,10 @@ def _positions(start, n: int, batch: int, device) -> torch.Tensor:
 
 @torch.no_grad()
 def stage_model(model: TransformerLM, cfg, stage: int, stages: int, device=None) -> tuple:
-    """One pipeline stage of a dense ``model``: (the stage's config,
-    a :class:`TransformerLM` holding layers ``[stage L/S, (stage+1) L/S)``
-    and the embedding and final norm) on ``device``."""
+    """One pipeline stage of a dense (or vlm) ``model``: (the stage's
+    config, a module of ``model``'s class holding layers ``[stage L/S,
+    (stage+1) L/S)`` and every other leaf whole: the embedding, the final
+    norm, the vlm's projector) on ``device``."""
     if cfg.moe is not None:
         raise ValueError("the pipeline stages run the dense family")
     L = cfg.num_layers
@@ -197,7 +216,7 @@ def stage_model(model: TransformerLM, cfg, stage: int, stages: int, device=None)
         raise ValueError(f"{L} layers do not split into {stages} stages")
     n = L // stages
     scfg = dataclasses.replace(cfg, num_layers=n)
-    part = TransformerLM(scfg, resolve_device(device))
+    part = type(model)(scfg, resolve_device(device))
     whole = dict(model.named_parameters())
     for name, p in part.named_parameters():
         src = whole[name]
@@ -212,13 +231,13 @@ def pipeline_fns(part: TransformerLM, cfg) -> tuple:
     stage's layers on a (mb, S, d) microbatch, and the final norm, the
     unembedding and the token-mean cross-entropy of ``batch["targets"]``."""
     def embed_fn(batch):
-        return embed_tokens(part.embed.tok, batch["tokens"], dtype_of(cfg.compute_dtype))
+        return _embed(part, batch["tokens"], cfg)
 
     def layer_stack_fn(stage: TransformerLM, x):
         B, S = x.shape[:2]
         positions = _positions(0, S, B, x.device)
-        return _dense_layers(stage.layers, x, cfg, lambda p, h, l: attention(
-            p, h, cfg, positions=positions, causal=True))
+        return _layers(stage.layers, x, cfg, lambda p, h, l: attention(
+            p, h, cfg, positions=positions, causal=True))[0]
 
     def head_fn(y, batch):
         return softmax_cross_entropy(_logits(part, y, cfg), batch["targets"])
@@ -234,7 +253,7 @@ def forward_aux(model: TransformerLM, tokens: torch.Tensor, cfg, last_only: bool
     aux loss, None for the dense FFN)."""
     B, S = tokens.shape
     positions = _positions(0, S, B, tokens.device)
-    x, aux = _trunk(model, tokens, cfg, lambda p, h, l: attention(
+    x, aux = _trunk(model, _embed(model, tokens, cfg), cfg, lambda p, h, l: attention(
         p, h, cfg, positions=positions, causal=True), dist)
     if last_only:
         x = x[:, -1:]
@@ -263,10 +282,11 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, device=None)
                          layers=cfg.num_layers)
 
 
-def _run_cached(model: TransformerLM, tokens: torch.Tensor, cache: KVCache, index: int,
+def _run_cached(model: TransformerLM, x: torch.Tensor, cache: KVCache, index: int,
                 positions: torch.Tensor, cfg, dist) -> torch.Tensor:
-    """The layers over a contiguous cache, writing from position ``index``."""
-    return _trunk(model, tokens, cfg, lambda p, h, l: attention(
+    """The layers over a contiguous cache from the embedded residual ``x``,
+    writing from position ``index``."""
+    return _trunk(model, x, cfg, lambda p, h, l: attention(
         p, h, cfg, positions=positions, causal=True,
         kv_cache=KVCache(cache.k[l], cache.v[l]), cache_index=index)[0], dist)[0]
 
@@ -277,7 +297,7 @@ def decode_step(model: TransformerLM, token: torch.Tensor, cache: KVCache, index
     Returns (logits (B, vocab), cache)."""
     B = token.shape[0]
     positions = torch.full((B, 1), int(index), dtype=torch.int32, device=token.device)
-    x = _run_cached(model, token, cache, int(index), positions, cfg, dist)
+    x = _run_cached(model, _embed(model, token, cfg), cache, int(index), positions, cfg, dist)
     return _logits(model, x, cfg)[:, 0, :], cache
 
 
@@ -287,7 +307,8 @@ def prefill(model: TransformerLM, tokens: torch.Tensor, cfg, dist=None,
     (default the config's); returns (last logits (B, vocab), cache, S)."""
     B, S = tokens.shape
     cache = init_cache(cfg, B, max_seq or cfg.max_seq_len, device=tokens.device)
-    x = _run_cached(model, tokens, cache, 0, _positions(0, S, B, tokens.device), cfg, dist)
+    x = _run_cached(model, _embed(model, tokens, cfg), cache, 0,
+                    _positions(0, S, B, tokens.device), cfg, dist)
     return _logits(model, x[:, -1:, :], cfg)[:, 0, :], cache, S
 
 
@@ -305,8 +326,9 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, dtype=torch.bfloat16
 
 def _run_paged(model: TransformerLM, tokens: torch.Tensor, pages: KVCache,
                block_tables: torch.Tensor, positions: torch.Tensor, cfg, dist) -> torch.Tensor:
-    return _logits(model, _trunk(model, tokens, cfg, lambda p, h, l: attention_paged(
-        p, h, cfg, pages.k[l], pages.v[l], block_tables, positions), dist)[0], cfg)
+    x = _trunk(model, _embed(model, tokens, cfg), cfg, lambda p, h, l: attention_paged(
+        p, h, cfg, pages.k[l], pages.v[l], block_tables, positions), dist)[0]
+    return _logits(model, x, cfg)
 
 
 def decode_step_paged(model: TransformerLM, token: torch.Tensor, pages: KVCache,

@@ -41,14 +41,17 @@ timed-out start; ``serve/supervisor.py`` retries, escalates and recovers.
 The dense and moe families are paged; the moe family's steps route
 through ``moe_block`` with the engine's ``dist``.  The ssm and hybrid
 families keep no KV pages (their decode state is
-recurrent), so :meth:`ServeEngine.run` serves them as the reference does,
-by static batching (:meth:`ServeEngine._run_static`): the prompts
-left-padded with token 0 to one length, fed one position a step through
+recurrent), and the reference pages no other family, so
+:meth:`ServeEngine.run` serves them and the vlm (text only, on the
+transformer's contiguous cache) as the reference does, by static
+batching (:meth:`ServeEngine._run_static`): the prompts left-padded with
+token 0 to one length, fed one position a step through
 ``decode_step`` (model step ``"prefill"``), then decoded in rounds (model
 step ``"decode"``) until every request is done; ``submit``/``step`` are the
 paged path's only.  Left padding runs the pad tokens through the recurrent
 state, in the reference too, so a request's tokens depend on the batch it
-is served in.
+is served in.  The encdec family has no ``decode_init`` (its cache needs
+the frames), and ``run`` refuses it with a ``ValueError``.
 """
 from __future__ import annotations
 
@@ -206,7 +209,7 @@ class ServeEngine:
         start) -> logits (1, chunk, vocab), or ``"decode"`` (tokens
         (max_batch, 1), tables (max_batch, W), lengths (max_batch,)) ->
         logits (max_batch, vocab).  Both write the pages in place.  On the
-        static path (ssm, hybrid) both are one ``decode_step`` (tokens
+        static path (ssm, hybrid, vlm) both are one ``decode_step`` (tokens
         (B, 1), the decode state, the position) -> logits (B, vocab),
         writing the state in place."""
         fn = self._steps[kind]
@@ -264,7 +267,15 @@ class ServeEngine:
 
     def run(self, requests: list[Request]) -> None:
         """Serve a closed batch to completion: continuously batched on the
-        paged path, statically batched for the ssm and hybrid families."""
+        paged path, statically batched for the ssm, hybrid and vlm families
+        (the vlm text only, as in the reference).  The encdec family raises
+        ``ValueError``: its cache needs the encoder's frames
+        (``encdec.init_cache``), which a request does not carry (the
+        reference fails there too, on its ``decode_init=None``)."""
+        if self.api.decode_init is None:
+            raise ValueError(f"{self.cfg.family} ({self.cfg.name}) has no decode_init: its "
+                             f"cache needs the encoder's frames, so build it with "
+                             f"encdec.init_cache and decode with decode_step")
         if not self.paged:
             self.stats["requests"] += len(requests)
             with torch.no_grad():
@@ -353,7 +364,7 @@ class ServeEngine:
             if seq.req.done:
                 sched.finish(i)
 
-    # -- static batching (ssm, hybrid: no KV pages) --------------------------
+    # -- static batching (ssm, hybrid, vlm: no KV pages) ---------------------
     def _run_static(self, requests: list[Request]) -> None:
         """Left-pad the prompts to one length, feed them one position a step,
         then decode in rounds until every request is done (the reference's
