@@ -13,6 +13,7 @@
     python3 chip_smoke.py --only moe4   # build + [moe4] only, four cards
     python3 chip_smoke.py --only ep4    # build + [ep4] only, four cards
     python3 chip_smoke.py --only pp4    # [pp4] only, four cards (no kernel to build)
+    python3 chip_smoke.py --only tp4    # build + [tp4] only, four cards
     python3 chip_smoke.py --baseline wkv6=build/wkv6_parent.cu  # [time] also an earlier wkv6
 
 ``--baseline NAME=PATH`` (repeatable; NAME ``wkv6`` or ``ssd``) builds an
@@ -242,6 +243,24 @@ runs full-width qwen2-0.5b in float32 as 4 GPipe stages of 6 layers over
 ABI ``sendrecv``, M = 4: the loss within 1e-5 and every gradient leaf
 within 1e-4 of its scale of the un-pipelined step on each card, 7 hops
 each way.
+
+[dryrun] (after [train-gspmd]; its CPU subprocesses start after the
+build and run beside the card's phases): ``python -m
+repro_torch.launch.dryrun`` on qwen2-0.5b's ``train_4k`` cell at ``pod1``
+(rank 0 of a fake world of 256, fake tensors), its record printed, and the
+module's lowering of [main]'s own cell beside that cell on the card: the
+predicted argument bytes must equal the live train state's; the predicted
+peak over ``max_memory_allocated`` and the roofline's step over the
+measured ms/step are printed.  ``--only tp4`` (four cards,
+:func:`phase_tp4`) runs gemma-7b at full width, each card holding a
+quarter of the weights: float32 steps at 2 layers under the ABI step at
+(1, 4) and ``gspmd`` with FSDP at (2, 2) against one card's unsharded step
+(losses within 1e-5, grad norms within 1e-4, ``pack_transposed`` once a
+step per rank under abi), the full-depth bf16 steps in both modes (ms/step,
+peak GB, the collectives a step, the dry run's prediction beside them), and
+the TP forward under flash (7 launches at 4 local heads, the logits within
+``TP4_LOGIT_TOL`` of one card's); it prints a ``kernels`` line with the
+``tp4`` launches.
 
 ``--only ring4`` runs the one path a single card cannot: [ring4] starts
 ``launch.train`` as four ranks, one per card, on NCCL, for 2 ZeRO-1 steps
@@ -4786,6 +4805,529 @@ def phase_mm(card: str) -> dict:
     return by_phase
 
 
+# ---------------------------------------------------------------------------
+# [dryrun]: the dry run's production cell, and its prediction of [main]'s
+# cell beside the card
+# ---------------------------------------------------------------------------
+#: the production cell the full script lowers (arch, shape, mesh)
+DRYRUN_CELL = (ARCH, "train_4k", "pod1")
+#: seconds the dry run's subprocesses may take
+DRYRUN_TIMEOUT = 150
+#: [main]'s cell on the card: 1 warm step, then the timed ones
+DRYRUN_WARM, DRYRUN_TIMED = 1, 2
+
+_LOWER_SCRIPT = r"""
+import dataclasses, json, sys
+import torch
+from repro_torch import configs
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.core import Mesh
+from repro_torch.launch import dryrun
+
+world, cells = int(sys.argv[1]), json.loads(sys.argv[2])
+dryrun.fake_world(world)
+out = []
+for c in cells:
+    cfg = configs.smoke_config(c["arch"]) if c.get("smoke") else configs.get_config(c["arch"])
+    cfg = dataclasses.replace(cfg, **c.get("cfg", {}), parallelism=dataclasses.replace(
+        cfg.parallelism, **c.get("par", {})))
+    mesh = Mesh(("data", "model"), tuple(c["mesh"]), torch.device("cpu"))
+    out.append(dryrun.lower(cfg, ShapeConfig("cell", c["seq"], c["batch"], "train"), mesh))
+print(json.dumps(out))
+"""
+
+
+def _json_tail(text: str):
+    """The last line of ``text`` that parses as JSON."""
+    for line in reversed(text.splitlines()):
+        if line.startswith(("{", "[")):
+            return json.loads(line)
+    raise ValueError(f"no JSON line in {text[-2000:]!r}")
+
+
+def _lower_cells(world: int, cells: list, timeout: float = DRYRUN_TIMEOUT):
+    """``launch.dryrun.lower`` of each cell (a dict: ``arch``, ``mesh``
+    (data, model), ``seq``, ``batch`` and the config's ``cfg``/``par``
+    changes, ``smoke``) as rank 0 of a fake world of ``world`` ranks, in a
+    subprocess (a process holds one default process group).  Returns a
+    ``subprocess.Popen``; :func:`_lowered` reads its records."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return subprocess.Popen([sys.executable, "-c", _LOWER_SCRIPT, str(world), json.dumps(cells)],
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _lowered(proc, timeout: float = DRYRUN_TIMEOUT):
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise RuntimeError(f"dry run exited {proc.returncode}: {err[-3000:]}")
+    return _json_tail(out)
+
+
+def _gb(n: float) -> str:
+    return f"{n / 1e9:.3f} GB"
+
+
+def _main_cell_on_card() -> dict:
+    """[main]'s cell (``ARCH`` at full width, batch 8 x 128, the config's
+    microbatch 4, the f32 wire, seed 0) on the card: the live train state's
+    bytes (``dryrun.state_bytes``), then ``DRYRUN_WARM`` + ``DRYRUN_TIMED``
+    steps with the peak memory of the timed ones."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataPipeline, SyntheticSource
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.dist import make_dist
+    from repro_torch.train import train_loop as tl
+
+    api = build_model(configs.get_config(ARCH))
+    pipe = DataPipeline(SyntheticSource(api.cfg.vocab_size, seed=0), global_batch=8,
+                        seq_len=128)
+    ms = []
+    with make_dist(device="cuda") as dist:
+        state = tl.init_state(api, 0, dist)
+        live = dryrun.state_bytes(state)
+        step = tl.make_train_step(api, dist, AdamWConfig())
+        for i in range(DRYRUN_WARM + DRYRUN_TIMED):
+            batch = tl.local_batch(next(pipe), dist)
+            if i == DRYRUN_WARM:
+                torch.cuda.reset_peak_memory_stats()
+            (state, met), t = _timed(lambda: step(state, batch), True, dist.device)
+            if not math.isfinite(float(met.loss)):
+                raise AssertionError(f"[dryrun] non-finite loss {float(met.loss)}")
+            ms.append(t)
+        peak = torch.cuda.max_memory_allocated()
+        del state
+    pipe.close()
+    torch.cuda.empty_cache()
+    return {"live_bytes": live, "peak_bytes": peak, "ms": ms}
+
+
+def _dryrun_start() -> tuple:
+    """Start [dryrun]'s two CPU subprocesses (:func:`phase_dryrun` reads
+    them): ``python -m repro_torch.launch.dryrun`` on ``DRYRUN_CELL``, and
+    the module's lowering of [main]'s own cell on a 1 x 1 mesh."""
+    arch, shape, mesh = DRYRUN_CELL
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cell = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                             "--shape", shape, "--mesh", mesh], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return cell, _lower_cells(1, [dict(arch=ARCH, mesh=[1, 1], seq=128, batch=8)])
+
+
+def phase_dryrun(card: str, started: tuple) -> None:
+    """[dryrun]: the record of ``python -m repro_torch.launch.dryrun`` on
+    the production cell ``DRYRUN_CELL`` (rank 0 of a fake world of 256 on
+    the CPU; started with :func:`_dryrun_start` after the build, so it runs
+    beside the card's phases), printed; and the module's lowering of
+    [main]'s own cell beside that cell run on the card.  Gate: the
+    predicted argument bytes equal the live train state's bytes.  Printed,
+    not gated: the predicted peak over ``max_memory_allocated``, and the
+    roofline's ``step_time_s`` (H100 datasheet constants) over the measured
+    ms/step."""
+    t0 = time.perf_counter()
+    cell, main_cell = started
+    arch, shape, mesh = DRYRUN_CELL
+    try:
+        card_run = _main_cell_on_card()
+        pred = _lowered(main_cell)[0]
+        rec = _lowered(cell)
+    finally:
+        for proc in (cell, main_cell):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if rec.get("status") != "ok":
+        raise AssertionError(f"[dryrun] {arch} {shape} {mesh}: {rec}")
+    mm, rf = rec["memory"], rec["roofline"]
+    log(f"[dryrun] {arch} {shape} {mesh} (rank 0 of {rec['chips']}, fake tensors, "
+        f"{rec['mode']}, tp {rec['tp']}, fsdp {rec['fsdp']}): argument {_gb(mm['argument_bytes'])}, "
+        f"temp {_gb(mm['temp_bytes'])}, peak {_gb(mm['peak_estimate_bytes'])}; roofline on the "
+        f"H100 datasheet: compute {rf['compute_s'] * 1e3:.2f} ms, memory "
+        f"{rf['memory_s'] * 1e3:.2f} ms, collective {rf['collective_s'] * 1e3:.2f} ms -> "
+        f"{rf['bottleneck']} (useful FLOPs {rf['useful_flops_fraction']:.3f}, MFU bound "
+        f"{rf['mfu_bound']:.4f}); collectives {rec['collectives']['bytes']} bytes, "
+        f"{rec['collectives']['count']} calls; {rec['accounting']['method']}; "
+        f"run {rec['run_s']} s, wall {rec['wall_s']} s")
+    log(f"[dryrun] record: {json.dumps(rec)}")
+    live, peak = card_run["live_bytes"], card_run["peak_bytes"]
+    ms = statistics.median(card_run["ms"][DRYRUN_WARM:])
+    step_s = pred["roofline"]["step_time_s"]
+    log(f"[dryrun] [main]'s cell ({ARCH}, 1 x 1, batch 8 x 128, microbatch 4, f32 wire) "
+        f"predicted: argument {pred['memory']['argument_bytes']} B, peak "
+        f"{_gb(pred['memory']['peak_estimate_bytes'])}, roofline step {step_s * 1e3:.3f} ms "
+        f"({pred['roofline']['bottleneck']}); on {card}: live state {live} B, "
+        f"max_memory_allocated {_gb(peak)}, {[round(t, 1) for t in card_run['ms']]} ms/step "
+        f"(median of the {DRYRUN_TIMED} after {DRYRUN_WARM} warm {ms:.1f}); predicted peak "
+        f"over measured {pred['memory']['peak_estimate_bytes'] / peak:.3f}; roofline step "
+        f"over measured step {step_s * 1e3 / ms:.4f}; phase wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    if pred["memory"]["argument_bytes"] != live:
+        raise AssertionError(f"[dryrun] predicted argument bytes "
+                             f"{pred['memory']['argument_bytes']} != the live state's {live}")
+
+
+# ---------------------------------------------------------------------------
+# [tp4]: the dense family's tensor parallelism and FSDP on four cards
+# ---------------------------------------------------------------------------
+TP4 = 4
+#: leg (a): float32, 2 of 28 layers, batch 8 x 256, the config's microbatch 4
+TP4_F32_DEPTH, TP4_F32_BATCH, TP4_F32_SEQ, TP4_F32_STEPS = 2, 8, 256, 3
+TP4_LOSS_RTOL, TP4_NORM_RTOL = 1e-5, 1e-4
+#: leg (b): bf16, full depth, batch 8 x 1024, 2 warm + 3 timed steps
+TP4_WARM, TP4_TIMED = 2, 3
+#: leg (c): the TP forward under flash, 7 layers, B=4, S=2048
+TP4_FWD_DEPTH = 7
+#: leg (c)'s bf16 tolerance, stated before the first run: every logit of the
+#: TP forward within this share of the one-card forward's largest logit (the
+#: row-parallel products reach the residual through a bf16 all-reduce of
+#: four partial sums, one more rounding per block than one card's)
+TP4_LOGIT_TOL = 0.05
+#: seconds the four ranks may take
+TP4_TIMEOUT = 420
+
+
+def _tp4_cfg(device: str, depth: int, grad_sync: str, f32: bool = False, zero1: bool = True,
+             **change):
+    """gemma-7b at full width (the smoke config with ``tp_size=4`` on the
+    CPU, so its four heads split), ``depth`` layers, ``grad_sync``, the
+    ABI step's ZeRO-1 (``zero1``) or per-leaf layout."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    on_card = device != "cpu"
+    cfg = configs.get_config(GEMMA_ARCH) if on_card else configs.smoke_config(GEMMA_ARCH)
+    par = dict(grad_sync=grad_sync, zero1=zero1)
+    if not on_card:
+        par.update(tp_size=TP4, microbatch=4, remat="full")
+    cfg = dataclasses.replace(cfg, num_layers=depth, **change, parallelism=dataclasses.replace(
+        cfg.parallelism, **par))
+    if f32:
+        cfg = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    return cfg
+
+
+def _tp4_batches(cfg, B: int, S: int, n: int) -> list:
+    from repro_torch.data.pipeline import DataPipeline, SyntheticSource
+
+    pipe = DataPipeline(SyntheticSource(cfg.vocab_size, seed=0), global_batch=B, seq_len=S)
+    out = [next(pipe) for _ in range(n)]
+    pipe.close()
+    return out
+
+
+def _tp4_steps(api, dist, batches, on_card: bool, dev, counted: bool = False) -> dict:
+    """``init_state`` (this rank's block, drawn from seed 0) and a step per
+    batch: losses, grad norms, ms, ``pack_transposed`` launches a step, the
+    peak memory after the first ``TP4_WARM`` steps, the model's bytes on
+    the card (its block, read around the draw) and, with ``counted``, the
+    collectives of one more step by op (``hlo_analysis.StepCounter``)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch.hlo_analysis import StepCounter
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import train_loop as tl
+
+    before = torch.cuda.memory_allocated(dev) if on_card else 0
+    model = api.init(0, dev, **tl.model_part(api, dist))
+    drawn = (torch.cuda.memory_allocated(dev) if on_card else 0) - before
+    held = sum(p.numel() * p.element_size() for p in model.parameters())
+    whole = sum(math.prod(model.full_shapes[n]) * p.element_size()
+                for n, p in model.named_parameters())
+    state = tl.init_state(api, 0, dist, model=model)
+    step = tl.make_train_step(api, dist, AdamWConfig())
+    rec = dict(losses=[], grad_norms=[], ms=[], packs=[], held_bytes=held, drawn_bytes=drawn,
+               whole_bytes=whole, part=list(dataclasses.astuple(model.part)))
+    for i, b in enumerate(batches):
+        batch = tl.local_batch(b, dist)
+        if i == TP4_WARM and on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counts()
+        (state, met), t = _timed(lambda: step(state, batch), on_card, dev)
+        rec["losses"].append(float(met.loss))
+        rec["grad_norms"].append(float(met.grad_norm))
+        rec["ms"].append(t)
+        rec["packs"].append(_counts()["pack_transposed"])
+    rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else 0.0
+    if counted:
+        with StepCounter() as sc:
+            state, _ = step(state, tl.local_batch(batches[-1], dist))
+        rec["collectives"] = {"bytes": dict(sc.bytes_by_op), "count": dict(sc.count_by_op)}
+    del state, model, step
+    if on_card:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _tp4_rank(rank: int, world: int, init_method: str, out_dir: str,
+              device: str = "cuda") -> None:
+    """One rank of [tp4]: gemma-7b at full width (``device="cpu"``: the
+    smoke config on gloo), each rank holding its block (4 of 16 heads, a
+    quarter of the FFN and of the vocabulary; under FSDP half of that
+    again).  One world; mesh (1, 4): (c) the TP forward under ``"flash"`` at
+    ``TP4_FWD_DEPTH`` layers, B=4, S=2048 (the logits gathered; flash's
+    launches; the last call held to ``attention_ref``); (a) the ABI ZeRO-1
+    step in float32 at ``TP4_F32_DEPTH`` layers, ``TP4_F32_STEPS`` steps;
+    (b) the ABI step at full depth in bf16, batch 8 x 1024, the config's
+    microbatch 4 and remat ``"full"``.  Mesh (2, 2) on the same world
+    (``make_dist(mesh=...)``): (a) and (b) under ``gspmd`` with FSDP.  Each
+    leg's records are saved as it ends.  Rank 0 then runs the one-card references on its
+    card with no process group: (a)'s unsharded per-leaf step on the whole
+    model, and (c)'s whole-model forward, held to the TP logits."""
+    # the full-depth bf16 steps come within a few GB of the card: no
+    # fragmentation of the caching allocator's segments
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    sys.path.insert(0, str(SRC))
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.dist import make_dist
+    from repro_torch.train import train_loop as tl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    on_card = device != "cpu"
+    # four ranks share the host: one thread a torch op (the weight draw
+    # still runs its chunks on a thread pool)
+    torch.set_num_threads(1)
+    dev = torch.device(f"cuda:{rank}") if on_card else torch.device("cpu")
+    if on_card:
+        torch.cuda.set_device(dev)
+    B, S = (TRAIN_BATCH, TRAIN_SEQ) if on_card else (8, 32)
+    B32, S32 = (TP4_F32_BATCH, TP4_F32_SEQ) if on_card else (8, 32)
+    FB, FS = (FWD_BATCH, FWD_SEQ) if on_card else (4, 32)
+    full_depth = configs.get_config(GEMMA_ARCH).num_layers if on_card else 2
+    f32_batches = _tp4_batches(_tp4_cfg(device, 1, "abi"), B32, S32, TP4_F32_STEPS)
+    bf_batches = _tp4_batches(_tp4_cfg(device, 1, "abi"), B, S, TP4_WARM + TP4_TIMED)
+    gen = torch.Generator().manual_seed(1)
+    fwd_cfg = _tp4_cfg(device, TP4_FWD_DEPTH, "abi", attention_impl="flash")
+    tokens = torch.randint(0, fwd_cfg.vocab_size, (FB, FS), generator=gen)
+    rec: dict = {}
+    t0 = time.perf_counter()
+
+    def done(leg: str) -> None:
+        """Save what is measured so far and say so (a leg that hangs or
+        fails leaves the earlier legs' records behind)."""
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
+        log(f"[tp4] rank {rank}: {leg} done at {time.perf_counter() - t0:.1f} s")
+
+    # one world: mesh (1, 4), and the (2, 2) mesh's context built on it
+    with make_dist(device=str(dev), model_axis=TP4, world_size=world, rank=rank,
+                   init_method=f"file://{Path(out_dir) / 'world'}") as dist4:
+        # (c) the TP forward under flash
+        api = build_model(fwd_cfg)
+        model = api.init(0, dev, **tl.model_part(api, dist4))
+        with torch.no_grad(), _FlashSpy() as spy:
+            _zero_counts()
+            logits = api.forward(model, {"tokens": tokens.to(dev)}, dist4)
+            if on_card:
+                torch_sync()
+            rec["fwd_flash"] = _counts()["flash_attention"]
+            if on_card:
+                spy.check("tp4")
+            rec["fwd_heads"] = [int(fwd_cfg.num_heads // TP4), int(fwd_cfg.num_kv_heads // TP4)]
+            ms = []
+            for _ in range(3):
+                _, t = _timed(lambda: api.forward(model, {"tokens": tokens.to(dev)}, dist4),
+                              on_card, dev)
+                ms.append(t)
+        rec["fwd_ms"] = ms
+        if rank == 0:
+            tp_logits = logits.cpu()
+        del model, logits
+        if on_card:
+            torch.cuda.empty_cache()
+        done("(c) the TP forward")
+        mesh22 = Mesh(("data", "model"), (2, 2), dist4.device)
+        for mode in ("abi", "gspmd"):
+            ctx = dist4 if mode == "abi" else make_dist(mesh=mesh22)
+            try:
+                # (a) float32, shallow
+                api = build_model(_tp4_cfg(device, TP4_F32_DEPTH, mode, f32=True))
+                rec[f"f32_{mode}"] = _tp4_steps(api, ctx, f32_batches, on_card, dev)
+                done(f"(a) {mode}")
+                # (b) bf16, full depth; the ABI step in its per-leaf layout (its
+                # ZeRO-1 layout at dp=1 keeps f32 flat copies of the parameters,
+                # the gradient and AdamW's update: at 28 layers more than a card
+                # holds)
+                api = build_model(_tp4_cfg(device, full_depth, mode, zero1=mode != "abi"))
+                rec[f"bf16_{mode}"] = _tp4_steps(api, ctx, bf_batches, on_card, dev,
+                                                 counted=True)
+                done(f"(b) {mode}")
+            finally:
+                if ctx is not dist4:
+                    ctx.shutdown()
+    if rank == 0:
+        # the one-card references, no process group
+        api = build_model(_tp4_cfg(device, TP4_F32_DEPTH, "gspmd", f32=True))
+        model = api.init(0, dev)
+        state = tl.TrainState(model, adamw.init_tree(tl.param_leaves(model)),
+                              torch.zeros((), dtype=torch.int32, device=dev))
+        step = tl.make_train_step(api, None, AdamWConfig())
+        ref = dict(losses=[], grad_norms=[])
+        for b in f32_batches:
+            state, met = step(state, {k: torch.as_tensor(v).to(dev) for k, v in b.items()})
+            ref["losses"].append(float(met.loss))
+            ref["grad_norms"].append(float(met.grad_norm))
+        rec["f32_one_card"] = ref
+        del state, model, step
+        if on_card:
+            torch.cuda.empty_cache()
+        api = build_model(fwd_cfg)
+        model = api.init(0, dev)
+        with torch.no_grad():
+            want = api.forward(model, {"tokens": tokens.to(dev)})
+            got = tp_logits.to(dev)
+            diff = (got.float() - want.float()).abs()
+            rec["fwd_vs_one_card"] = dict(max_abs=float(diff.max()),
+                                          # a strided sample: a median of 2e9 elements
+                                          median_abs=float(diff.flatten()[::101].median()),
+                                          scale=float(want.float().abs().max()),
+                                          argmax_agree=float((got.argmax(-1) == want.argmax(-1))
+                                                             .float().mean()),
+                                          finite=bool(torch.isfinite(got).all()))
+        del model, want, got, diff
+    done("the one-card references" if rank == 0 else "all legs")
+
+
+def _tp4_predictions(device: str):
+    """The dry run's lowering of [tp4]'s leg (b) cells on a fake world of
+    four: the ABI step at (1, 4) and ``gspmd`` with FSDP at (2, 2)."""
+    on_card = device != "cpu"
+    cells = []
+    for mode, mesh in (("abi", [1, TP4]), ("gspmd", [2, 2])):
+        par = dict(grad_sync=mode, zero1=mode != "abi")
+        c = dict(arch=GEMMA_ARCH, mesh=mesh, seq=TRAIN_SEQ if on_card else 32,
+                 batch=TRAIN_BATCH if on_card else 8, par=par)
+        if not on_card:
+            c.update(smoke=True, par=dict(par, tp_size=TP4, microbatch=4, remat="full"))
+        cells.append(c)
+    # the ABI step's ZeRO-1 layout at full depth, which no card holds (a record)
+    cells.append(dict(cells[0], par=dict(cells[0]["par"], zero1=True)))
+    return _lower_cells(TP4, cells)
+
+
+def phase_tp4(card: str, device: str = "cuda", out_dir: Path = HERE / "build" / "tp4") -> dict:
+    """[tp4] (four cards, NCCL; ``device="cpu"``: the smoke config on gloo,
+    a rehearsal): :func:`_tp4_rank` on four spawned ranks, with the dry
+    run's prediction of leg (b) computed meanwhile.  Gates: (a) each mode's
+    losses within ``TP4_LOSS_RTOL`` and grad norms within ``TP4_NORM_RTOL``
+    (relative) of one card's unsharded step on the same weights, on every
+    rank, and ``pack_transposed`` once a step per rank under the ABI step
+    (0 under ``gspmd``; 0 on the CPU); (b) finite losses, equal on every
+    rank; (c) ``TP4_FWD_DEPTH`` flash launches at 4 local heads per rank
+    (0 on the CPU), the last call held to ``attention_ref``, and every
+    logit within ``TP4_LOGIT_TOL`` of the one-card forward's largest; (d)
+    each rank's model on the card is its block: the bytes the draw left
+    on the card are the held parameters' (within the allocator's rounding),
+    a quarter of the whole model's at both meshes (the norms, held whole,
+    within 1%).  Returns the launches by kernel on rank 0."""
+    import shutil
+
+    t0 = time.perf_counter()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    on_card = device != "cpu"
+    preds = _tp4_predictions(device)
+    try:
+        try:
+            ranks = _spawn_ranks("tp4", _tp4_rank, TP4, out_dir, device, timeout=TP4_TIMEOUT)
+        except RuntimeError:
+            for r in range(TP4):
+                part = out_dir / f"rank{r}.json"
+                log(f"[tp4] rank {r}'s records so far: "
+                    f"{part.read_text() if part.exists() else 'none'}")
+            raise
+        pred = dict(zip(("abi", "gspmd", "abi-zero1"), _lowered(preds)))
+    finally:
+        if preds.poll() is None:
+            preds.kill()
+            preds.wait()
+    r0 = ranks[0]
+    where = card if on_card else "gloo"
+    ref = r0["f32_one_card"]
+    log(f"[tp4] {GEMMA_ARCH} {'full width' if on_card else 'smoke'} on four ranks of {where}: "
+        f"(c) TP forward under flash, {TP4_FWD_DEPTH} layers, {r0['fwd_heads'][0]}/"
+        f"{r0['fwd_heads'][1]} heads a rank: flash launches per rank "
+        f"{[r['fwd_flash'] for r in ranks]}, ms per forward (rank 0) "
+        f"{[round(t, 1) for t in r0['fwd_ms']]}; against one card's forward: "
+        f"{json.dumps(r0['fwd_vs_one_card'])} (tolerance {TP4_LOGIT_TOL} of the largest logit)")
+    log(f"[tp4] (a) f32, {TP4_F32_DEPTH} layers, one card's unsharded step: losses "
+        f"{ref['losses']} grad norms {ref['grad_norms']}")
+    rel = lambda xs, ys: max(abs(x - y) / abs(y) for x, y in zip(xs, ys))  # noqa: E731
+    bad = []
+    for mode in ("abi", "gspmd"):
+        a = [r[f"f32_{mode}"] for r in ranks]
+        lrel = max(rel(x["losses"], ref["losses"]) for x in a)
+        nrel = max(rel(x["grad_norms"], ref["grad_norms"]) for x in a)
+        log(f"[tp4] (a) {mode} at {'(1, 4)' if mode == 'abi' else '(2, 2), FSDP'}: losses "
+            f"{a[0]['losses']} grad norms {a[0]['grad_norms']}; largest relative difference "
+            f"to one card: losses {lrel:.3e} (bound {TP4_LOSS_RTOL}), grad norms {nrel:.3e} "
+            f"(bound {TP4_NORM_RTOL}); pack_transposed a step per rank "
+            f"{[x['packs'] for x in a]}; parts {[x['part'] for x in a]}")
+        want_pack = [1 if (on_card and mode == "abi") else 0] * TP4_F32_STEPS
+        if lrel > TP4_LOSS_RTOL or nrel > TP4_NORM_RTOL or any(x["packs"] != want_pack
+                                                              for x in a):
+            bad.append(f"(a) {mode}: losses {lrel}, grad norms {nrel}, packs "
+                       f"{[x['packs'] for x in a]}")
+        b = [r[f"bf16_{mode}"] for r in ranks]
+        p = pred[mode]
+        ms = statistics.median(b[0]["ms"][TP4_WARM:])
+        log(f"[tp4] (b) {mode}{' (per-leaf layout)' if mode == 'abi' else ''} bf16 full depth, "
+            f"batch {TRAIN_BATCH if on_card else 8}x"
+            f"{TRAIN_SEQ if on_card else 32}: losses {[round(v, 4) for v in b[0]['losses']]} "
+            f"grad norms {[round(v, 4) for v in b[0]['grad_norms']]}; ms/step per rank "
+            f"{[[round(t, 1) for t in x['ms']] for x in b]} (rank 0's median of the "
+            f"{TP4_TIMED} after {TP4_WARM} warm {ms:.1f}); peak GB per card "
+            f"{[round(x['peak_gb'], 2) for x in b]}; pack_transposed a step "
+            f"{[x['packs'] for x in b]}; collectives a step (rank 0) "
+            f"{b[0]['collectives']}")
+        log(f"[tp4] (b) {mode} predicted by the dry run (fake world of 4): argument "
+            f"{_gb(p['memory']['argument_bytes'])}, peak {_gb(p['memory']['peak_estimate_bytes'])},"
+            f" collectives {p['collectives']['bytes']} bytes, {p['collectives']['count']} calls; "
+            f"roofline step {p['roofline']['step_time_s'] * 1e3:.2f} ms "
+            f"({p['roofline']['bottleneck']}); measured peak "
+            f"{b[0]['peak_gb']:.2f} GB, {ms:.1f} ms/step")
+        if mode == "abi":
+            z = pred["abi-zero1"]["memory"]
+            log(f"[tp4] (b) abi's ZeRO-1 layout at (1, 4), not run (its f32 flat copies exceed a "
+                f"card): the dry run predicts argument {_gb(z['argument_bytes'])}, peak "
+                f"{_gb(z['peak_estimate_bytes'])}")
+        log(f"[tp4] (d) {mode}: the model's bytes on each card {[x['drawn_bytes'] for x in b]}, "
+            f"its held parameters' {[x['held_bytes'] for x in b]}, the whole model's "
+            f"{b[0]['whole_bytes']}")
+        if any(x["losses"] != b[0]["losses"] or not all(math.isfinite(v) for v in x["losses"])
+               for x in b):
+            bad.append(f"(b) {mode}: losses {[x['losses'] for x in b]}")
+        for x in b:
+            quarter = x["held_bytes"] <= x["whole_bytes"] / TP4 * 1.01
+            on_dev = not on_card or x["held_bytes"] <= x["drawn_bytes"] <= x["held_bytes"] * 1.01
+            if not (quarter and on_dev):
+                bad.append(f"(d) {mode}: {x['drawn_bytes']} bytes on the card for "
+                           f"{x['held_bytes']} held of {x['whole_bytes']}")
+    fwd = r0["fwd_vs_one_card"]
+    want_flash = TP4_FWD_DEPTH if on_card else 0
+    if (any(r["fwd_flash"] != want_flash for r in ranks) or not fwd["finite"]
+            or fwd["max_abs"] > TP4_LOGIT_TOL * fwd["scale"]):
+        bad.append(f"(c) flash launches {[r['fwd_flash'] for r in ranks]}, logits {fwd}")
+    log(f"[tp4] phase wall {time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError("[tp4] " + "; ".join(bad))
+    return {"flash_attention": r0["fwd_flash"],
+            "pack_transposed": sum(sum(r0[f"{k}_abi"]["packs"]) for k in ("f32", "bf16"))}
+
+
 CU = "src/repro_torch/kernels/ring_wire/csrc/"
 TPU = "src/repro/kernels/ring_wire/kernel.py:"
 #: name -> (CUDA source, the TPU kernel it replaces)
@@ -4817,9 +5359,11 @@ def _need_cards(name: str, n: int) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("check", "ring4", "serve", "swap", "fault", "fault4",
-                                       "ssm", "moe", "mm", "moe4", "ep4", "pp4"),
+                                       "ssm", "moe", "mm", "moe4", "ep4", "pp4", "tp4"),
                     default=None,
                     help="check: stop after building and checking the kernels; "
+                         "tp4: build, then only the four-card tensor parallelism and FSDP "
+                         "of gemma-7b; "
                          "ep4: build, then only the four-card expert-parallel training; "
                          "pp4: only the four-card pipeline (no build); "
                          "moe: build, then only [train-moe], [forward-moe] and [serve-moe]; "
@@ -4855,6 +5399,7 @@ def main() -> int:
         return 2
     import torch.distributed as dist
 
+    dry: tuple = ()
     try:
         from repro_torch import configs
 
@@ -4876,6 +5421,14 @@ def main() -> int:
             log("[only] pp4: the pipeline's loss and gradient matched one card; no result line")
             return 0
         phase_build()
+        if args.only == "tp4":
+            _need_cards("tp4", TP4)
+            tp4 = phase_tp4(card)
+            print(json.dumps({"kernels": [{"name": name, "launches_by_phase": {"tp4": n}}
+                                          for name, n in tp4.items()]}), flush=True)
+            log("[only] tp4: tensor parallelism and FSDP on four cards matched one card; no "
+                "result line")
+            return 0
         if args.only == "ring4":
             if torch.cuda.device_count() < RING4:
                 raise RuntimeError(f"[ring4] needs {RING4} cards, found "
@@ -4932,6 +5485,9 @@ def main() -> int:
             phase_fault4(card)
             log("[only] fault4: the survivors resumed bitwise at dp=2; no result line")
             return 0
+        if args.only is None:
+            # the dry run's CPU work runs beside the card's phases; [dryrun] reads it
+            dry = _dryrun_start()
         worst = phase_check(n_full)
         worst.update(phase_check_ring(n_full))
         worst.update(phase_check_flash())
@@ -4950,6 +5506,7 @@ def main() -> int:
         int8 = phase_main_int8(uncompressed)
         launches.update({k: int8[k] for k in HOPS})
         gspmd_pack = phase_train_gspmd()
+        phase_dryrun(card, dry)
         phase_abi_swap(card)
         phase_fault(card)
         by_phase = {"flash_attention": {"forward": phase_forward(card)},
@@ -4992,6 +5549,10 @@ def main() -> int:
         print("chip_smoke.py: FAILED", file=sys.stderr)
         return 1
     finally:
+        for proc in dry:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         if dist.is_initialized():
             dist.destroy_process_group()
     print(json.dumps(record), flush=True)

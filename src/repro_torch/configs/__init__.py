@@ -1,10 +1,10 @@
 """Config registry: ``get_config("<arch>")`` + reduced smoke variants.
 
-The port holds nine architectures of the reference's ten: the dense
-``qwen2-0.5b``, ``chatglm3-6b`` and ``gemma-7b``, the moe
-``qwen2-moe-a2.7b`` and ``grok-1-314b``, the ssm ``rwkv6-7b``, the
+The port holds the reference's ten architectures: the dense
+``qwen2-0.5b``, ``nemotron-4-340b``, ``chatglm3-6b`` and ``gemma-7b``, the
+moe ``qwen2-moe-a2.7b`` and ``grok-1-314b``, the ssm ``rwkv6-7b``, the
 hybrid ``zamba2-2.7b``, the encdec ``whisper-tiny`` and the vlm
-``phi-3-vision-4.2b``; ``nemotron-4-340b`` is still to come.
+``phi-3-vision-4.2b``, registered in the reference's order.
 ``smoke_config`` makes the same reduction the reference makes, so both
 packages build identical small models.
 """
@@ -25,13 +25,13 @@ from .base import (  # noqa: F401
     shapes_for,
 )
 
-from . import (chatglm3_6b, gemma_7b, grok_1_314b, phi_3_vision_4_2b, qwen2_0_5b,
-               qwen2_moe_a2_7b, rwkv6_7b, whisper_tiny, zamba2_2_7b)
+from . import (chatglm3_6b, gemma_7b, grok_1_314b, nemotron_4_340b, phi_3_vision_4_2b,
+               qwen2_0_5b, qwen2_moe_a2_7b, rwkv6_7b, whisper_tiny, zamba2_2_7b)
 
 _REGISTRY: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (qwen2_moe_a2_7b, grok_1_314b, qwen2_0_5b, chatglm3_6b, gemma_7b, whisper_tiny,
-              rwkv6_7b, zamba2_2_7b, phi_3_vision_4_2b)}
+    for m in (qwen2_moe_a2_7b, grok_1_314b, qwen2_0_5b, nemotron_4_340b, gemma_7b,
+              chatglm3_6b, whisper_tiny, rwkv6_7b, zamba2_2_7b, phi_3_vision_4_2b)}
 
 ARCH_NAMES = tuple(_REGISTRY)
 

@@ -125,6 +125,11 @@ class ModelConfig:
 
         return analytic_param_count(self)
 
+    def active_param_count(self) -> int:
+        from repro_torch.models.model import analytic_param_count
+
+        return analytic_param_count(self, active_only=True)
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:

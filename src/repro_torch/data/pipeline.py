@@ -5,13 +5,14 @@ Production shape: each host reads only its shard of the global batch
 of the training loop (straggler absorption), and documents are packed into
 fixed-length sequences with -1 padding targets (masked in the loss).
 
-Source: synthetic LM streams (seeded, reproducible).  The reference's
-memory-mapped token files arrive when a slice trains on real data.
+Sources: synthetic LM streams (seeded, reproducible) and memory-mapped
+token files (.bin of uint16/uint32) read from a path the caller gives.
 """
 from __future__ import annotations
 
 import queue
 import threading
+from pathlib import Path
 from typing import Iterator, Optional
 
 import numpy as np
@@ -40,6 +41,25 @@ class SyntheticSource(TokenSource):
             n = int(rng.integers(self.mean_len // 2, self.mean_len * 2))
             ranks = rng.zipf(1.3, size=n).astype(np.int64)
             yield (ranks % self.vocab).astype(np.int32)
+            i += 1
+
+
+class FileSource(TokenSource):
+    """Memory-mapped flat token file, split into pseudo-documents of
+    ``doc_len`` tokens (the reference's; the stream wraps around the
+    file).  Nothing is downloaded: the caller gives the path."""
+
+    def __init__(self, path: str | Path, dtype=np.uint16, doc_len: int = 2048) -> None:
+        self.tokens = np.memmap(path, dtype=dtype, mode="r")
+        self.doc_len = doc_len
+
+    def documents(self, start_doc: int) -> Iterator[np.ndarray]:
+        n_docs = len(self.tokens) // self.doc_len
+        i = start_doc
+        while True:
+            j = i % max(n_docs, 1)
+            yield np.asarray(
+                self.tokens[j * self.doc_len:(j + 1) * self.doc_len], dtype=np.int32)
             i += 1
 
 

@@ -1,9 +1,14 @@
 """Kernel registry: one place that answers "CUDA kernel or plain torch?".
 
-Callers name a kernel; the variant is chosen by the device of the tensors
-it will run on: ``cuda`` for a CUDA device (the hand-written kernel, which
-is launched or raises — there is no fallback), ``torch`` for the CPU (the
-plain PyTorch version beside the kernel).  Registration is lazy —
+Callers name a kernel; the variant is chosen by the tensor it will run on:
+``cuda`` for a CUDA tensor (the hand-written kernel, which is launched or
+raises — there is no fallback), ``torch`` for a CPU tensor that holds data
+(the plain PyTorch version beside the kernel), and ``shape`` for a
+``FakeTensor``, which holds no data — the dry run (``launch/dryrun.py``)
+runs the program on them — and gets empty outputs of the kernel's shapes
+and dtypes, no arithmetic (the plain version's would misstate what the
+kernel moves: the plain ``pack_transposed`` at dp=1 is a view).  A tensor
+on any other device (``meta`` too) raises.  Registration is lazy —
 targets are ``"module:attr"`` strings resolved on first use — so importing
 :mod:`repro_torch.kernels` builds and loads nothing.
 """
@@ -14,7 +19,7 @@ from typing import Any
 
 import torch
 
-VARIANTS = ("cuda", "torch")
+VARIANTS = ("cuda", "torch", "shape")
 
 #: name -> variant -> lazy "module[:attr]" target
 _REGISTRY: dict[str, dict[str, Any]] = {}
@@ -41,10 +46,17 @@ def get(name: str, variant: str):
     return target
 
 
-def variant_for(device) -> str:
-    """``"cuda"`` for a CUDA device, ``"torch"`` for the CPU; any other
-    device has no implementation and raises."""
-    kind = torch.device(device).type
+def variant_for(x) -> str:
+    """``"shape"`` for a ``FakeTensor`` (no data), else by the tensor's
+    device (or for a device): ``"cuda"`` for a CUDA device, ``"torch"`` for
+    the CPU; any other device has no implementation and raises."""
+    if isinstance(x, torch.Tensor):
+        from torch._subclasses.fake_tensor import FakeTensor
+
+        if isinstance(x, FakeTensor):
+            return "shape"
+        x = x.device
+    kind = torch.device(x).type
     if kind == "cuda":
         return "cuda"
     if kind == "cpu":
@@ -53,10 +65,11 @@ def variant_for(device) -> str:
                      "take CUDA or CPU tensors")
 
 
-def resolve(name: str, device):
-    """-> ``(variant, fn)`` for tensors on ``device``.  Raises when the
-    variant the device calls for is not registered (never substitutes)."""
-    variant = variant_for(device)
+def resolve(name: str, x):
+    """-> ``(variant, fn)`` for the tensor ``x`` (or a device,
+    :func:`variant_for`).  Raises when the variant it calls for is not
+    registered (never substitutes)."""
+    variant = variant_for(x)
     fn = get(name, variant)
     if fn is None:
         raise LookupError(f"kernel {name!r} has no {variant!r} variant")
@@ -109,8 +122,9 @@ def plain_gradient(fn, plain, *tensors, **kwargs):
 
 # -- built-in kernels (lazy: nothing imports until first resolve) -----------
 # The wrappers in ring_wire/ops.py, flash_attention/ops.py, rwkv6_scan/ops.py
-# and mamba2_ssd/ops.py resolve through here by their tensor's device: the
-# CUDA launch for a CUDA tensor, the plain version for a CPU one.
+# and mamba2_ssd/ops.py resolve through here by their tensor: the CUDA
+# launch for a CUDA tensor, the plain version for a CPU one, the shape-only
+# variant (``shape_*`` beside each launch) for a FakeTensor.
 RING_WIRE_KERNELS = ("pack_transposed", "unpack_transposed", "pack_transposed_ef",
                      "quant_i8", "hop_add_quant_i8", "hop_accum_i8",
                      "hop_add_quant_bf16", "hop_accum_bf16")
@@ -118,11 +132,16 @@ for _name in RING_WIRE_KERNELS:
     register(f"ring_wire.{_name}", "cuda",
              f"repro_torch.kernels.ring_wire.ops:launch_{_name}")
     register(f"ring_wire.{_name}", "torch", f"repro_torch.kernels.ring_wire.ref:{_name}")
+    register(f"ring_wire.{_name}", "shape", f"repro_torch.kernels.ring_wire.ops:shape_{_name}")
 del _name
 register("flash_attention", "cuda",
          "repro_torch.kernels.flash_attention.ops:launch_flash_attention")
 register("flash_attention", "torch", "repro_torch.kernels.flash_attention.ref:attention_ref")
+register("flash_attention", "shape",
+         "repro_torch.kernels.flash_attention.ops:shape_flash_attention")
 register("rwkv6_scan", "cuda", "repro_torch.kernels.rwkv6_scan.ops:launch_wkv6")
 register("rwkv6_scan", "torch", "repro_torch.kernels.rwkv6_scan.ref:wkv6")
+register("rwkv6_scan", "shape", "repro_torch.kernels.rwkv6_scan.ops:shape_wkv6")
 register("mamba2_ssd", "cuda", "repro_torch.kernels.mamba2_ssd.ops:launch_ssd")
 register("mamba2_ssd", "torch", "repro_torch.kernels.mamba2_ssd.ref:ssd")
+register("mamba2_ssd", "shape", "repro_torch.kernels.mamba2_ssd.ops:shape_ssd")

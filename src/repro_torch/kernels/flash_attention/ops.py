@@ -110,6 +110,13 @@ def launch_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def shape_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True) -> torch.Tensor:
+    """The shape-only variant (a ``FakeTensor``): the kernel's empty
+    output, no launch."""
+    return torch.empty_like(q)
+
+
 _NO_BACKWARD = ("flash_attention has no backward: the reference defines no gradient for "
                 "this kernel (jax.grad of its flash_mha fails); train with "
                 "attention_impl='xla' or 'blockwise'")
@@ -131,7 +138,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not q.device == k.device == v.device:
         raise ValueError(f"flash_attention takes q, k, v on one device, got {q.device}, "
                          f"{k.device}, {v.device}")
-    _, fn = kernels.resolve("flash_attention", q.device)
+    _, fn = kernels.resolve("flash_attention", q)
     return kernels.forward_only(_NO_BACKWARD, fn, q, k, v, causal=causal)
 
 

@@ -111,6 +111,12 @@ def launch_ssd(x, dt, A, B, C, D, *, chunk: int) -> torch.Tensor:
     return y
 
 
+def shape_ssd(x, dt, A, B, C, D, *, chunk: int) -> torch.Tensor:
+    """The shape-only variant (a ``FakeTensor``): the kernel's empty
+    output, no launch."""
+    return torch.empty_like(x)
+
+
 def ssd_apply(x, dt, A, B, C, D, *, chunk: int = 64) -> torch.Tensor:
     """x: (Bb, T, H, P); dt: (Bb, T, H); A, D: (H,); B, C: (Bb, T, N) ->
     y (Bb, T, H, P) float32, the SSD scan from a zero state.  P, N and chunk
@@ -131,7 +137,7 @@ def ssd_apply(x, dt, A, B, C, D, *, chunk: int = 64) -> torch.Tensor:
     if any(t.device != x.device for t in tensors):
         raise ValueError(f"ssd_apply takes tensors on one device, got "
                          f"{[str(t.device) for t in tensors]}")
-    _, fn = kernels.resolve("mamba2_ssd", x.device)
+    _, fn = kernels.resolve("mamba2_ssd", x)
     # the casts stay outside the Function, so the gradient reaches bf16 inputs
     return kernels.plain_gradient(fn, ref.ssd, *(t.float().contiguous() for t in tensors),
                                   chunk=chunk)

@@ -166,6 +166,45 @@ def launch_hop_accum_bf16(w2d: torch.Tensor, a2d: torch.Tensor) -> torch.Tensor:
 
 
 # -- kernel wrappers: check, then the registry's variant for the device ------
+# -- the shape-only variants: a FakeTensor, which holds no data (the dry run) -
+# Empty outputs of each kernel's shapes and dtypes, no arithmetic and no
+# launch count: what the kernel writes, for a tracer that counts bytes.
+def shape_pack_transposed(x2d: torch.Tensor, dp: int, buckets: int,
+                          wire_dtype: torch.dtype) -> torch.Tensor:
+    return x2d.new_empty((buckets, dp, x2d.shape[1]), dtype=wire_dtype)
+
+
+def shape_unpack_transposed(x3d: torch.Tensor) -> torch.Tensor:
+    b, dp, seg = x3d.shape
+    return x3d.new_empty((dp * b, seg), dtype=torch.float32)
+
+
+def shape_pack_transposed_ef(x2d: torch.Tensor, e2d: torch.Tensor, dp: int,
+                             buckets: int) -> tuple:
+    return shape_pack_transposed(x2d, dp, buckets, torch.bfloat16), torch.empty_like(e2d)
+
+
+def shape_quant_i8(x2d: torch.Tensor) -> tuple:
+    return (x2d.new_empty(x2d.shape, dtype=torch.int8),
+            x2d.new_empty((x2d.shape[0], 1), dtype=torch.float32))
+
+
+def shape_hop_add_quant_i8(q2d: torch.Tensor, s: torch.Tensor, a2d: torch.Tensor) -> tuple:
+    return shape_quant_i8(a2d)
+
+
+def shape_hop_accum_i8(q2d: torch.Tensor, s: torch.Tensor, a2d: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(a2d)
+
+
+def shape_hop_add_quant_bf16(w2d: torch.Tensor, a2d: torch.Tensor) -> torch.Tensor:
+    return a2d.new_empty(a2d.shape, dtype=torch.bfloat16)
+
+
+def shape_hop_accum_bf16(w2d: torch.Tensor, a2d: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(a2d)
+
+
 def _check(name: str, cond: bool, what: str) -> None:
     if not cond:
         raise ValueError(f"{name} takes {what}")
@@ -179,7 +218,7 @@ def pack_transposed(x2d: torch.Tensor, dp: int, buckets: int,
                          f"got {tuple(x2d.shape)} {x2d.dtype}")
     if wire_dtype not in _WIRE_DTYPES:
         raise ValueError(f"wire dtype must be one of {_WIRE_DTYPES}, got {wire_dtype}")
-    _, fn = kernels.resolve("ring_wire.pack_transposed", x2d.device)
+    _, fn = kernels.resolve("ring_wire.pack_transposed", x2d)
     return fn(x2d, dp, buckets, wire_dtype)
 
 
@@ -188,7 +227,7 @@ def unpack_transposed(x3d: torch.Tensor) -> torch.Tensor:
     if x3d.ndim != 3 or x3d.dtype not in _WIRE_DTYPES:
         raise ValueError(f"unpack_transposed takes (buckets, dp, seg) float32 or "
                          f"bfloat16, got {tuple(x3d.shape)} {x3d.dtype}")
-    _, fn = kernels.resolve("ring_wire.unpack_transposed", x3d.device)
+    _, fn = kernels.resolve("ring_wire.unpack_transposed", x3d)
     return fn(x3d)
 
 
@@ -202,7 +241,7 @@ def pack_transposed_ef(x2d: torch.Tensor, e2d: torch.Tensor, dp: int,
            and x2d.device == e2d.device,
            f"two ({dp}*{buckets}, seg) float32 tensors on one device, got "
            f"{tuple(x2d.shape)} {x2d.dtype} and {tuple(e2d.shape)} {e2d.dtype}")
-    _, fn = kernels.resolve("ring_wire.pack_transposed_ef", x2d.device)
+    _, fn = kernels.resolve("ring_wire.pack_transposed_ef", x2d)
     return fn(x2d, e2d, dp, buckets)
 
 
@@ -224,35 +263,35 @@ def _check_hop(name: str, q: torch.Tensor, qtype, s, a: torch.Tensor) -> None:
 def quant_i8(x2d: torch.Tensor) -> tuple:
     """(nb, 128) f32 -> ((nb, 128) int8, (nb, 1) f32 scales)."""
     _check_blocks("quant_i8", x2d, torch.float32)
-    _, fn = kernels.resolve("ring_wire.quant_i8", x2d.device)
+    _, fn = kernels.resolve("ring_wire.quant_i8", x2d)
     return fn(x2d)
 
 
 def hop_add_quant_i8(q2d: torch.Tensor, s: torch.Tensor, a2d: torch.Tensor) -> tuple:
     """Middle ring hop: (codes, scales, local chunk) -> (codes', scales')."""
     _check_hop("hop_add_quant_i8", q2d, torch.int8, s, a2d)
-    _, fn = kernels.resolve("ring_wire.hop_add_quant_i8", q2d.device)
+    _, fn = kernels.resolve("ring_wire.hop_add_quant_i8", q2d)
     return fn(q2d, s, a2d)
 
 
 def hop_accum_i8(q2d: torch.Tensor, s: torch.Tensor, a2d: torch.Tensor) -> torch.Tensor:
     """Last ring hop: dequantize and accumulate into f32."""
     _check_hop("hop_accum_i8", q2d, torch.int8, s, a2d)
-    _, fn = kernels.resolve("ring_wire.hop_accum_i8", q2d.device)
+    _, fn = kernels.resolve("ring_wire.hop_accum_i8", q2d)
     return fn(q2d, s, a2d)
 
 
 def hop_add_quant_bf16(w2d: torch.Tensor, a2d: torch.Tensor) -> torch.Tensor:
     """Middle ring hop on the bf16 wire."""
     _check_hop("hop_add_quant_bf16", w2d, torch.bfloat16, None, a2d)
-    _, fn = kernels.resolve("ring_wire.hop_add_quant_bf16", w2d.device)
+    _, fn = kernels.resolve("ring_wire.hop_add_quant_bf16", w2d)
     return fn(w2d, a2d)
 
 
 def hop_accum_bf16(w2d: torch.Tensor, a2d: torch.Tensor) -> torch.Tensor:
     """Last ring hop on the bf16 wire: f32 out."""
     _check_hop("hop_accum_bf16", w2d, torch.bfloat16, None, a2d)
-    _, fn = kernels.resolve("ring_wire.hop_accum_bf16", w2d.device)
+    _, fn = kernels.resolve("ring_wire.hop_accum_bf16", w2d)
     return fn(w2d, a2d)
 
 

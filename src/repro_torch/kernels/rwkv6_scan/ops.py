@@ -78,6 +78,12 @@ def launch_wkv6(r, k, v, wlog, u, *, chunk: int) -> torch.Tensor:
     return y
 
 
+def shape_wkv6(r, k, v, wlog, u, *, chunk: int) -> torch.Tensor:
+    """The shape-only variant (a ``FakeTensor``): the kernel's empty
+    output, no launch."""
+    return torch.empty_like(v)
+
+
 def wkv6_apply(r, k, v, wlog, u, *, chunk: int = 32) -> torch.Tensor:
     """r, k, v, wlog: (B, T, H, N); u: (H, N) -> y (B, T, H, N) float32,
     the WKV6 scan from a zero state.  N and chunk in [1, 64], T a positive
@@ -96,7 +102,7 @@ def wkv6_apply(r, k, v, wlog, u, *, chunk: int = 32) -> torch.Tensor:
     if any(t.device != r.device for t in tensors):
         raise ValueError(f"wkv6_apply takes tensors on one device, got "
                          f"{[str(t.device) for t in tensors]}")
-    _, fn = kernels.resolve("rwkv6_scan", r.device)
+    _, fn = kernels.resolve("rwkv6_scan", r)
     # the casts stay outside the Function, so the gradient reaches bf16 inputs
     return kernels.plain_gradient(fn, ref.wkv6, *(t.float().contiguous() for t in tensors),
                                   chunk=chunk)

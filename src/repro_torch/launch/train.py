@@ -12,7 +12,10 @@ place this process in a multi-rank world (one process per rank, each given
 the same rendezvous, e.g. ``tcp://localhost:<port>``; a world of one needs
 none of them).  ``--model-axis R`` lays the world out as
 ``(world / R, R)``: the moe config then trains expert-parallel, each rank
-holding its ``E_pad / R`` experts (``train_loop.init_state``).
+holding its ``E_pad / R`` experts, and a dense config tensor-parallel, each
+rank holding its heads, FFN columns and vocabulary rows
+(``train_loop.init_state``).  ``--production-mesh`` lays it out as the
+reference's 16 x 16 (data, model) mesh, which needs a world of 256 ranks.
 
 The loop runs under ``runtime.fault.run_supervised``, as the reference's
 does: ``--ckpt-dir D --ckpt-every N`` saves every N steps (async) in the
@@ -40,9 +43,11 @@ import torch
 from .. import configs as cfgs
 from ..checkpoint.checkpointer import Checkpointer
 from ..data.pipeline import DataPipeline, SyntheticSource
+from ..launch.mesh import make_production_mesh
 from ..models import batch_shapes, build_model, param_leaves
 from ..optim.adamw import AdamWConfig, warmup_cosine
-from ..runtime.dist import dp_comm_of, make_dist
+from ..runtime.device import resolve_device
+from ..runtime.dist import dp_comm_of, init_world, make_dist
 from ..runtime.fault import RetryPolicy, run_supervised
 from ..train import train_loop
 
@@ -98,6 +103,8 @@ def main(argv=None) -> TrainReport:
     ap.add_argument("--digest", action="store_true",
                     help="report the final parameters' SHA-256")
     ap.add_argument("--model-axis", type=int, default=1)
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="use the 16x16 mesh (requires a world of 256 ranks)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
@@ -126,10 +133,21 @@ def main(argv=None) -> TrainReport:
         cfg = dataclasses.replace(cfg, parallelism=dataclasses.replace(
             cfg.parallelism, grad_compression=args.grad_compression))
     api = build_model(cfg)
+    mesh, started = None, False
+    if args.production_mesh:
+        dev = resolve_device(args.device)
+        started = init_world(dev, args.world_size, args.rank, args.init_method)
+        try:
+            mesh = make_production_mesh(device=dev)
+        except ValueError:
+            if started:
+                torch.distributed.destroy_process_group()
+            raise
     dist = make_dist(model_axis=args.model_axis, impl=args.impl, device=args.device,
                      compression=cfg.parallelism.grad_compression,
                      world_size=args.world_size, rank=args.rank,
-                     init_method=args.init_method)
+                     init_method=args.init_method, mesh=mesh)
+    dist.owns_world = dist.owns_world or started
     with dist:  # shutdown on the way out, a failed one if a step raised
         report = _train(args, cfg, api, dist)
     if report.losses:

@@ -76,9 +76,19 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg):
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
     B, S = x.shape[0], x.shape[1]
-    return (q.reshape(B, S, cfg.num_heads, hd),
-            k.reshape(B, S, cfg.num_kv_heads, hd),
-            v.reshape(B, S, cfg.num_kv_heads, hd))
+    # the heads the weights hold: all of them, or a rank's under tensor parallelism
+    return q.reshape(B, S, -1, hd), k.reshape(B, S, -1, hd), v.reshape(B, S, -1, hd)
+
+
+def _kv_select(t: torch.Tensor, kv_heads: Optional[list]) -> torch.Tensor:
+    """The K/V heads (axis 2) a rank's query heads read: all (None), a
+    contiguous run, or one per query head."""
+    if kv_heads is None:
+        return t
+    lo = kv_heads[0]
+    if kv_heads == list(range(lo, lo + len(kv_heads))):
+        return t.narrow(2, lo, len(kv_heads))
+    return t.index_select(2, torch.tensor(kv_heads, device=t.device))
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
@@ -122,7 +132,8 @@ def _sdpa_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
               causal: bool = True, kv_cache: Optional[KVCache] = None,
-              cache_index: int = 0, cross_kv: Optional[tuple] = None):
+              cache_index: int = 0, cross_kv: Optional[tuple] = None,
+              kv_heads: Optional[list] = None):
     """One layer's attention block on (B, S, d) -> (B, S, d).
 
     With ``kv_cache`` (one layer's (B, max_seq, Hkv, D) cache) the new K/V
@@ -132,7 +143,13 @@ def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     (k, v)``, each (B, Skv, Hkv, D), it is cross-attention (the encoder-
     decoder's): q from ``wq`` alone, no bias and no RoPE, every query
     attending to all ``Skv`` keys through :func:`_sdpa`, whatever
-    ``attention_impl`` says; the result is ``out``."""
+    ``attention_impl`` says; the result is ``out``.
+
+    Under tensor parallelism ``p`` holds a rank's heads (the projections'
+    columns, ``wo``'s rows): q, k and v carry the heads the weights give,
+    and ``kv_heads`` names the K/V heads the rank's query heads read where
+    the query heads split and the K/V heads do not (the cache then holds
+    every K/V head)."""
     if cfg.attention_impl not in ATTENTION_IMPLS:
         raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, "
                          f"got {cfg.attention_impl!r}")
@@ -150,9 +167,11 @@ def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         kv_cache.v[:, cache_index:cache_index + Sq] = v.to(kv_cache.v.dtype)
         qpos = cache_index + torch.arange(Sq, device=x.device)[:, None]
         kpos = torch.arange(kv_cache.k.shape[1], device=x.device)[None, :]
-        out = _sdpa_decode(q, kv_cache.k, kv_cache.v, kpos <= qpos)
+        out = _sdpa_decode(q, _kv_select(kv_cache.k, kv_heads),
+                           _kv_select(kv_cache.v, kv_heads), kpos <= qpos)
         out = out.reshape(*x.shape[:2], -1)
         return out @ p["wo"].to(x.dtype), kv_cache
+    k, v = _kv_select(k, kv_heads), _kv_select(v, kv_heads)
     if causal and cfg.attention_impl == "blockwise":
         out = _sdpa_blockwise(q, k, v)
     elif causal and cfg.attention_impl == "flash":
@@ -243,12 +262,14 @@ def attention_paged(p: dict, x: torch.Tensor, cfg, k_pages: torch.Tensor,
 
 
 def init_kv_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
-                  device=None, *, layers: Optional[int] = None) -> KVCache:
+                  device=None, *, layers: Optional[int] = None,
+                  kv_heads: Optional[int] = None) -> KVCache:
     """One layer's zeroed (batch, max_seq, Hkv, D) cache, or with ``layers``
     every layer's, stacked on a leading axis; bfloat16 by default whatever
     the model's dtypes, as in the reference.  The paged slab is the same
-    shape with (num_blocks, block_size) for (batch, max_seq)."""
+    shape with (num_blocks, block_size) for (batch, max_seq).  ``kv_heads``:
+    the heads a rank holds (default all)."""
     shape = (() if layers is None else (layers,)) + (
-        batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+        batch, max_seq, kv_heads or cfg.num_kv_heads, cfg.resolved_head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))

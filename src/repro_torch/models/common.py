@@ -59,27 +59,34 @@ def normal_draw(shape: tuple, gen: torch.Generator, std: float) -> torch.Tensor:
 
 
 def normal_init_(w: torch.Tensor, gen: torch.Generator, std: float,
-                 part: tuple = (0, 1)) -> None:
+                 part: tuple = (0, 1), full: tuple | None = None, index: tuple = ()) -> None:
     """Fill ``w`` with N(0, 1) * std (:func:`normal_draw`), one slice of its
     leading (layer) axis at a time when it is stacked, so the host holds one
     layer's draw.  ``part=(r, n)``: each slice holds part ``r`` of ``n`` of a
     draw ``n`` times its first axis long (one rank's experts of the whole
-    layer's), so every split draws the same weights from one seed."""
+    layer's); ``full``/``index``: each slice holds block ``index`` (slices,
+    one per dimension) of a draw of shape ``full`` (one rank's heads, FFN
+    columns or vocabulary rows), so every split draws the same weights from
+    one seed."""
     r, n = part
     for s in (w if w.ndim > 2 else (w,)):
         k = s.shape[0]
-        s.copy_(normal_draw((k * n, *s.shape[1:]), gen, std)[r * k:(r + 1) * k])
+        shape = tuple(full) if full is not None else (k * n, *s.shape[1:])
+        block = tuple(index) if full is not None else (slice(r * k, (r + 1) * k),)
+        s.copy_(normal_draw(shape, gen, std)[block])
 
 
 def dense_init_(w: torch.Tensor, gen: torch.Generator, scale: float = 1.0,
-                part: tuple = (0, 1)) -> None:
-    """Fill ``w`` (…, in, out) with N(0, 1) * scale / sqrt(in)
-    (:func:`normal_init_`'s ``part``)."""
-    normal_init_(w, gen, scale / math.sqrt(w.shape[-2]), part)
+                part: tuple = (0, 1), full: tuple | None = None, index: tuple = ()) -> None:
+    """Fill ``w`` (…, in, out) with N(0, 1) * scale / sqrt(in), ``in`` the
+    whole leaf's (:func:`normal_init_`'s ``part``, ``full`` and ``index``)."""
+    fan_in = (full if full is not None else w.shape)[-2]
+    normal_init_(w, gen, scale / math.sqrt(fan_in), part, full, index)
 
 
-def embed_init_(w: torch.Tensor, gen: torch.Generator) -> None:
-    normal_init_(w, gen, 0.02)
+def embed_init_(w: torch.Tensor, gen: torch.Generator, full: tuple | None = None,
+                index: tuple = ()) -> None:
+    normal_init_(w, gen, 0.02, full=full, index=index)
 
 
 # ---------------------------------------------------------------------------
@@ -268,8 +275,10 @@ def maybe_remat(fn, name: str):
     if name == "none":
         return fn
     if name == "full":
-        return lambda *a: checkpoint(fn, *a, use_reentrant=False) if torch.is_grad_enabled() \
-            else fn(*a)
+        # no layer body draws random numbers, so the RNG state is not saved:
+        # saving the card's is a host sync at every checkpoint
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False, preserve_rng_state=False) \
+            if torch.is_grad_enabled() else fn(*a)
     if name == "dots":
         raise NotImplementedError("remat='dots' (save only the matrix products) is not "
                                   "ported: ROADMAP queue 1")

@@ -1,8 +1,10 @@
 """Model factory and the weight bridge from the reference package.
 
 ``build_model(cfg)`` returns a :class:`ModelApi` with ``init(seed, device,
-model_rank=0, model_axis=1)`` (-> the parameter module; the moe family
-under expert parallelism holds that model rank's part of the experts),
+model_rank=0, model_axis=1, fsdp_rank=0, fsdp_size=1)`` (-> the parameter
+module; the moe family under expert parallelism holds that model rank's
+part of the experts, the dense family its block of every leaf the model
+axis and the fsdp axes split, ``transformer.held_layout``),
 ``param_specs(fsdp, tp)`` (-> the reference's parameter specs, a nested
 dict with the parameters' keys, see ``runtime/sharding.py``),
 ``loss_fn(model, batch)``,
@@ -12,11 +14,14 @@ dense, moe and vlm families' contiguous KV cache, the ssm family's
 recurrent ``RwkvState``, the hybrid's ``HybridState``; None for encdec,
 whose cache needs the frames: ``encdec.init_cache``) and
 ``decode_step(model, token, state, index)`` (-> logits, state; the state is
-written in place).  ``loss_fn``, ``forward`` and ``decode_step`` take the
-``dist`` the moe family's expert parallelism runs on.  The port holds six
-families of the reference: ``dense`` and ``moe`` (``transformer``), ``ssm``
-(rwkv6, ``rwkv``), ``hybrid`` (Mamba2 + shared attention, ``hybrid``),
-``encdec`` (whisper, ``encdec``) and ``vlm`` (phi-3-vision, ``vlm``); each
+written in place) and, for the dense and moe families, ``cache_specs()``
+(the reference's specs of the contiguous cache).  ``loss_fn``, ``forward``
+and ``decode_step`` take the ``dist`` the model axis runs on (the moe
+family's expert parallelism, the dense family's tensor parallelism).  The
+port holds six families of the reference: ``dense`` and ``moe``
+(``transformer``), ``ssm`` (rwkv6, ``rwkv``), ``hybrid`` (Mamba2 + shared
+attention, ``hybrid``), ``encdec`` (whisper, ``encdec``) and ``vlm``
+(phi-3-vision, ``vlm``); each
 trains and decodes.  The forward and the loss of encdec and vlm read the
 whole batch (``frames``, ``patches``), the others its ``tokens``;
 :func:`make_batch` draws a batch of the reference's shapes.
@@ -36,12 +41,12 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..optim.adamw import tree_leaves
 from ..runtime.device import resolve_device
 from ..runtime.sharding import _strip_axes
 from . import encdec, hybrid, rwkv, transformer, vlm
 from .common import is_glu, stack_specs
 from .moe import _ep_expert_specs
+from .tensor_parallel import FSDP, TP
 
 #: family -> (its module, its parameter module)
 _FAMILIES = {"dense": (transformer, transformer.TransformerLM),
@@ -69,21 +74,25 @@ class ModelApi:
     forward: Callable
     decode_init: Optional[Callable] = None
     decode_step: Optional[Callable] = None
+    cache_specs: Optional[Callable] = None
 
 
 def build_model(cfg: ModelConfig) -> ModelApi:
     fam, _ = _family(cfg)
     # the transformer's and the vlm's functions take the dist (the MoE block's EP)
     on = (lambda dist: {"dist": dist}) if fam in (transformer, vlm) else (lambda dist: {})
-    # only the transformer's moe layers split a parameter over the model axis
-    part = ((lambda r, n: {"model_rank": r, "model_axis": n}) if fam is transformer
-            else (lambda r, n: {}))
+    # the transformer's moe experts split over the model axis, its dense
+    # layers over the model and the fsdp axes; the other families hold it all
+    part = ((lambda r, n, f, F: {"model_rank": r, "model_axis": n, "fsdp_rank": f,
+                                 "fsdp_size": F}) if fam is transformer
+            else (lambda r, n, f, F: {}))
     # encdec and vlm read the whole batch (frames, patches), the others its tokens
     inputs = (lambda b: b) if fam in (encdec, vlm) else (lambda b: b["tokens"])
     api = ModelApi(
         cfg,
-        init=lambda seed=0, device=None, model_rank=0, model_axis=1: fam.init_lm(
-            cfg, seed, resolve_device(device), **part(model_rank, model_axis)),
+        init=lambda seed=0, device=None, model_rank=0, model_axis=1, fsdp_rank=0, fsdp_size=1:
+        fam.init_lm(cfg, seed, resolve_device(device),
+                    **part(model_rank, model_axis, fsdp_rank, fsdp_size)),
         param_specs=lambda fsdp="data", tp="model": fam.spec_lm(cfg, fsdp, tp),
         loss_fn=lambda m, b, dist=None: fam.loss_fn(m, b, cfg, **on(dist)),
         forward=lambda m, b, dist=None, last_only=False: fam.forward(
@@ -91,7 +100,11 @@ def build_model(cfg: ModelConfig) -> ModelApi:
         decode_step=lambda m, tok, state, idx, dist=None: fam.decode_step(
             m, tok, state, idx, cfg, **on(dist)),
     )
-    if fam in (transformer, vlm):
+    if fam is transformer:
+        api.decode_init = lambda batch, max_seq, device=None, model_axis=1: (
+            transformer.init_cache(cfg, batch, max_seq, device=device, model_axis=model_axis))
+        api.cache_specs = lambda: transformer.cache_specs(cfg)
+    elif fam is vlm:
         api.decode_init = lambda batch, max_seq, device=None: transformer.init_cache(
             cfg, batch, max_seq, device=device)
     elif fam is rwkv:
@@ -125,11 +138,18 @@ def held_specs(api: ModelApi, expert_parts: int = 1, tp: str = "model") -> dict:
     return specs
 
 
-def split_leaves(specs: dict, tp: str = "model") -> list[bool]:
-    """Per leaf, in ``param_leaves`` order: does its spec split it over
-    ``tp``."""
-    return [any(a == tp or (isinstance(a, tuple) and tp in a) for a in spec)
-            for spec in tree_leaves(specs)]
+def leaf_splits(model: nn.Module) -> tuple:
+    """Per leaf, in ``param_leaves`` order: (is it split over the model
+    axis, is it split over the fsdp axes) — from what ``model`` holds (its
+    experts' part, the dense family's ``held`` specs)."""
+    held = getattr(model, "held", {})
+    n = getattr(model, "expert_part", (0, 1))[1]
+    tp, fs = [], []
+    for name, _ in param_leaves(model):
+        spec = held.get(name, ())
+        tp.append(TP in spec or (n > 1 and name.startswith("layers.moe.experts.")))
+        fs.append(FSDP in spec)
+    return tp, fs
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -141,17 +161,20 @@ def _to_tensor(a) -> torch.Tensor:
 
 @torch.no_grad()
 def from_jax_params(np_tree: dict, cfg: ModelConfig, device=None, model_rank: int = 0,
-                    model_axis: int = 1) -> nn.Module:
+                    model_axis: int = 1, fsdp_rank: int = 0, fsdp_size: int = 1) -> nn.Module:
     """The reference's parameter pytree (nested dicts of numpy arrays, e.g.
     ``jax.tree.map(np.asarray, api.init(key))``) as the port's parameters.
     Layouts agree, so this is a name map; shapes and dtypes are checked.
     Under expert parallelism on ``model_axis`` ranks (the moe family) the
-    model keeps rank ``model_rank``'s part of each layer's experts."""
+    model keeps rank ``model_rank``'s part of each layer's experts; a dense
+    model keeps its block (``model_rank``, ``fsdp_rank``) of every leaf the
+    model axis and the fsdp axes split."""
     fam, cls = _family(cfg)
-    kw = ({"model_rank": model_rank, "model_axis": model_axis} if fam is transformer
-          else {})
+    kw = ({"model_rank": model_rank, "model_axis": model_axis, "fsdp_rank": fsdp_rank,
+           "fsdp_size": fsdp_size} if fam is transformer else {})
     model = cls(cfg, resolve_device(device), **kw)
     r, n = getattr(model, "expert_part", (0, 1))
+    held = getattr(model, "held", {})
     for name, p in model.named_parameters():
         node = np_tree
         for part in name.split("."):
@@ -160,6 +183,8 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig, device=None, model_rank: in
         if n > 1 and name.startswith("layers.moe.experts."):
             El = t.shape[1] // n
             t = t[:, r * El:(r + 1) * El]
+        if held.get(name):
+            t = t[model.part.index(tuple(t.shape), held[name])]
         if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
             raise ValueError(f"{name}: reference leaf {tuple(t.shape)} {t.dtype} "
                              f"does not fit {tuple(p.shape)} {p.dtype}")
@@ -174,9 +199,10 @@ def _mlp_params(d: int, f: int, activation: str) -> int:
     return d * f * (3 if is_glu(activation) else 2)
 
 
-def analytic_param_count(cfg: ModelConfig) -> int:
+def analytic_param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     """The reference's count; the moe family's real experts, not its
-    padding ones."""
+    padding ones, and with ``active_only`` the ``top_k`` a token runs
+    through (the roofline's MODEL_FLOPS term)."""
     _family(cfg)  # raises for a family the port does not hold
     d, f, V, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.num_layers
     hd = cfg.resolved_head_dim
@@ -201,11 +227,18 @@ def analytic_param_count(cfg: ModelConfig) -> int:
         n += cfg.vlm.patch_embed_dim * d + d * d  # the projector
     if cfg.moe is not None:
         m = cfg.moe
-        ffn = m.num_experts * (_mlp_params(d, m.expert_d_ff, cfg.activation) + d)
+        experts = m.top_k if active_only else m.num_experts
+        ffn = experts * _mlp_params(d, m.expert_d_ff, cfg.activation) + d * m.num_experts
         if m.num_shared_experts:
             ffn += _mlp_params(d, m.num_shared_experts * m.expert_d_ff, cfg.activation) + d
         return n + L * (attn + ffn)
     return n + L * (attn + _mlp_params(d, f, cfg.activation))
+
+
+def model_flops_per_token(cfg: ModelConfig) -> int:
+    """6 * the active parameters per token (the standard training-FLOPs
+    approximation: forward 2, backward 4)."""
+    return 6 * analytic_param_count(cfg, active_only=True)
 
 
 # ---------------------------------------------------------------------------

@@ -8,16 +8,27 @@ on a leading ``L`` axis and multiplies as ``x @ W[l]`` with ``W`` shaped
 onto the module by name alone (``model.from_jax_params``) and the ZeRO-1
 flat vector can follow the reference's leaf order.
 
-The reference scans the layers with optional rematerialisation; neither
-changes a number, and here the layers run in a Python loop (:func:`_layers`,
-the one layer body of every path, from an embedded residual).  With
-``cfg.moe`` set each layer's FFN is the MoE block (``layers.moe.*``,
-``models/moe.py``), the forward carries the sum of the layers' router aux
-losses and the loss is cross-entropy plus that sum, as in the reference.
-The layer body runs under ``maybe_remat`` for the moe family and for the
-vlm (``models/vlm.py``), not for the dense family (:func:`_remat`).
-Every function takes the ``dist`` the MoE block's expert parallelism runs
-on (the dense FFN ignores it).
+The reference scans the layers with optional rematerialisation; here the
+layers run in a Python loop (:func:`_layers`, the one layer body of every
+path, from an embedded residual), each layer body under the config's
+``parallelism.remat`` (``maybe_remat``: ``"full"`` recomputes the body in
+the backward and changes no number).  With ``cfg.moe`` set each layer's
+FFN is the MoE block (``layers.moe.*``, ``models/moe.py``), the forward
+carries the sum of the layers' router aux losses and the loss is
+cross-entropy plus that sum, as in the reference.  Every function takes the
+``dist`` the MoE block's expert parallelism and the dense family's tensor
+parallelism run on.
+
+Tensor parallelism and FSDP (the dense family): a model built for a
+:class:`~.tensor_parallel.Part` of the mesh (``model_rank``/``model_axis``,
+``fsdp_rank``/``fsdp_size``) holds its block of each leaf as
+:func:`held_layout` places it (the reference's specs, with its divisibility
+rules), and every path computes through
+:class:`~.tensor_parallel.DenseParallel`: Megatron's collectives on the
+model axis, sequence parallelism where the config asks for it and the
+sequence divides, the fsdp gathers inside the remat body, the
+vocabulary-parallel embedding and loss, and full logits gathered where a
+path returns them.
 
 Serving: :func:`prefill` and :func:`decode_step` run on a contiguous
 cache (:func:`init_cache`); :func:`prefill_chunk_paged` and
@@ -28,6 +39,7 @@ otherwise, as in the reference, and are written in place.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -55,43 +67,98 @@ from .common import (
 )
 from .mlp import mlp, mlp_shapes, spec_mlp
 from .moe import expert_shards, moe_block, moe_shapes, spec_moe
+from .tensor_parallel import FSDP, TP, DenseParallel, Part, held_spec, is_split
+from .tensor_parallel import vocab_parallel_cross_entropy
 
 
 class TransformerLM(nn.Module):
     """Parameters of the dense or MoE LM; the forward math is :func:`forward`.
     ``model_rank``/``model_axis``: under expert parallelism on a model axis
     of ``model_axis`` ranks, this rank's part of the experts only
-    (``moe.expert_shards``); every other leaf whole."""
+    (``moe.expert_shards``); for the dense family, this rank's block of
+    every leaf the model axis splits (:func:`held_layout`), and with
+    ``fsdp_rank``/``fsdp_size`` its block over the fsdp axes too.  Every
+    other leaf whole.  ``part`` is the dense family's block, ``held`` each
+    leaf's held spec and ``full_shapes`` each leaf's whole shape."""
 
     #: the families this module's parameter tree builds
     FAMILIES = ("dense", "moe")
 
-    def __init__(self, cfg, device, model_rank: int = 0, model_axis: int = 1) -> None:
+    def __init__(self, cfg, device, model_rank: int = 0, model_axis: int = 1,
+                 fsdp_rank: int = 0, fsdp_size: int = 1) -> None:
         super().__init__()
         if cfg.family not in self.FAMILIES:
             raise ValueError(f"{type(self).__name__} builds the {' and '.join(self.FAMILIES)} "
                              f"families, got {cfg.family!r}")
+        dense = cfg.family == "dense"
         shards = expert_shards(cfg, model_axis)
-        if not 0 <= model_rank < max(shards, 1) or (shards == 1 and model_rank):
+        if not dense and (not 0 <= model_rank < max(shards, 1) or (shards == 1 and model_rank)):
             raise ValueError(f"model rank {model_rank} of {model_axis} holds no expert part")
+        if not dense and fsdp_size > 1:
+            raise ValueError(f"FSDP is ported for the dense family, not {cfg.family!r}")
         #: (this rank, the parts) of each layer's experts it holds
-        self.expert_part = (model_rank, shards)
+        self.expert_part = (model_rank if shards > 1 else 0, shards)
+        #: the dense family's block of the mesh
+        self.part = (Part(model_rank, model_axis, fsdp_rank, fsdp_size) if dense
+                     else Part())
         L, d = cfg.num_layers, cfg.d_model
         pdt = dtype_of(cfg.param_dtype)
-        self.embed = ParamBlock(embed_shapes(cfg, pdt), device)
-        self.final_norm = ParamBlock(norm_shapes((d,), cfg.norm), device)
-        self.layers = nn.Module()
-        self.layers.attn = ParamBlock(attention_shapes(cfg, pdt, (L,)), device)
-        self.layers.ln1 = ParamBlock(norm_shapes((L, d), cfg.norm), device)
-        self.layers.ln2 = ParamBlock(norm_shapes((L, d), cfg.norm), device)
+        blocks = {"embed": embed_shapes(cfg, pdt),
+                  "final_norm": norm_shapes((d,), cfg.norm),
+                  "layers.attn": attention_shapes(cfg, pdt, (L,)),
+                  "layers.ln1": norm_shapes((L, d), cfg.norm),
+                  "layers.ln2": norm_shapes((L, d), cfg.norm)}
+        children = {}
         if cfg.moe is not None:
-            own, children = moe_shapes(cfg, pdt, (L,), shards)
-            self.layers.moe = ParamBlock(own, device)
-            for name, shapes in children.items():
-                self.layers.moe.add_module(name, ParamBlock(shapes, device))
+            blocks["layers.moe"], children = moe_shapes(cfg, pdt, (L,), shards)
         else:
-            self.layers.mlp = ParamBlock(mlp_shapes(d, cfg.d_ff, cfg.activation, pdt, (L,)),
-                                         device)
+            blocks["layers.mlp"] = mlp_shapes(d, cfg.d_ff, cfg.activation, pdt, (L,))
+        self.full_shapes = {f"{b}.{k}": shape for b, shapes in blocks.items()
+                            for k, (shape, _) in shapes.items()}
+        self.held = held_layout(cfg, self.part) if self.part != Part() else {}
+
+        def block(name: str) -> ParamBlock:
+            return ParamBlock({k: (self.part.shape(shape, self.held.get(f"{name}.{k}", ())), dt)
+                               for k, (shape, dt) in blocks[name].items()}, device)
+
+        self.embed = block("embed")
+        self.final_norm = block("final_norm")
+        self.layers = nn.Module()
+        for name in blocks:
+            if name.startswith("layers."):
+                setattr(self.layers, name.split(".")[1], block(name))
+        for name, shapes in children.items():
+            self.layers.moe.add_module(name, ParamBlock(shapes, device))
+
+
+@functools.lru_cache(maxsize=None)
+def held_layout(cfg, part: Part) -> dict:
+    """Leaf name -> what a rank of ``part`` holds of it (the dense family):
+    the reference's spec (``spec_lm(fsdp="fsdp", tp="tp")``, the fsdp
+    entries only with more than one fsdp rank), each entry kept where its
+    axis divides the dimension, and the attention projections split only
+    where whole query (K/V) heads divide the model axis."""
+    if cfg.family != "dense":
+        raise ValueError(f"the held layout splits the dense family, not {cfg.family!r}")
+    specs = spec_lm(cfg, fsdp=FSDP if part.fsdp_size > 1 else None, tp=TP)
+    full = TransformerLM(cfg, "meta").full_shapes
+    out = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.")
+            else:
+                out[prefix + k] = held_spec(v, full[prefix + k], part)
+
+    walk(specs, "")
+    R = part.tp_size
+    heads = {"q": cfg.num_heads % R == 0, "kv": cfg.num_kv_heads % R == 0}
+    for k in ("wq", "wk", "wv", "wo", "bq", "bk", "bv"):
+        name = f"layers.attn.{k}"
+        if name in out and not heads["q" if k in ("wq", "wo", "bq") else "kv"]:
+            out[name] = tuple(None if e == TP else e for e in out[name])
+    return out
 
 
 def spec_layer(cfg, fsdp, tp) -> dict:
@@ -117,9 +184,11 @@ def spec_lm(cfg, fsdp="data", tp="model") -> dict:
 
 
 @torch.no_grad()
-def init_lm(cfg, seed: int, device, model_rank: int = 0, model_axis: int = 1) -> TransformerLM:
+def init_lm(cfg, seed: int, device, model_rank: int = 0, model_axis: int = 1,
+            fsdp_rank: int = 0, fsdp_size: int = 1) -> TransformerLM:
     """Random weights from ``seed`` (:func:`init_weights_`)."""
-    return init_weights_(TransformerLM(cfg, device, model_rank, model_axis), cfg, seed)
+    return init_weights_(TransformerLM(cfg, device, model_rank, model_axis, fsdp_rank,
+                                       fsdp_size), cfg, seed)
 
 
 @torch.no_grad()
@@ -127,52 +196,74 @@ def init_weights_(model: TransformerLM, cfg, seed: int) -> TransformerLM:
     """Fill ``model`` from ``seed`` with the reference's distributions:
     N(0,1)/sqrt(in) projections (``wo`` of attention further scaled by
     1/sqrt(2L)), N(0, 0.02) embeddings, zero biases, unit norm scales.  A
-    model holding one rank's part of the experts holds those experts of
-    the whole model's draw."""
+    model holding one rank's part of the experts, or a rank's block of the
+    dense layers, holds that part of the whole model's draw."""
     part = model.expert_part
     gen = torch.Generator().manual_seed(seed)
+    held = getattr(model, "held", {})
     for name, p in sorted(model.named_parameters()):
         leaf = name.rsplit(".", 1)[-1]
+        block = {}
+        if held.get(name) and any(held[name]):
+            full, spec = model.full_shapes[name], held[name]
+            if name.startswith("layers."):  # per layer slice: drop the layer axis
+                full, spec = full[1:], spec[1:]
+            block = {"full": full, "index": model.part.index(full, spec)}
         if name.startswith("layers.moe.experts."):
             dense_init_(p, gen, part=part)
         elif name.startswith("embed."):
             if leaf == "tok":
-                embed_init_(p, gen)
+                embed_init_(p, gen, **block)
             else:
-                dense_init_(p, gen)
+                dense_init_(p, gen, **block)
         elif leaf == "scale":
             p.fill_(1.0)
         elif leaf in ("bias", "bq", "bk", "bv"):
             p.zero_()
         elif name == "layers.attn.wo":
-            dense_init_(p, gen, scale=1.0 / math.sqrt(2 * cfg.num_layers))
+            dense_init_(p, gen, scale=1.0 / math.sqrt(2 * cfg.num_layers), **block)
         else:
-            dense_init_(p, gen)
+            dense_init_(p, gen, **block)
     return model
 
 
-def _remat(cfg) -> str:
-    """The layer bodies' remat: the config's, except for the dense family,
-    whose layers run without it (ROADMAP queue 3; remat changes no number)."""
-    return "none" if cfg.family == "dense" else cfg.parallelism.remat
+def _embed(model: TransformerLM, tokens: torch.Tensor, cfg, par=None) -> torch.Tensor:
+    """The tokens' embedding in the compute dtype (under tensor parallelism
+    in the residual stream's layout, :meth:`DenseParallel.embed`)."""
+    dtype = dtype_of(cfg.compute_dtype)
+    if par is None:
+        return embed_tokens(model.embed.tok, tokens, dtype)
+    return par.embed(par.params(model.embed.layer(), "embed.")["tok"], tokens, dtype)
 
 
-def _embed(model: TransformerLM, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    return embed_tokens(model.embed.tok, tokens, dtype_of(cfg.compute_dtype))
-
-
-def _layers(lay, x: torch.Tensor, cfg, attend, dist=None, remat: str = "none") -> tuple:
+def _layers(lay, x: torch.Tensor, cfg, attend, dist=None, remat: str = "none",
+            par: Optional[DenseParallel] = None) -> tuple:
     """Every layer of ``lay`` on the residual ``x``: pre-norm attention
     (``attend(p, h, l)``, layer ``l``'s attention on its normed input: the
     forward's, a contiguous cache's or the pages'), then the pre-norm MLP
     or MoE block, each added; each layer body under ``maybe_remat(remat)``.
-    Returns the residual and the layers' summed aux loss (None for the
-    dense FFN)."""
+    With ``par`` the layer's leaves are gathered and wrapped first
+    (:meth:`DenseParallel.params`, inside the remat body), and each block
+    is entered and left in Megatron's layout (``attend`` then takes the
+    K/V heads its query heads read).  Returns the residual and the layers'
+    summed aux loss (None for the dense FFN)."""
+    kw = {"kv_heads": par.kv_heads} if par is not None and par.kv_heads else {}
+
     def body(p, xx, l):
-        xx = xx + attend(p["attn"], norm(p["ln1"], xx, cfg.norm), l)
+        if par is not None:
+            p = par.params(p, "layers.", stacked=True)
+        h = norm(p["ln1"], xx, cfg.norm)
+        if par is None:
+            xx = xx + attend(p["attn"], h, l)
+        else:
+            xx = xx + par.leave(attend(p["attn"], par.enter(h, par.q_split), l, **kw),
+                                par.q_split)
         h = norm(p["ln2"], xx, cfg.norm)
         if cfg.moe is None:
-            return xx + mlp(p["mlp"], h, cfg.activation), None
+            if par is None:
+                return xx + mlp(p["mlp"], h, cfg.activation), None
+            f = mlp(p["mlp"], par.enter(h, par.ffn_split), cfg.activation)
+            return xx + par.leave(f, par.ffn_split), None
         f, aux = moe_block(p["moe"], h, cfg, dist)
         return xx + f, aux
 
@@ -184,17 +275,36 @@ def _layers(lay, x: torch.Tensor, cfg, attend, dist=None, remat: str = "none") -
     return x, None if cfg.moe is None else torch.stack(auxes).sum()
 
 
-def _trunk(model: TransformerLM, x: torch.Tensor, cfg, attend, dist=None) -> tuple:
+def _trunk(model: TransformerLM, x: torch.Tensor, cfg, attend, dist=None,
+           par: Optional[DenseParallel] = None) -> tuple:
     """:func:`_layers` over ``model``'s layers from the embedded residual
     ``x`` (the tokens' embedding, or the vlm's image tokens before it),
-    under :func:`_remat`.  Returns the hidden state before the final norm
-    and the summed aux loss."""
-    return _layers(model.layers, x, cfg, attend, dist, _remat(cfg))
+    under the config's remat.  Returns the hidden state before the final
+    norm and the summed aux loss."""
+    return _layers(model.layers, x, cfg, attend, dist, cfg.parallelism.remat, par)
 
 
-def _logits(model: TransformerLM, x: torch.Tensor, cfg) -> torch.Tensor:
-    x = norm(model.final_norm.layer(), x, cfg.norm)
-    return unembed(model.embed.layer(), x, cfg.tie_embeddings)
+def _head(model: TransformerLM, x: torch.Tensor, cfg, par: Optional[DenseParallel] = None,
+          last_only: bool = False) -> torch.Tensor:
+    """The final norm and the unembedding of the residual ``x`` (with
+    ``last_only`` its final position): the logits of the whole vocabulary,
+    or of this rank's columns where the vocabulary splits."""
+    fn, emb = model.final_norm.layer(), model.embed.layer()
+    if par is not None:
+        fn, emb = par.params(fn, "final_norm."), par.params(emb, "embed.")
+    x = norm(fn, x, cfg.norm)
+    if par is not None:
+        x = par.enter(x, par.vocab_split)
+    if last_only:
+        x = x[:, -1:]
+    return unembed(emb, x, cfg.tie_embeddings)
+
+
+def _logits(model: TransformerLM, x: torch.Tensor, cfg, par: Optional[DenseParallel] = None,
+            last_only: bool = False) -> torch.Tensor:
+    """:func:`_head`'s logits over the whole vocabulary."""
+    logits = _head(model, x, cfg, par, last_only)
+    return logits if par is None else par.full_logits(logits)
 
 
 def _positions(start, n: int, batch: int, device) -> torch.Tensor:
@@ -211,6 +321,8 @@ def stage_model(model: TransformerLM, cfg, stage: int, stages: int, device=None)
     norm, the vlm's projector) on ``device``."""
     if cfg.moe is not None:
         raise ValueError("the pipeline stages run the dense family")
+    if getattr(model, "part", Part()) != Part():
+        raise ValueError(f"the pipeline stages split a whole model, not one holding {model.part}")
     L = cfg.num_layers
     if L % stages:
         raise ValueError(f"{L} layers do not split into {stages} stages")
@@ -245,19 +357,26 @@ def pipeline_fns(part: TransformerLM, cfg) -> tuple:
     return embed_fn, layer_stack_fn, head_fn
 
 
+def _forward_local(model: TransformerLM, tokens: torch.Tensor, cfg, last_only: bool,
+                   dist) -> tuple:
+    """(:func:`_head`'s logits, the summed aux loss, the call's layout)."""
+    B, S = tokens.shape
+    par = DenseParallel.of(model, cfg, dist, S)
+    positions = _positions(0, S, B, tokens.device)
+    x, aux = _trunk(model, _embed(model, tokens, cfg, par), cfg,
+                    lambda p, h, l, **kw: attention(p, h, cfg, positions=positions,
+                                                    causal=True, **kw), dist, par)
+    return _head(model, x, cfg, par, last_only), aux, par
+
+
 def forward_aux(model: TransformerLM, tokens: torch.Tensor, cfg, last_only: bool = False,
                 dist=None) -> tuple:
     """Full-sequence forward -> (logits (B, S, vocab), or (B, 1, vocab) with
     ``last_only``, which slices the residual to the final position before
-    the final norm and the unembed (prefill needs one position); the summed
-    aux loss, None for the dense FFN)."""
-    B, S = tokens.shape
-    positions = _positions(0, S, B, tokens.device)
-    x, aux = _trunk(model, _embed(model, tokens, cfg), cfg, lambda p, h, l: attention(
-        p, h, cfg, positions=positions, causal=True), dist)
-    if last_only:
-        x = x[:, -1:]
-    return _logits(model, x, cfg), aux
+    the unembed (prefill needs one position); the summed aux loss, None
+    for the dense FFN)."""
+    logits, aux, par = _forward_local(model, tokens, cfg, last_only, dist)
+    return (logits if par is None else par.full_logits(logits)), aux
 
 
 def forward(model: TransformerLM, tokens: torch.Tensor, cfg, last_only: bool = False,
@@ -267,28 +386,48 @@ def forward(model: TransformerLM, tokens: torch.Tensor, cfg, last_only: bool = F
 
 
 def loss_fn(model: TransformerLM, batch: dict, cfg, dist=None) -> torch.Tensor:
-    """Token-mean cross-entropy, plus the aux loss with the MoE block."""
-    logits, aux = forward_aux(model, batch["tokens"], cfg, dist=dist)
-    loss = softmax_cross_entropy(logits, batch["targets"])
+    """Token-mean cross-entropy (vocabulary-parallel where the vocabulary
+    splits), plus the aux loss with the MoE block."""
+    logits, aux, par = _forward_local(model, batch["tokens"], cfg, False, dist)
+    if par is not None and par.vocab_split:
+        loss = vocab_parallel_cross_entropy(logits, batch["targets"],
+                                            par.vocab_range(cfg.vocab_size)[0], par.tp_group)
+    else:
+        loss = softmax_cross_entropy(logits, batch["targets"])
     return loss if aux is None else loss + aux
+
+
+def cache_specs(cfg) -> KVCache:
+    """The reference's specs of the contiguous cache: batch over the data
+    axes, K/V heads over the model axis, each side."""
+    one = (("pod", "data"), None, "model", None)
+    return KVCache((None, *one), (None, *one))
 
 
 # ---------------------------------------------------------------------------
 # serving: prefill fills the cache; decode appends one token
 # ---------------------------------------------------------------------------
-def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, device=None) -> KVCache:
-    """The contiguous cache, (L, batch, max_seq, kv_heads, head_dim) per side."""
+def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, device=None,
+               model_axis: int = 1) -> KVCache:
+    """The contiguous cache, (L, batch, max_seq, kv_heads, head_dim) per
+    side; a dense model on ``model_axis`` ranks whose K/V heads split holds
+    its ``kv_heads / model_axis`` of them."""
+    heads = cfg.num_kv_heads
+    if cfg.family == "dense" and model_axis > 1 and is_split(
+            held_layout(cfg, Part(0, model_axis))["layers.attn.wk"]):
+        heads //= model_axis
     return init_kv_cache(cfg, batch, max_seq, dtype, resolve_device(device),
-                         layers=cfg.num_layers)
+                         layers=cfg.num_layers, kv_heads=heads)
 
 
 def _run_cached(model: TransformerLM, x: torch.Tensor, cache: KVCache, index: int,
-                positions: torch.Tensor, cfg, dist) -> torch.Tensor:
+                positions: torch.Tensor, cfg, dist, par: Optional[DenseParallel] = None
+                ) -> torch.Tensor:
     """The layers over a contiguous cache from the embedded residual ``x``,
     writing from position ``index``."""
-    return _trunk(model, x, cfg, lambda p, h, l: attention(
+    return _trunk(model, x, cfg, lambda p, h, l, **kw: attention(
         p, h, cfg, positions=positions, causal=True,
-        kv_cache=KVCache(cache.k[l], cache.v[l]), cache_index=index)[0], dist)[0]
+        kv_cache=KVCache(cache.k[l], cache.v[l]), cache_index=index, **kw)[0], dist, par)[0]
 
 
 def decode_step(model: TransformerLM, token: torch.Tensor, cache: KVCache, index: int,
@@ -296,9 +435,11 @@ def decode_step(model: TransformerLM, token: torch.Tensor, cache: KVCache, index
     """token: (B, 1) int; ``index``: the position it is written at.
     Returns (logits (B, vocab), cache)."""
     B = token.shape[0]
+    par = DenseParallel.of(model, cfg, dist)
     positions = torch.full((B, 1), int(index), dtype=torch.int32, device=token.device)
-    x = _run_cached(model, _embed(model, token, cfg), cache, int(index), positions, cfg, dist)
-    return _logits(model, x, cfg)[:, 0, :], cache
+    x = _run_cached(model, _embed(model, token, cfg, par), cache, int(index), positions, cfg,
+                    dist, par)
+    return _logits(model, x, cfg, par)[:, 0, :], cache
 
 
 def prefill(model: TransformerLM, tokens: torch.Tensor, cfg, dist=None,
@@ -306,10 +447,12 @@ def prefill(model: TransformerLM, tokens: torch.Tensor, cfg, dist=None,
     """Run the prompt (B, S) into a fresh cache of ``max_seq`` positions
     (default the config's); returns (last logits (B, vocab), cache, S)."""
     B, S = tokens.shape
-    cache = init_cache(cfg, B, max_seq or cfg.max_seq_len, device=tokens.device)
-    x = _run_cached(model, _embed(model, tokens, cfg), cache, 0,
-                    _positions(0, S, B, tokens.device), cfg, dist)
-    return _logits(model, x[:, -1:, :], cfg)[:, 0, :], cache, S
+    par = DenseParallel.of(model, cfg, dist)
+    cache = init_cache(cfg, B, max_seq or cfg.max_seq_len, device=tokens.device,
+                       model_axis=getattr(model, "part", Part()).tp_size)
+    x = _run_cached(model, _embed(model, tokens, cfg, par), cache, 0,
+                    _positions(0, S, B, tokens.device), cfg, dist, par)
+    return _logits(model, x, cfg, par, last_only=True)[:, 0, :], cache, S
 
 
 # ---------------------------------------------------------------------------
@@ -326,6 +469,9 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, dtype=torch.bfloat16
 
 def _run_paged(model: TransformerLM, tokens: torch.Tensor, pages: KVCache,
                block_tables: torch.Tensor, positions: torch.Tensor, cfg, dist) -> torch.Tensor:
+    if getattr(model, "part", Part()) != Part():
+        raise NotImplementedError("the paged path serves a whole model; a model holding "
+                                  f"{model.part} decodes through decode_step")
     x = _trunk(model, _embed(model, tokens, cfg), cfg, lambda p, h, l: attention_paged(
         p, h, cfg, pages.k[l], pages.v[l], block_tables, positions), dist)[0]
     return _logits(model, x, cfg)

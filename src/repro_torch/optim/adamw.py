@@ -78,6 +78,13 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tensors))
 
 
+#: a leaf of more elements is updated in runs of its leading axis of at most
+#: this many (:func:`update_tree`), so AdamW's temporaries are a run's, not
+#: the leaf's: a tensor-parallel rank of gemma-7b holds 0.5 G elements in one
+#: stacked FFN leaf
+SLICE_ELEMENTS = 1 << 26
+
+
 def update_tree(cfg: AdamWConfig, grads, state: AdamState, params, gnorm: torch.Tensor,
                 lr_scale=1.0):
     """``grads`` and ``params`` in ``param_leaves`` order -> (new parameter
@@ -87,17 +94,32 @@ def update_tree(cfg: AdamWConfig, grads, state: AdamState, params, gnorm: torch.
     step = state.step + 1
     t = step.float()
     scale = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
-    new_p, new_m, new_v = [], [], []
-    for g, m, v, p in zip(grads, tree_leaves(state.m), tree_leaves(state.v), params):
+
+    def one(g, m, v, p):
         g = g.float() * scale
         m2 = cfg.b1 * m + (1 - cfg.b1) * g
         v2 = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
         mhat = m2 / (1 - cfg.b1 ** t)
         vhat = v2 / (1 - cfg.b2 ** t)
         delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.float()
-        new_p.append((p.float() - cfg.lr * lr_scale * delta).to(p.dtype))
-        new_m.append(m2)
-        new_v.append(v2)
+        return (p.float() - cfg.lr * lr_scale * delta).to(p.dtype), m2, v2
+
+    new_p, new_m, new_v = [], [], []
+    for g, m, v, p in zip(grads, tree_leaves(state.m), tree_leaves(state.v), params):
+        if p.numel() <= SLICE_ELEMENTS or p.ndim < 2:
+            out = one(g, m, v, p)
+        else:
+            # a large leaf in runs of its leading axis of at most
+            # SLICE_ELEMENTS: the same arithmetic per element, a run's
+            # temporaries at a time
+            rows = max(1, SLICE_ELEMENTS // p[0].numel())
+            out = (torch.empty_like(p), torch.empty_like(m), torch.empty_like(v))
+            for a in range(0, p.shape[0], rows):
+                run = slice(a, a + rows)
+                for dst, src in zip(out, one(g[run], m[run], v[run], p[run])):
+                    dst[run] = src
+        for acc, x in zip((new_p, new_m, new_v), out):
+            acc.append(x)
     return new_p, AdamState(step, _tree_like(state.m, iter(new_m)),
                             _tree_like(state.v, iter(new_v)))
 

@@ -92,6 +92,13 @@ class DistContext:
         return self.mesh.shape[self.tp_axis]
 
     @property
+    def tp_group(self):
+        """The ``torch.distributed`` process group of ``tp_comm`` (the dense
+        family's tensor-parallel collectives run on it directly, beside the
+        ABI, ``models/tensor_parallel.py``)."""
+        return self.abi.comms.info(self.tp_comm).group
+
+    @property
     def dp_group(self):
         """The ``torch.distributed`` process group of ``dp_comm`` (the
         ``gspmd`` step's collectives run on it directly, beside the ABI)."""

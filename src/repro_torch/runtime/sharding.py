@@ -24,9 +24,11 @@ One process is one rank, so every tensor a rank holds is already its own
 part: :func:`shard` is the identity here (the reference's is a GSPMD
 constraint, advisory where no mesh is active).  Which parameters a rank
 holds only a part of is written down by the models' ``spec_*`` functions
-(``ModelApi.param_specs``); the port splits the moe family's experts over
-the model axis under expert parallelism and keeps every other leaf whole
-(``models.model.held_specs``).
+(``ModelApi.param_specs``); a rank holds its block of the leaves the port
+splits — the moe family's experts under expert parallelism, the dense
+family's heads, FFN and vocabulary over the model axis and, under
+``gspmd``, its FSDP block (``models.transformer.held_layout``,
+``models/tensor_parallel.py``) — and every other leaf whole.
 """
 from __future__ import annotations
 

@@ -30,11 +30,15 @@ reference returns new arrays) — that keeps one copy of the weights.
 At ``model_axis = R > 1`` the moe family trains expert-parallel: each rank
 holds its ``E_pad / R`` experts of each layer (``init_state`` builds it so)
 and every other leaf whole, and the EP block's exchanges carry the
-gradient through ``dist.abi`` (``models/moe.py``).  A rank's ZeRO-1 flat
+gradient through ``dist.abi`` (``models/moe.py``).  The dense family trains
+tensor-parallel: each rank holds its block of every leaf the model axis
+splits (``transformer.held_layout``) and the layers compute in Megatron's
+layout (``models/tensor_parallel.py``), their collectives on
+``torch.distributed`` beside the ABI.  A rank's ZeRO-1 flat
 vector is its *own* leaves, reduce-scattered over ``dp_comm`` (its column
 of the mesh); the per-leaf layout all-reduces its own leaves.  The grad
 norm AdamW clips by counts each leaf once: the split leaves' squares
-(``held_specs``, through the reference's ``grad_specs``) are summed over
+(``models.model.leaf_splits``, from what the model holds) are summed over
 ``tp_comm`` first.  Every rank of a column sees the same replicated
 gradients, so the replicated leaves stay bitwise equal on the model axis.
 The ABI step's
@@ -51,21 +55,28 @@ microbatched gradients, the per-leaf AdamW update, under
 ``use_rules(dist.rules)``.  In the reference XLA inserts its collectives
 beside PAX; here, at dp > 1, the gradients' and the loss's mean over the
 data axes runs through ``torch.distributed`` on the dp group directly, not
-through the ABI (that split is the mode's point).  Parameters stay
-replicated over the data axis: FSDP over ``parallelism.fsdp_axes`` is not
-ported.  :func:`state_specs` writes down the reference's layout of either
-mode's state.
+through the ABI (that split is the mode's point).  A dense model that
+``init_state`` builds at dp > 1 is sharded over ``parallelism.fsdp_axes``
+(FSDP): each rank holds its block of every leaf whose spec names the fsdp
+axes, and so do its AdamW moments; each layer's leaves are all-gathered
+just before the layer runs and its gradient reduce-scattered back
+(``models/tensor_parallel.py``), so the step only scales those shards and
+all-reduces the rest.  A model passed in whole trains replicated over the
+data axis.  :func:`state_specs` writes down the reference's layout of
+either mode's state.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as tdist
 from torch.profiler import record_function
 
 from ..core import PAX_SUM
-from ..models.model import ModelApi, held_specs, param_leaves, split_leaves
+from ..models.model import ModelApi, leaf_splits, param_leaves
 from ..models.moe import expert_shards
+from ..models.tensor_parallel import Part
 from ..optim import adamw
 from ..optim.adamw import AdamState, AdamWConfig, FlatAdamState
 from ..runtime.dist import DistContext, dp_comm_of
@@ -95,13 +106,13 @@ def init_state(api: ModelApi, seed: int, dist: DistContext, model=None) -> Train
     moments otherwise (and always under ``grad_sync="gspmd"``).  Re-init
     with an unchanged layout — padded length,
     dp, buckets, wire dtype and compression — keeps the live plans; a
-    layout change retires them and re-plans.  Under expert parallelism at
-    ``model_axis > 1`` the weights are this model rank's part of the
-    seed's draw (``api.init(model_rank=, model_axis=)``)."""
-    r, R = _expert_part(api, dist)
+    layout change retires them and re-plans.  The weights are the block
+    of the seed's draw this rank holds (:func:`model_part`): its experts
+    under expert parallelism, its tensor-parallel and FSDP block of a
+    dense model."""
     if model is None:
-        model = api.init(seed, dist.device, model_rank=r, model_axis=R)
-    _check_expert_part(api, dist, model)
+        model = api.init(seed, dist.device, **model_part(api, dist))
+    _check_part(api, dist, model)
     params = [p for _, p in param_leaves(model)]
     par = api.cfg.parallelism
     if par.grad_sync not in ("abi", "gspmd"):
@@ -131,34 +142,75 @@ def _expert_part(api: ModelApi, dist: DistContext) -> tuple:
     return (dist.abi.comm_rank(dist.tp_comm), shards) if shards > 1 else (0, 1)
 
 
-def _check_expert_part(api: ModelApi, dist: DistContext, model) -> None:
+def _dense_part(api: ModelApi, dist: DistContext) -> Part:
+    """The block of a dense model a rank of ``dist`` holds: its heads, FFN
+    columns and vocabulary rows at ``model_axis > 1``, and under
+    ``grad_sync="gspmd"`` at dp > 1 its block over the fsdp axes (the dp
+    axes of the mesh)."""
+    tp = (dist.abi.comm_rank(dist.tp_comm), dist.tp_size) if dist.tp_size > 1 else (0, 1)
+    fsdp = ((dist.abi.comm_rank(dist.dp_comm), dist.dp_size)
+            if api.cfg.parallelism.grad_sync == "gspmd" and dist.dp_size > 1 else (0, 1))
+    return Part(*tp, *fsdp)
+
+
+def model_part(api: ModelApi, dist: DistContext) -> dict:
+    """The ``api.init``/``from_jax_params`` keywords of what a rank of
+    ``dist`` holds: the moe family's expert part, the dense family's
+    :func:`_dense_part`, nothing for the other families."""
+    if api.cfg.family == "dense":
+        p = _dense_part(api, dist)
+        return {"model_rank": p.tp_rank, "model_axis": p.tp_size, "fsdp_rank": p.fsdp_rank,
+                "fsdp_size": p.fsdp_size}
+    r, R = _expert_part(api, dist)
+    return {"model_rank": r, "model_axis": R} if R > 1 else {}
+
+
+def _check_part(api: ModelApi, dist: DistContext, model) -> None:
+    """A moe model must hold the expert part ``dist`` gives it; a dense
+    model either its block or the whole model (trained replicated)."""
     want = _expert_part(api, dist)
     got = getattr(model, "expert_part", (0, 1))
     if got != want:
         raise ValueError(f"the model holds expert part {got} (rank, parts); a step at "
                          f"model_axis={dist.tp_size} needs {want}: build it with "
                          f"init_state or api.init(model_rank=, model_axis=)")
+    held = getattr(model, "part", Part())
+    if held not in (Part(), _dense_part(api, dist)):
+        raise ValueError(f"the model holds {held}; a rank of {dist.mesh.shape} under "
+                         f"grad_sync={api.cfg.parallelism.grad_sync!r} holds "
+                         f"{_dense_part(api, dist)} or the whole model")
 
 
-def _split_leaves(api: ModelApi, dist: DistContext) -> list[bool]:
-    """Per leaf of a model on ``dist``: is it split over the model axis."""
-    return split_leaves(held_specs(api, _expert_part(api, dist)[1], dist.tp_axis),
-                        dist.tp_axis)
-
-
-def grad_norm(dist: Optional[DistContext], grads: list, split: list) -> torch.Tensor:
+def grad_norm(dist: Optional[DistContext], grads: list, split: list,
+              fsdp_split: Optional[list] = None) -> torch.Tensor:
     """The global norm of ``grads`` (this rank's leaves, each already the
-    data-parallel mean): a leaf split over the model axis (``split``, from
-    the held specs) contributes every rank's part, summed over
-    ``tp_comm``; a replicated leaf counts once."""
-    if not any(split):
+    data-parallel mean): a leaf split over the model axis (``split``)
+    contributes every rank's part, summed over ``tp_comm``; a leaf split
+    over the fsdp axes (``fsdp_split``) every data-parallel rank's shard,
+    summed over the dp group; a replicated leaf counts once."""
+    fsdp_split = fsdp_split or [False] * len(grads)
+    if not any(split) and not any(fsdp_split):
         return adamw.global_norm(grads)
     sq = [torch.sum(torch.square(g.float())) for g in grads]
     zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
-    rep = sum((s for s, k in zip(sq, split) if not k), zero)
-    part = dist.abi.allreduce(sum((s for s, k in zip(sq, split) if k), zero), PAX_SUM,
-                              dist.tp_comm)
-    return torch.sqrt(rep + part)
+
+    def total(tp: bool, fs: bool):
+        return sum((s for s, a, b in zip(sq, split, fsdp_split) if (a, b) == (tp, fs)), zero)
+
+    def dp_sum(x):
+        x = x.clone()
+        tdist.all_reduce(x, group=dist.dp_group)
+        return x
+
+    out = total(False, False)
+    if any(fsdp_split):
+        out = out + dp_sum(total(False, True))
+    if any(split):
+        part = total(True, False)
+        if any(a and b for a, b in zip(split, fsdp_split)):
+            part = part + dp_sum(total(True, True))
+        out = out + dist.abi.allreduce(part, PAX_SUM, dist.tp_comm)
+    return torch.sqrt(out)
 
 
 def _shard_ranges(sizes: list, split: list, lo: int, hi: int) -> tuple:
@@ -213,7 +265,9 @@ def _microbatched_grads(loss_fn: Callable, model, params: list, batch: dict,
             a.add_(g.float())
         del grads
     inv = 1.0 / n_micro
-    return loss_acc * inv, [g * inv for g in g_acc]
+    for a in g_acc:  # in place: one f32 copy of the gradient, not two
+        a.mul_(inv)
+    return loss_acc * inv, g_acc
 
 
 def sync_grads_abi(dist: DistContext, grads: list, compression: Optional[str]) -> list:
@@ -226,7 +280,8 @@ def sync_grads_abi(dist: DistContext, grads: list, compression: Optional[str]) -
     abi, comm = dp_comm_of(dist, compression == "int8")
     wires = [g.to(torch.bfloat16) if compression == "bf16" else g for g in grads]
     summed = abi.waitall([abi.iallreduce(w, PAX_SUM, comm) for w in wires])
-    return [s.float() / dist.dp_size for s in summed]
+    # each sum is the collective's own output: scaled in place
+    return [s.float().div_(dist.dp_size) for s in summed]
 
 
 @torch.no_grad()
@@ -244,18 +299,15 @@ def make_train_step_abi(api: ModelApi, dist: DistContext, opt_cfg: AdamWConfig, 
     compression = par.grad_compression
     pad_multiple = dist.dp_size * buckets * zero1_granule(dist, compression)
     loss_fn = lambda m, b: api.loss_fn(m, b, dist)  # noqa: E731
-    # per leaf: split over the model axis (the experts under EP), fixed by
-    # the expert part every step's model must hold (_check_expert_part)
-    split = _split_leaves(api, dist)
 
     def lr_at(step):
         if schedule is not None:
             return schedule(step)
         return torch.ones((), dtype=torch.float32, device=step.device)
 
-    def body(state: TrainState, batch: dict):
+    def body(state: TrainState, batch: dict, split: list):
         """Per-leaf DDP: one nonblocking all-reduce per gradient leaf; the
-        norm over the leaves as the held specs place them."""
+        norm over the leaves as the model holds them (``split``)."""
         dp = dist.dp_size
         params = [p for _, p in param_leaves(state.params)]
         loss, grads = _microbatched_grads(loss_fn, state.params, params, batch, n_micro)
@@ -269,7 +321,7 @@ def make_train_step_abi(api: ModelApi, dist: DistContext, opt_cfg: AdamWConfig, 
         _assign(params, new_p)
         return TrainState(state.params, new_opt, state.step + 1), Metrics(loss, gnorm)
 
-    def body_zero1(state: TrainState, batch: dict):
+    def body_zero1(state: TrainState, batch: dict, split: list):
         """Explicit ZeRO-1 round trip: one reduce-scatter group start ->
         (param flatten + rank slice, overlapped) -> wait -> shard-local
         AdamW -> one all-gather group start/wait.  On the bf16 wire the
@@ -325,11 +377,17 @@ def make_train_step_abi(api: ModelApi, dist: DistContext, opt_cfg: AdamWConfig, 
         return TrainState(state.params, new_opt, state.step + 1), Metrics(loss, gnorm)
 
     def step_fn(state: TrainState, batch: dict):
-        _check_expert_part(api, dist, state.params)
+        _check_part(api, dist, state.params)
+        # per leaf: split over the model axis (the experts under EP, the
+        # dense family's tensor-parallel leaves), as the model holds them
+        split, fsdp_split = leaf_splits(state.params)
+        if any(fsdp_split):
+            raise ValueError("the abi step syncs whole data-parallel replicas; a model "
+                             "sharded over the fsdp axes trains under grad_sync='gspmd'")
         if isinstance(state.opt, FlatAdamState):
-            return body_zero1(state, batch)
+            return body_zero1(state, batch, split)
         if isinstance(state.opt, AdamState):
-            return body(state, batch)
+            return body(state, batch, split)
         raise TypeError(f"unknown optimizer state {type(state.opt).__name__}")
 
     return step_fn
@@ -346,21 +404,21 @@ def make_train_step_gspmd(api: ModelApi, dist: Optional[DistContext], opt_cfg: A
     n_micro = max(api.cfg.parallelism.microbatch, 1)
     rules = dist.rules if dist is not None else None
     loss_fn = lambda m, b: api.loss_fn(m, b, dist)  # noqa: E731
-    split = _split_leaves(api, dist) if dist is not None else []
 
     def step_fn(state: TrainState, batch: dict):
         if not isinstance(state.opt, AdamState):
             raise TypeError(f"the gspmd step updates per-leaf moments, got "
                             f"{type(state.opt).__name__}")
         if dist is not None:
-            _check_expert_part(api, dist, state.params)
+            _check_part(api, dist, state.params)
+        split, fsdp_split = leaf_splits(state.params)
         params = [p for _, p in param_leaves(state.params)]
         with use_rules(rules):
             loss, grads = _microbatched_grads(loss_fn, state.params, params, batch, n_micro)
             with torch.no_grad():
                 if dist is not None and dist.dp_size > 1:
-                    grads, loss = _dp_mean(dist, grads, loss)
-                gnorm = grad_norm(dist, grads, split)
+                    grads, loss = _dp_mean(dist, grads, loss, fsdp_split)
+                gnorm = grad_norm(dist, grads, split, fsdp_split)
                 lr = (schedule(state.step) if schedule is not None
                       else torch.ones((), dtype=torch.float32, device=state.step.device))
                 new_p, new_opt = adamw.update_tree(opt_cfg, grads, state.opt, params, gnorm, lr)
@@ -370,17 +428,24 @@ def make_train_step_gspmd(api: ModelApi, dist: Optional[DistContext], opt_cfg: A
     return step_fn
 
 
-def _dp_mean(dist: DistContext, grads: list, loss: torch.Tensor) -> tuple:
+def _dp_mean(dist: DistContext, grads: list, loss: torch.Tensor, fsdp_split: list) -> tuple:
     """The gradients' and the loss's mean over the data axes, through
-    ``torch.distributed`` on the dp group: the gradients as one flat f32
-    buffer, then the loss."""
+    ``torch.distributed`` on the dp group: the replicated gradients as one
+    flat f32 buffer, then the loss.  A leaf sharded over the fsdp axes
+    already holds the sum over the data axes (its gather's backward
+    reduce-scattered it) and is only scaled."""
     group = dist.dp_group
-    flat = adamw.flatten(grads)
-    torch.distributed.all_reduce(flat, group=group)
+    dp = dist.dp_size
+    rep = [g for g, s in zip(grads, fsdp_split) if not s]
+    means = iter([])
+    if rep:
+        flat = adamw.flatten(rep)
+        torch.distributed.all_reduce(flat, group=group)
+        means = iter(adamw.unflatten_like(flat / dp, rep))
     loss = loss.detach().float().clone()
     torch.distributed.all_reduce(loss, group=group)
-    dp = dist.dp_size
-    return [g.float() for g in adamw.unflatten_like(flat / dp, grads)], loss / dp
+    return [g.float() / dp if s else next(means).float() for g, s in zip(grads, fsdp_split)], \
+        loss / dp
 
 
 def make_train_step(api: ModelApi, dist: Optional[DistContext], opt_cfg: AdamWConfig,

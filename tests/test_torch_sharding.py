@@ -36,7 +36,7 @@ from repro.train import train_loop as r_tl
 from repro_torch import configs as T_cfgs
 from repro_torch.models import build_model as t_build
 from repro_torch.models import from_jax_params, param_leaves
-from repro_torch.models.model import _family, held_specs, split_leaves
+from repro_torch.models.model import _family, held_specs, leaf_splits
 from repro_torch.optim.adamw import AdamWConfig as T_Adam
 from repro_torch.runtime.dist import make_dist as t_make_dist
 from repro_torch.runtime.sharding import AxisRules, _strip_axes, production_rules
@@ -195,8 +195,8 @@ def test_held_specs_split_only_the_experts_under_ep():
     whole = api.init(0, "cpu")
     part = api.init(0, "cpu", model_rank=1, model_axis=2)
     names = [n for n, _ in param_leaves(part)]
-    assert not any(split_leaves(held_specs(api, whole.expert_part[1])))
-    split = split_leaves(held_specs(api, part.expert_part[1]))
+    assert not any(leaf_splits(whole)[0])
+    split = leaf_splits(part)[0]
     from repro.models.moe import _ep_expert_specs as r_ep_specs
 
     assert held_specs(api, part.expert_part[1])["layers"]["moe"]["experts"] == {
