@@ -260,7 +260,18 @@ step per rank under abi), the full-depth bf16 steps in both modes (ms/step,
 peak GB, the collectives a step, the dry run's prediction beside them), and
 the TP forward under flash (7 launches at 4 local heads, the logits within
 ``TP4_LOGIT_TOL`` of one card's); it prints a ``kernels`` line with the
-``tp4`` launches.
+``tp4`` launches.  ``--only moetp4`` (four cards, :func:`phase_moetp4`)
+runs the moe family on the model axis: qwen2-moe-a2.7b at full width, each
+card holding its 16 experts and a quarter of the heads, shared experts and
+vocabulary (float32 steps at 2 layers under both modes against one card's
+unsharded step, bf16 steps at 12 of 24 layers with the dry run's
+collectives as a gate, the 24-layer forward under flash at 4/4 heads, a
+2-layer float32 forward and the split decode against one card), and
+grok-1-314b at 1 of 64 layers, each card holding its ``d_ff`` block of
+every expert (a float32 step at (1, 4) and (2, 2) against one card's
+unsharded gradient, the forward under flash at 12/2 heads, bf16 ``gspmd``
+steps with FSDP); it prints a ``kernels`` line with the ``moetp4``
+launches.
 
 ``--only ring4`` runs the one path a single card cannot: [ring4] starts
 ``launch.train`` as four ranks, one per card, on NCCL, for 2 ZeRO-1 steps
@@ -1116,6 +1127,9 @@ def phase_train_gspmd() -> int:
 
 SWAP_IMPLS = ("paxi", "minimal", "ompix", "muk:paxi")
 SWAP_STEPS, SWAP_BUCKETS = 3, 2
+#: [abi-swap]'s depth: 2 of qwen2-0.5b's 24 layers since PR 27 (the script's
+#: time limit), full width
+SWAP_DEPTH = 2
 #: the layer's cost: blocking allreduce calls of one float32 per round
 MSG_CALLS, MSG_WARMUP, MSG_ROUNDS = 2000, 200, 5
 
@@ -1145,8 +1159,9 @@ def _us_per_call(calls: dict, comm: int, dev) -> dict:
 
 
 def phase_abi_swap(card: str) -> dict:
-    """The paper's backend swap on the card: full-width qwen2-0.5b (the
-    [main] phase's batch 8 and sequence 128, one batch, seed 0), 3 ZeRO-1
+    """The paper's backend swap on the card: full-width qwen2-0.5b at
+    ``SWAP_DEPTH`` layers (the [main] phase's batch 8 and sequence 128, one
+    batch, seed 0), 3 ZeRO-1
     steps at two buckets under each of ``SWAP_IMPLS`` on NCCL, in turns
     (the order, then the reverse order), through ``launch.abi_swap``.  Each
     run must launch the wire kernels (``pack_transposed`` and
@@ -1168,7 +1183,7 @@ def phase_abi_swap(card: str) -> dict:
     from repro_torch.runtime.dist import init_world, make_dist
 
     cfg = configs.get_config(ARCH)
-    cfg = dataclasses.replace(cfg, parallelism=dataclasses.replace(
+    cfg = dataclasses.replace(cfg, num_layers=SWAP_DEPTH, parallelism=dataclasses.replace(
         cfg.parallelism, zero1_buckets=SWAP_BUCKETS))
     batch = abi_swap.first_batch(cfg, 8, 128)
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -2026,6 +2041,9 @@ SERVE_BELOW = 0.8                         # the second load's share of admission
 #: [serve] card vs CPU: depth, requests (prompt length, new tokens), and the
 #: top-2 margin of the CPU logits below which a greedy token may flip
 SERVE_CPU_DEPTH = 2
+#: [serve]'s depth: 8 of qwen2-0.5b's 24 layers since PR 27 (the script's
+#: time limit), full width
+SERVE_DEPTH = 8
 SERVE_CPU_REQS = ((100, 16), (40, 16))
 MARGIN = 1e-3
 
@@ -2151,8 +2169,8 @@ def _profile_model_step(fn, n: int = 5) -> dict:
 
 
 def phase_serve(card: str) -> dict:
-    """[serve]: full-width qwen2-0.5b (bf16, random weights from seed 0)
-    behind ``ServeEngine`` with a ``decode-tp`` plan group on NCCL.
+    """[serve]: full-width qwen2-0.5b at ``SERVE_DEPTH`` layers (bf16,
+    random weights from seed 0) behind ``ServeEngine`` with a ``decode-tp`` plan group on NCCL.
 
     * 16 greedy requests and 2 sampled ones served continuously; 4 of the
       greedy ones and both sampled ones then served one at a time on the
@@ -2167,6 +2185,8 @@ def phase_serve(card: str) -> dict:
       float32 (:func:`_serve_card_vs_cpu`).
 
     Returns the numbers it logs."""
+    import dataclasses
+
     import numpy as np
     import torch
     from repro_torch import configs
@@ -2177,7 +2197,7 @@ def phase_serve(card: str) -> dict:
     from repro_torch.serve import DecodeSync, Request, ServeEngine
 
     _zero_counts()
-    cfg = configs.get_config(ARCH)
+    cfg = dataclasses.replace(configs.get_config(ARCH), num_layers=SERVE_DEPTH)
     api = build_model(cfg)
     model = _init_timed(api, "serve")
     out = {}
@@ -2186,7 +2206,8 @@ def phase_serve(card: str) -> dict:
         dist.abi.attach_tool(cc)
         eng = ServeEngine(api, model, dist=dist, seed=0, **SERVE_ENGINE)
         pool = sum(t.numel() * t.element_size() for t in eng._pages)
-        log(f"[serve] {ARCH} full width ({cfg.num_layers} layers, d={cfg.d_model}, "
+        log(f"[serve] {ARCH} full width ({cfg.num_layers} of "
+            f"{configs.get_config(ARCH).num_layers} layers, d={cfg.d_model}, "
             f"{cfg.num_heads}/{cfg.num_kv_heads} heads at D={cfg.resolved_head_dim}, vocab "
             f"{cfg.vocab_size}) bf16 on {card}, {dist.abi.backend.name} on "
             f"{torch.distributed.get_backend()}: engine {SERVE_ENGINE}, KV pool "
@@ -2385,7 +2406,10 @@ def _serve_card_vs_cpu() -> dict:
 # ---------------------------------------------------------------------------
 # [fault]: the fault and transport tiers with the checkpointer
 # ---------------------------------------------------------------------------
-FAULT_ARGS = COMMON + ["--zero1-buckets", "2"]
+#: [fault]'s depth: 2 of qwen2-0.5b's 24 layers since PR 27 (the script's
+#: time limit), full width
+FAULT_DEPTH = 2
+FAULT_ARGS = COMMON + ["--zero1-buckets", "2", "--num-layers", str(FAULT_DEPTH)]
 #: ABI collective calls one ZeRO-1 step makes at dp=1 and two buckets (the
 #: fault schedule's count): the two reduce-scatter members, the grad-norm
 #: all-reduce, the two all-gather members, the loss all-reduce; `minimal`'s
@@ -2417,7 +2441,7 @@ class _FaultTrainer:
         from repro_torch.train import train_loop
 
         cfg = configs.get_config(ARCH)
-        cfg = dataclasses.replace(cfg, parallelism=dataclasses.replace(
+        cfg = dataclasses.replace(cfg, num_layers=FAULT_DEPTH, parallelism=dataclasses.replace(
             cfg.parallelism, zero1_buckets=2))
         api = build_model(cfg)
         self.tl = train_loop
@@ -2461,8 +2485,8 @@ def _flip_byte(path: Path) -> None:
 
 
 def phase_fault(card: str) -> dict:
-    """[fault]: full-width qwen2-0.5b (bf16, seed 0), batch 8, sequence 128,
-    two buckets, one card, through the port's fault and transport tiers:
+    """[fault]: full-width qwen2-0.5b at ``FAULT_DEPTH`` layers (bf16, seed
+    0), batch 8, sequence 128, two buckets, one card, through the port's fault and transport tiers:
 
     * resume: ``launch.train --ckpt-dir D --ckpt-every 2 --steps 4``, then
       ``--steps 6`` on D resumes from step 4; its steps 5-6 and final
@@ -2680,10 +2704,13 @@ def phase_fault(card: str) -> dict:
 
 
 def phase_fault_serve(card: str) -> dict:
-    """[fault] serving: the [serve] engine on an integrity-on context, its
-    greedy tokens alone and under a ``ServeSupervisor(wait_timeout_s=5.0)``;
-    µs per supervisor step above the engine step, and of its two
-    additions: the ``comm_agree`` probe and ``verify_clean``."""
+    """[fault] serving: the [serve] engine (at ``FAULT_DEPTH`` layers) on an
+    integrity-on context, its greedy tokens alone and under a
+    ``ServeSupervisor(wait_timeout_s=5.0)``; µs per supervisor step above
+    the engine step, and of its two additions: the ``comm_agree`` probe and
+    ``verify_clean``."""
+    import dataclasses
+
     import numpy as np
     import torch
     from repro_torch import configs
@@ -2692,7 +2719,7 @@ def phase_fault_serve(card: str) -> dict:
     from repro_torch.serve import Request, ServeEngine
     from repro_torch.serve.supervisor import ServeSupervisor
 
-    cfg = configs.get_config(ARCH)
+    cfg = dataclasses.replace(configs.get_config(ARCH), num_layers=FAULT_DEPTH)
     api = build_model(cfg)
     model = _init_timed(api, "fault")
     rng = np.random.default_rng(1)
@@ -3320,13 +3347,13 @@ class _MoeSpy:
         self.drop, self.margin = [], []
         self._dispatch, self._route = moe._dispatch_sort, moe._route
 
-        def dispatch(x, experts, gates, E_pad, C):
-            buf, comb = self._dispatch(x, experts, gates, E_pad, C)
+        def dispatch(x, experts, gates, E_pad, C, offset=None):
+            buf, comb = self._dispatch(x, experts, gates, E_pad, C, offset)
             self.drop.append(1.0 - comb[3].float().mean())
             return buf, comb
 
-        def route(router, xf, m):
-            out = self._route(router, xf, m)
+        def route(router, xf, m, batch_group=None):
+            out = self._route(router, xf, m, batch_group)
             with torch.no_grad():
                 top = torch.topk(torch.softmax(xf.float() @ router, -1), m.top_k + 1, -1).values
                 self.margin.append(top[:, m.top_k - 1] - top[:, m.top_k])
@@ -3929,8 +3956,8 @@ class _RouteSpy:
         self.calls = []
         self._route = moe._route
 
-        def route(router, xf, m):
-            out = self._route(router, xf, m)
+        def route(router, xf, m, batch_group=None):
+            out = self._route(router, xf, m, batch_group)
             with torch.no_grad():
                 probs = torch.softmax(xf.float() @ router, -1)
                 top = torch.topk(probs, m.top_k + 1, -1)
@@ -3992,7 +4019,9 @@ def _ep4_rank(rank: int, world: int, init_method: str, out_dir: str,
               device: str = "cuda") -> None:
     """One rank of [ep4]: qwen2-moe-a2.7b at full width and ``EP4_DEPTH``
     layers (``device="cpu"``: the smoke config on gloo) on
-    ``model_axis=4``, each rank holding its 16 experts.  (1) float32, aux
+    ``model_axis=4``, each rank holding its block (``transformer.held_layout``:
+    its 16 experts, 4 of 16 heads, a quarter of the shared experts and of
+    the vocabulary).  (1) float32, aux
     weight 0, a capacity at which nothing drops: one microbatch's gradient
     through EP against local mode's on the whole model (this card), each
     expert leaf against its slice, with each token's routing in both; where
@@ -4011,6 +4040,7 @@ def _ep4_rank(rank: int, world: int, init_method: str, out_dir: str,
     from repro_torch.core import PAX_SUM, CallCounter
     from repro_torch.data.pipeline import DataPipeline, SyntheticSource
     from repro_torch.models import build_model, param_leaves
+    from repro_torch.models.model import leaf_splits
     from repro_torch.models.moe import _capacity
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.runtime.dist import make_dist
@@ -4065,11 +4095,10 @@ def _ep4_rank(rank: int, world: int, init_method: str, out_dir: str,
                 del named, grads, loss
             (l_ep, g_ep, r_ep), (l_loc, g_loc, r_loc) = runs["ep"], runs["local"]
             worst, worst_leaf = 0.0, ""
+            ep = models["ep"]
             for name, g in g_ep.items():
-                want = g_loc[name]
-                if g.shape != want.shape:        # an expert leaf: this rank's slice
-                    El = g.shape[1]
-                    want = want[:, r * El:(r + 1) * El]
+                # a split leaf (experts, heads, shared FFN, vocabulary): this rank's block
+                want = g_loc[name][ep.part.index(tuple(g_loc[name].shape), ep.held[name])]
                 err = float((g - want).abs().max() / want.abs().max().clamp_min(1e-30))
                 if err > worst:
                     worst, worst_leaf = err, name
@@ -4123,11 +4152,11 @@ def _ep4_rank(rank: int, world: int, init_method: str, out_dir: str,
                 if v and name != "pack_transposed":
                     launched[name] = launched.get(name, 0) + v
         named = param_leaves(state.params)
-        expert = [n.startswith("layers.moe.experts.") for n, _ in named]
+        split = leaf_splits(state.params)[0]
         rec.update(losses=losses, grad_norms=norms, ms=ms, packs=packs, alltoalls=a2a,
                    other_launches=launched,
-                   replicated_sha=_digest(p for (_, p), e in zip(named, expert) if not e),
-                   expert_sha=_digest(p for (_, p), e in zip(named, expert) if e),
+                   replicated_sha=_digest(p for (_, p), e in zip(named, split) if not e),
+                   expert_sha=_digest(p for (_, p), e in zip(named, split) if e),
                    peak_gb=(torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else 0.0))
         # (3) one microbatch's forward and backward, and the alltoall alone
         params = [p for _, p in named]
@@ -4193,7 +4222,7 @@ def phase_ep4(card: str, device: str = "cuda", out_dir: Path = HERE / "build" / 
         f"peak GB per card {[round(r['peak_gb'], 2) for r in ranks]}; pack_transposed a step "
         f"{[r['packs'] for r in ranks]}; ABI alltoalls a step {r0['alltoalls']}")
     log(f"[ep4] replicated leaves' SHA-256 per rank {[r['replicated_sha'][:16] for r in ranks]}; "
-        f"experts' {[r['expert_sha'][:16] for r in ranks]}; one microbatch's forward ms "
+        f"split leaves' {[r['expert_sha'][:16] for r in ranks]}; one microbatch's forward ms "
         f"{[round(t, 1) for t in r0['fwd_bwd_ms']['forward']]} and backward ms "
         f"{[round(t, 1) for t in r0['fwd_bwd_ms']['backward']]} (rank 0); alltoall of the "
         f"step's ({r0['capacity']}-slot, T = {r0['T_local']}) dispatch buffer, "
@@ -4217,7 +4246,7 @@ def phase_ep4(card: str, device: str = "cuda", out_dir: Path = HERE / "build" / 
                 f"otherwise {[(t['flipped'], t['flipped_margin']) for t in rec['tries']]} (on "
                 f"any rank {[t['flipped_anywhere'] for t in rec['tries']]})")
     if len({r["expert_sha"] for r in ranks}) != EP4:
-        raise AssertionError("[ep4] two ranks hold the same experts")
+        raise AssertionError("[ep4] two ranks hold the same block")
     return r0
 
 
@@ -5328,6 +5357,489 @@ def phase_tp4(card: str, device: str = "cuda", out_dir: Path = HERE / "build" / 
             "pack_transposed": sum(sum(r0[f"{k}_abi"]["packs"]) for k in ("f32", "bf16"))}
 
 
+# ---------------------------------------------------------------------------
+# [moetp4]: the moe family on the model axis, four cards
+# ---------------------------------------------------------------------------
+MOETP4 = 4
+GROK_ARCH = "grok-1-314b"
+#: (a) float32 parity: depth, batch, sequence, steps (qwen2-moe-a2.7b)
+MOETP4_F32_DEPTH, MOETP4_F32_BATCH, MOETP4_F32_SEQ, MOETP4_F32_STEPS = 2, 8, 256, 3
+#: (b) bf16 at the deepest depth a card holds: about 27 bytes a held
+#: parameter ([tp4]'s 57.82 GB for 2.13 B), 0.151 B a layer and 0.156 B of
+#: vocabulary a card: 12 layers about 53 GB, 24 about 102 GB
+MOETP4_DEPTH = 12
+#: (c) the forward under flash: the config's 24 layers
+MOETP4_FWD_DEPTH = 24
+#: (c) and (d): the float32 forward's batch and sequence, and the split
+#: decode's prompt, batch and steps, at 2 layers
+MOETP4_F32_FWD = (1, 2048)
+MOETP4_DECODE = (2, 64, 8)
+#: (e) grok-1-314b at 1 of 64 layers: the float32 step's batch and sequence
+#: (one microbatch), the bf16 step's microbatch (its config's 16 exceeds a
+#: data-parallel rank's 4 rows), the flash forward's batch
+GROK_DEPTH = 1
+GROK_F32_BATCH, GROK_F32_SEQ = 2, 256
+GROK_BF16_MICRO = 4
+GROK_FWD_BATCH = 2
+#: capacity factors at which nothing drops (C >= every token: E / k)
+NO_DROP = {MOE_ARCH: 16.0, GROK_ARCH: 4.0}
+MOETP4_TIMEOUT = 780
+
+
+def _moetp4_cfg(arch: str, device: str, depth: int, grad_sync: str, f32: bool = False,
+                zero1: bool = True, parity: bool = False, **par):
+    """``arch`` at full width (the smoke config with ``tp_size=4`` on the
+    CPU, so its heads split), ``depth`` layers, ``grad_sync``; ``parity``:
+    float32 at a capacity where nothing drops, and qwen2-moe's aux weight 0
+    (EP's aux loss is the mean of its ranks' slices', another function
+    than one card's)."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    on_card = device != "cpu"
+    cfg = configs.get_config(arch) if on_card else configs.smoke_config(arch)
+    p = dict(grad_sync=grad_sync, zero1=zero1, **par)
+    if not on_card:
+        p = dict(dict(tp_size=MOETP4, remat="full",
+                      sequence_parallel=cfg.parallelism.sequence_parallel
+                      or arch == GROK_ARCH), **p)
+        p.setdefault("microbatch", 4)
+    cfg = dataclasses.replace(cfg, num_layers=depth, parallelism=dataclasses.replace(
+        cfg.parallelism, **p))
+    if f32 or parity:
+        cfg = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    if parity:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=NO_DROP[arch],
+            aux_loss_weight=0.0 if arch == MOE_ARCH else cfg.moe.aux_loss_weight))
+    return cfg
+
+
+def _moetp4_forward(api, model, tokens, dist, on_card: bool, dev, tag: str) -> dict:
+    """The forward under flash on this rank's heads: flash's launches, the
+    last call held to ``attention_ref``, ms per forward (3 after the
+    first)."""
+    import torch
+
+    with torch.no_grad(), _FlashSpy() as spy:
+        _zero_counts()
+        _, t0 = _timed(lambda: api.forward(model, {"tokens": tokens}, dist), on_card, dev)
+        launches = _counts()["flash_attention"]
+        if on_card:
+            spy.check(tag)
+        ms = [_timed(lambda: api.forward(model, {"tokens": tokens}, dist), on_card, dev)[1]
+              for _ in range(3)]
+    return dict(flash=launches, first_ms=t0, ms=ms)
+
+
+def _moetp4_decode(api, model, tokens, P: int, cfg, dist) -> list:
+    """A prefill of ``tokens[:, :P]`` and a decode step for each later
+    position, each fed the given token: the logits of each decode step.
+    The cache is float32 (``transformer.prefill``'s own is bfloat16, whose
+    rounding of a K/V entry summed in another order moves the logits by
+    up to 1e-3 at full width): ``prefill``'s body on a float32 cache."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.tensor_parallel import TensorParallel
+
+    B, S = tokens.shape
+    with torch.no_grad():
+        par = TensorParallel.of(model, cfg, dist)
+        cache = T.init_cache(cfg, B, S, dtype=torch.float32, device=tokens.device,
+                             model_axis=model.part.tp_size)
+        T._run_cached(model, T._embed(model, tokens[:, :P], cfg, par), cache, 0,
+                      T._positions(0, P, B, tokens.device), cfg, dist, par)
+        idx = P
+        out = []
+        for i in range(tokens.shape[1] - P):
+            logits, cache = api.decode_step(model, tokens[:, P + i:P + i + 1], cache, idx + i,
+                                            dist)
+            out.append(logits.float())
+    return out
+
+
+def _moetp4_rank(rank: int, world: int, init_method: str, out_dir: str,
+                 device: str = "cuda") -> None:
+    """One rank of [moetp4] (``device="cpu"``: the smoke configs on gloo).
+    One world; mesh (1, 4), and (2, 2) built on it.  qwen2-moe-a2.7b, each
+    rank holding its 16 experts and a quarter of the attention heads, the
+    shared experts and the vocabulary: (c) the bf16 forward under flash at
+    full depth (B=4, S=2048) and a 2-layer float32 forward (logits kept for
+    rank 0); (d) the split decode, float32, 2 layers; (a) float32 parity
+    steps (the ABI ZeRO-1 step at (1, 4), ``gspmd`` with FSDP at (2, 2));
+    (b) bf16 at ``MOETP4_DEPTH`` layers, batch 8 x 1024, 2 + 3 steps in
+    both modes (the ABI step in its per-leaf layout).  grok-1-314b at 1 of
+    64 layers, each rank holding its ``d_ff`` block of every expert: (e)
+    one float32 step at (1, 4) and at (2, 2) under its ``gspmd`` step, the
+    bf16 forward under flash at (1, 4) (12/2 heads a rank), and bf16 steps
+    at (2, 2) with FSDP.  Rank 0 then runs the one-card references on its
+    card with no process group.  Each leg's records are saved as it ends."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    sys.path.insert(0, str(SRC))
+    import dataclasses
+
+    import torch
+    from repro_torch.core import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.dist import make_dist
+    from repro_torch.train import train_loop as tl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    on_card = device != "cpu"
+    torch.set_num_threads(1)
+    dev = torch.device(f"cuda:{rank}") if on_card else torch.device("cpu")
+    if on_card:
+        torch.cuda.set_device(dev)
+    B, S = (TRAIN_BATCH, TRAIN_SEQ) if on_card else (8, 32)
+    B32, S32 = (MOETP4_F32_BATCH, MOETP4_F32_SEQ) if on_card else (8, 32)
+    FB, FS = (FWD_BATCH, FWD_SEQ) if on_card else (4, 32)
+    F32B, F32S = MOETP4_F32_FWD if on_card else (1, 64)
+    DB, DP, DN = MOETP4_DECODE if on_card else (2, 16, 4)
+    GB, GS = (GROK_F32_BATCH, GROK_F32_SEQ) if on_card else (2, 32)
+    full_depth = MOETP4_FWD_DEPTH if on_card else 2
+    depth = MOETP4_DEPTH if on_card else 2
+    f32_batches = _tp4_batches(_moetp4_cfg(MOE_ARCH, device, 1, "abi"), B32, S32,
+                               MOETP4_F32_STEPS)
+    bf_batches = _tp4_batches(_moetp4_cfg(MOE_ARCH, device, 1, "abi"), B, S,
+                              TP4_WARM + TP4_TIMED)
+    grok_batch = _tp4_batches(_moetp4_cfg(GROK_ARCH, device, 1, "gspmd"), GB, GS, 1)
+    grok_bf = _tp4_batches(_moetp4_cfg(GROK_ARCH, device, 1, "gspmd"), B, S,
+                           TP4_WARM + TP4_TIMED)
+    gen = torch.Generator().manual_seed(1)
+    fwd_cfg = _moetp4_cfg(MOE_ARCH, device, full_depth, "abi")
+    fwd_cfg = dataclasses.replace(fwd_cfg, attention_impl="flash")
+    tokens = torch.randint(0, fwd_cfg.vocab_size, (FB, FS), generator=gen)
+    f32_tokens = torch.randint(0, fwd_cfg.vocab_size, (F32B, F32S), generator=gen)
+    dec_tokens = torch.randint(0, fwd_cfg.vocab_size, (DB, DP + DN), generator=gen)
+    rec: dict = {}
+    t0 = time.perf_counter()
+
+    def done(leg: str) -> None:
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
+        log(f"[moetp4] rank {rank}: {leg} done at {time.perf_counter() - t0:.1f} s")
+
+    def free() -> None:
+        if on_card:
+            torch.cuda.empty_cache()
+
+    keep: dict = {}
+    with make_dist(device=str(dev), model_axis=MOETP4, world_size=world, rank=rank,
+                   init_method=f"file://{Path(out_dir) / 'world'}") as dist4:
+        # (c) the forward under flash, full depth, bf16
+        api = build_model(fwd_cfg)
+        model = api.init(0, dev, **tl.model_part(api, dist4))
+        rec["fwd"] = _moetp4_forward(api, model, tokens.to(dev), dist4, on_card, dev,
+                                     "moetp4")
+        rec["fwd_heads"] = [int(model.layers.attn.wq.shape[-1] // fwd_cfg.resolved_head_dim),
+                            int(model.layers.attn.wk.shape[-1] // fwd_cfg.resolved_head_dim)]
+        rec["fwd_experts"] = int(model.layers.moe.experts.wi.shape[1])
+        del model
+        free()
+        done("(c) the flash forward")
+        # (c) the float32 forward and (d) the split decode, 2 layers
+        cfg = _moetp4_cfg(MOE_ARCH, device, MOETP4_F32_DEPTH, "abi", parity=True)
+        api = build_model(cfg)
+        model = api.init(0, dev, **tl.model_part(api, dist4))
+        with torch.no_grad():
+            logits = api.forward(model, {"tokens": f32_tokens.to(dev)}, dist4)
+        steps = _moetp4_decode(api, model, dec_tokens.to(dev), DP, cfg, dist4)
+        if rank == 0:
+            keep["f32_logits"] = logits.cpu()
+            keep["decode"] = [s.cpu() for s in steps]
+        rec["decode_heads"] = int(model.layers.attn.wk.shape[-1] // cfg.resolved_head_dim)
+        del model, logits, steps
+        free()
+        done("(c, d) the float32 forward and the split decode")
+        mesh22 = Mesh(("data", "model"), (2, 2), dist4.device)
+        dist22 = make_dist(mesh=mesh22)
+        try:
+            for mode, ctx in (("abi", dist4), ("gspmd", dist22)):
+                # (a) float32 parity, 2 layers
+                api = build_model(_moetp4_cfg(MOE_ARCH, device, MOETP4_F32_DEPTH, mode,
+                                              parity=True))
+                rec[f"f32_{mode}"] = _tp4_steps(api, ctx, f32_batches, on_card, dev)
+                free()
+                done(f"(a) {mode}")
+                # (b) bf16, the deepest depth a card holds; the ABI step per leaf
+                api = build_model(_moetp4_cfg(MOE_ARCH, device, depth, mode,
+                                              zero1=mode != "abi"))
+                rec[f"bf16_{mode}"] = _tp4_steps(api, ctx, bf_batches, on_card, dev,
+                                                 counted=True)
+                free()
+                done(f"(b) {mode}")
+            # (e) grok-1-314b: one float32 step at both meshes
+            for mesh, ctx in (("14", dist4), ("22", dist22)):
+                api = build_model(_moetp4_cfg(GROK_ARCH, device, GROK_DEPTH, "gspmd",
+                                              parity=True, microbatch=1))
+                rec[f"grok_f32_{mesh}"] = _tp4_steps(api, ctx, grok_batch, on_card, dev)
+                free()
+                done(f"(e) grok float32 at {mesh}")
+            # (e) the bf16 forward under flash at (1, 4)
+            gcfg = dataclasses.replace(_moetp4_cfg(GROK_ARCH, device, GROK_DEPTH, "gspmd"),
+                                       attention_impl="flash")
+            api = build_model(gcfg)
+            model = api.init(0, dev, **tl.model_part(api, dist4))
+            rec["grok_fwd"] = _moetp4_forward(api, model, tokens[:GROK_FWD_BATCH].to(dev),
+                                              dist4, on_card, dev, "moetp4 grok")
+            rec["grok_heads"] = [int(model.layers.attn.wq.shape[-1] // gcfg.resolved_head_dim),
+                                 len(_kv_heads_read(model, gcfg, dist4))]
+            del model
+            free()
+            # (e) bf16 steps with FSDP at (2, 2)
+            api = build_model(_moetp4_cfg(GROK_ARCH, device, GROK_DEPTH, "gspmd",
+                                          microbatch=GROK_BF16_MICRO))
+            rec["grok_bf16"] = _tp4_steps(api, dist22, grok_bf, on_card, dev, counted=True)
+            free()
+            done("(e) grok bf16")
+        finally:
+            dist22.shutdown()
+    if rank == 0:
+        # the one-card references, no process group
+        cfg = _moetp4_cfg(MOE_ARCH, device, MOETP4_F32_DEPTH, "gspmd", parity=True)
+        api = build_model(cfg)
+        model = api.init(0, dev)
+        state = tl.TrainState(model, adamw.init_tree(tl.param_leaves(model)),
+                              torch.zeros((), dtype=torch.int32, device=dev))
+        step = tl.make_train_step(api, None, AdamWConfig())
+        ref = dict(losses=[], grad_norms=[])
+        for b in f32_batches:
+            state, met = step(state, {k: torch.as_tensor(v).to(dev) for k, v in b.items()})
+            ref["losses"].append(float(met.loss))
+            ref["grad_norms"].append(float(met.grad_norm))
+        rec["f32_one_card"] = ref
+        del state, step
+        model = api.init(0, dev)
+        with torch.no_grad(), _MoeSpy() as spy:
+            want = api.forward(model, {"tokens": f32_tokens.to(dev)})
+            margin = torch.stack(spy.margin).amin(0)
+            spy.read()
+        rec["f32_fwd_vs_one_card"] = _moetp4_vs(keep["f32_logits"].to(dev), want, margin)
+        with _MoeSpy() as spy:
+            want = _moetp4_decode(api, model, dec_tokens.to(dev), DP, cfg, None)
+            # the decode steps' margins (the prefill's first)
+            margins = [m for m in spy.margin[cfg.num_layers:]]
+            spy.read()
+        rec["decode_vs_one_card"] = [
+            _moetp4_vs(g.to(dev), w, torch.stack(margins[i * cfg.num_layers:
+                                                         (i + 1) * cfg.num_layers]).amin(0))
+            for i, (g, w) in enumerate(zip(keep["decode"], want))]
+        del model, want
+        free()
+        # grok-1-314b's unsharded gradient on one card (no optimizer)
+        api = build_model(_moetp4_cfg(GROK_ARCH, device, GROK_DEPTH, "gspmd", parity=True,
+                                      microbatch=1))
+        model = api.init(0, dev)
+        params = [p for _, p in tl.param_leaves(model)]
+        b = {k: torch.as_tensor(v).to(dev) for k, v in grok_batch[0].items()}
+        loss = api.loss_fn(model, b)
+        grads = torch.autograd.grad(loss, params)
+        rec["grok_one_card"] = dict(loss=float(loss.detach()),
+                                    grad_norm=float(adamw.global_norm(list(grads))))
+        del model, params, grads, loss
+        free()
+    done("the one-card references" if rank == 0 else "all legs")
+
+
+def _kv_heads_read(model, cfg, dist) -> list:
+    """The K/V heads a rank's query heads read (all of its own where the
+    K/V heads split)."""
+    from repro_torch.models.tensor_parallel import TensorParallel
+
+    par = TensorParallel.of(model, cfg, dist)
+    return par.kv_heads or list(range(model.layers.attn.wk.shape[-1]
+                                      // cfg.resolved_head_dim))
+
+
+def _moetp4_vs(got, want, margin) -> dict:
+    """Logits (…, S, vocab) against one card's: the largest difference per
+    position, the positions over ``F32_LOGIT_TOL`` and the first one's
+    router margin (a routing tie there lets a token route otherwise)."""
+    import torch
+
+    pos = (got.float() - want.float()).abs().amax(-1).reshape(-1)
+    off = torch.nonzero(pos > F32_LOGIT_TOL).flatten().tolist()
+    m = margin.reshape(-1)
+    return dict(max_abs=float(pos.max()), off=len(off), first_off=off[0] if off else -1,
+                first_margin=float(m[off[0] % m.numel()]) if off else 0.0,
+                scale=float(want.float().abs().max()),
+                finite=bool(torch.isfinite(got).all()))
+
+
+def _moetp4_predictions(device: str):
+    """The dry run's lowering of leg (b)'s cells (qwen2-moe at (1, 4) and
+    (2, 2)) and leg (e)'s bf16 cell (grok-1 at (2, 2)) on a fake world of
+    four."""
+    on_card = device != "cpu"
+    cells = []
+    for arch, mode, mesh, depth, par in (
+            (MOE_ARCH, "abi", [1, MOETP4], MOETP4_DEPTH, dict(zero1=False)),
+            (MOE_ARCH, "gspmd", [2, 2], MOETP4_DEPTH, dict(zero1=True)),
+            (GROK_ARCH, "gspmd", [2, 2], GROK_DEPTH, dict(microbatch=GROK_BF16_MICRO))):
+        p = dict(par, grad_sync=mode)
+        c = dict(arch=arch, mesh=mesh, seq=TRAIN_SEQ if on_card else 32,
+                 batch=TRAIN_BATCH if on_card else 8, par=p,
+                 cfg=dict(num_layers=depth if on_card or arch == GROK_ARCH else 2))
+        if not on_card:
+            c.update(smoke=True, par=dict(p, tp_size=MOETP4, remat="full",
+                                          sequence_parallel=arch == GROK_ARCH,
+                                          microbatch=p.get("microbatch", 4)))
+        cells.append(c)
+    return _lower_cells(MOETP4, cells, timeout=MOETP4_TIMEOUT)
+
+
+def phase_moetp4(card: str, device: str = "cuda",
+                 out_dir: Path = HERE / "build" / "moetp4") -> dict:
+    """[moetp4] (four cards, NCCL; ``device="cpu"``: the smoke configs on
+    gloo, a rehearsal): the dry run's prediction of legs (b) and (e), then
+    :func:`_moetp4_rank` on four spawned ranks.  Gates:
+    (a) each mode's float32 losses within ``TP4_LOSS_RTOL`` and grad norms
+    within ``TP4_NORM_RTOL`` (relative) of one card's unsharded step, on
+    every rank, at every step (a token routed otherwise fails it), and
+    ``pack_transposed`` once a step per rank under the ABI ZeRO-1 step (0
+    under ``gspmd``; 0 on the CPU); (b) finite losses, equal on every rank,
+    and the collectives a step equal to the dry run's op for op; (c) 24
+    flash launches a rank at 4/4 heads (0 on the CPU), the last call held
+    to ``attention_ref``, and the float32 forward within
+    ``F32_LOGIT_TOL`` of one card's or its first position off a router
+    tie; (d) each decode step likewise; (e) grok-1's float32 loss within
+    ``TP4_LOSS_RTOL`` and grad norm within ``TP4_NORM_RTOL`` of one card's
+    unsharded gradient at (1, 4) and (2, 2), one flash launch a rank at
+    12/2 heads (the last call held to ``attention_ref``), finite bf16
+    losses equal on every rank and its collectives equal to the dry run's;
+    each rank holds its block (16 of 64 experts, grok-1's 8192 of each
+    expert's 32768 ``d_ff``).  Returns the launches by kernel on rank 0."""
+    import shutil
+
+    t0 = time.perf_counter()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    on_card = device != "cpu"
+    # the dry run first, so that no timed leg shares the host's cores with it
+    pred = dict(zip(("abi", "gspmd", "grok"),
+                    _lowered(_moetp4_predictions(device), MOETP4_TIMEOUT)))
+    log(f"[moetp4] the dry run's three cells lowered in {time.perf_counter() - t0:.1f} s, "
+        f"before the ranks start")
+    try:
+        ranks = _spawn_ranks("moetp4", _moetp4_rank, MOETP4, out_dir, device,
+                             timeout=MOETP4_TIMEOUT)
+    except RuntimeError:
+        for r in range(MOETP4):
+            part = out_dir / f"rank{r}.json"
+            log(f"[moetp4] rank {r}'s records so far: "
+                f"{part.read_text() if part.exists() else 'none'}")
+        raise
+    r0 = ranks[0]
+    where = card if on_card else "gloo"
+    width = "full width" if on_card else "smoke"
+    rel = lambda x, y: abs(x - y) / abs(y)  # noqa: E731
+    bad = []
+    fwd = r0["fwd"]
+    want_flash = (MOETP4_FWD_DEPTH if on_card else 0, GROK_DEPTH if on_card else 0)
+    log(f"[moetp4] {MOE_ARCH} {width} on four ranks of {where}: (c) forward under flash, "
+        f"{MOETP4_FWD_DEPTH if on_card else 2} layers, B={FWD_BATCH if on_card else 4} "
+        f"S={FWD_SEQ if on_card else 32}, {r0['fwd_heads'][0]}/{r0['fwd_heads'][1]} heads and "
+        f"{r0['fwd_experts']} experts a rank: flash launches per rank "
+        f"{[r['fwd']['flash'] for r in ranks]}; ms per forward (rank 0) "
+        f"{[round(t, 1) for t in fwd['ms']]} after a first {fwd['first_ms']:.1f} "
+        f"([forward-moe] on one card: 156.4-158.4 ms, PERF.md)")
+    if any(r["fwd"]["flash"] != want_flash[0] for r in ranks):
+        bad.append(f"(c) flash launches {[r['fwd']['flash'] for r in ranks]}")
+    f32 = r0["f32_fwd_vs_one_card"]
+    log(f"[moetp4] (c) float32 forward, {MOETP4_F32_DEPTH} layers, no drops, against one card: "
+        f"{json.dumps(f32)} (bound {F32_LOGIT_TOL}; a position off must follow a router tie, "
+        f"margin below {ROUTER_TIE})")
+    if not f32["finite"] or (f32["off"] and f32["first_margin"] >= ROUTER_TIE):
+        bad.append(f"(c) float32 forward {f32}")
+    dec = r0["decode_vs_one_card"]
+    log(f"[moetp4] (d) the split decode at model_axis={MOETP4} ({r0['decode_heads']} K/V heads "
+        f"a rank's cache), float32, {MOETP4_F32_DEPTH} layers: per step against one card's "
+        f"decode_step: max abs {[f'{d['max_abs']:.3e}' for d in dec]}, positions off "
+        f"{[d['off'] for d in dec]}")
+    for i, d in enumerate(dec):
+        if not d["finite"] or (d["off"] and d["first_margin"] >= ROUTER_TIE):
+            bad.append(f"(d) decode step {i}: {d}")
+    ref = r0["f32_one_card"]
+    log(f"[moetp4] (a) float32, {MOETP4_F32_DEPTH} layers, one card's unsharded step: losses "
+        f"{ref['losses']} grad norms {ref['grad_norms']}")
+    for mode in ("abi", "gspmd"):
+        a = [r[f"f32_{mode}"] for r in ranks]
+        lrel = max(rel(x, y) for r in a for x, y in zip(r["losses"], ref["losses"]))
+        nrel = max(rel(x, y) for r in a for x, y in zip(r["grad_norms"], ref["grad_norms"]))
+        log(f"[moetp4] (a) {mode} at {'(1, 4)' if mode == 'abi' else '(2, 2), FSDP'}: losses "
+            f"{a[0]['losses']} grad norms {a[0]['grad_norms']}; largest relative difference "
+            f"to one card: losses {lrel:.3e} (bound {TP4_LOSS_RTOL}), grad norms {nrel:.3e} "
+            f"(bound {TP4_NORM_RTOL}); pack_transposed a step per rank "
+            f"{[x['packs'] for x in a]}; parts {[x['part'] for x in a]}")
+        want_pack = [1 if (on_card and mode == "abi") else 0] * MOETP4_F32_STEPS
+        if lrel > TP4_LOSS_RTOL or nrel > TP4_NORM_RTOL or any(x["packs"] != want_pack
+                                                              for x in a):
+            bad.append(f"(a) {mode}: losses {lrel}, grad norms {nrel}, packs "
+                       f"{[x['packs'] for x in a]}")
+        _moetp4_bf16(f"(b) {mode}", [r[f"bf16_{mode}"] for r in ranks], pred[mode],
+                     MOETP4_DEPTH if on_card else 2, bad)
+    gref = r0["grok_one_card"]
+    for mesh in ("14", "22"):
+        g = [r[f"grok_f32_{mesh}"] for r in ranks]
+        lrel = max(rel(x["losses"][0], gref["loss"]) for x in g)
+        nrel = max(rel(x["grad_norms"][0], gref["grad_norm"]) for x in g)
+        log(f"[moetp4] (e) {GROK_ARCH} {width}, {GROK_DEPTH} layer, float32, the gspmd step at "
+            f"({mesh[0]}, {mesh[1]}): loss {g[0]['losses'][0]:.7f} grad norm "
+            f"{g[0]['grad_norms'][0]:.6f}; one card's unsharded gradient: loss "
+            f"{gref['loss']:.7f} grad norm {gref['grad_norm']:.6f}; relative differences "
+            f"{lrel:.3e} (bound {TP4_LOSS_RTOL}), {nrel:.3e} (bound {TP4_NORM_RTOL}); parts "
+            f"{[x['part'] for x in g]}; bytes of weights per card {[x['held_bytes'] for x in g]}"
+            f" of {g[0]['whole_bytes']}")
+        if lrel > TP4_LOSS_RTOL or nrel > TP4_NORM_RTOL:
+            bad.append(f"(e) grok float32 at {mesh}: loss {lrel}, grad norm {nrel}")
+    gf = r0["grok_fwd"]
+    log(f"[moetp4] (e) {GROK_ARCH} bf16 forward under flash at (1, 4), B={GROK_FWD_BATCH if on_card else 2}: "
+        f"{r0['grok_heads'][0]}/{r0['grok_heads'][1]} heads a rank, flash launches per rank "
+        f"{[r['grok_fwd']['flash'] for r in ranks]}, ms {[round(t, 1) for t in gf['ms']]}")
+    if any(r["grok_fwd"]["flash"] != want_flash[1] for r in ranks):
+        bad.append(f"(e) grok flash launches {[r['grok_fwd']['flash'] for r in ranks]}")
+    _moetp4_bf16(f"(e) {GROK_ARCH} gspmd", [r["grok_bf16"] for r in ranks], pred["grok"],
+                 GROK_DEPTH, bad)
+    experts = [r["fwd_experts"] for r in ranks]
+    if on_card and (experts != [16] * MOETP4 or r0["fwd_heads"] != [4, 4]
+                    or r0["grok_heads"] != [12, 2]):
+        bad.append(f"blocks: experts {experts}, heads {r0['fwd_heads']}, {r0['grok_heads']}")
+    log(f"[moetp4] phase wall {time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError("[moetp4] " + "; ".join(bad))
+    return {"flash_attention": fwd["flash"] + gf["flash"],
+            "pack_transposed": sum(sum(r0[f"{k}_abi"]["packs"]) for k in ("f32", "bf16"))}
+
+
+def _moetp4_bf16(tag: str, b: list, p: dict, depth: int, bad: list) -> None:
+    """Log a bf16 leg beside the dry run's prediction; gate its losses and
+    its collectives a step (op for op, the count and the bytes)."""
+    ms = statistics.median(b[0]["ms"][TP4_WARM:])
+    col = b[0]["collectives"]
+    log(f"[moetp4] {tag} bf16, {depth} layers: losses {[round(v, 4) for v in b[0]['losses']]} "
+        f"grad norms {[round(v, 4) for v in b[0]['grad_norms']]}; ms/step per rank "
+        f"{[[round(t, 1) for t in x['ms']] for x in b]} (rank 0's median of the {TP4_TIMED} "
+        f"after {TP4_WARM} warm {ms:.1f}); peak GB per card "
+        f"{[round(x['peak_gb'], 2) for x in b]}; pack_transposed a step "
+        f"{[x['packs'] for x in b]}; collectives a step (rank 0) {col}; bytes of weights per "
+        f"card {[x['held_bytes'] for x in b]} of {b[0]['whole_bytes']}")
+    log(f"[moetp4] {tag} predicted by the dry run (fake world of 4): argument "
+        f"{_gb(p['memory']['argument_bytes'])}, peak {_gb(p['memory']['peak_estimate_bytes'])}, "
+        f"collectives {p['collectives']['bytes']} bytes, {p['collectives']['count']} calls; "
+        f"roofline step {p['roofline']['step_time_s'] * 1e3:.2f} ms "
+        f"({p['roofline']['bottleneck']}); measured peak {b[0]['peak_gb']:.2f} GB, "
+        f"{ms:.1f} ms/step")
+    if any(x["losses"] != b[0]["losses"] or not all(math.isfinite(v) for v in x["losses"])
+           for x in b):
+        bad.append(f"{tag}: losses {[x['losses'] for x in b]}")
+    if (col["count"] != p["collectives"]["count"]
+            or col["bytes"] != p["collectives"]["bytes"]):
+        bad.append(f"{tag}: collectives {col} against the dry run's {p['collectives']}")
+
+
 CU = "src/repro_torch/kernels/ring_wire/csrc/"
 TPU = "src/repro/kernels/ring_wire/kernel.py:"
 #: name -> (CUDA source, the TPU kernel it replaces)
@@ -5359,11 +5871,14 @@ def _need_cards(name: str, n: int) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("check", "ring4", "serve", "swap", "fault", "fault4",
-                                       "ssm", "moe", "mm", "moe4", "ep4", "pp4", "tp4"),
+                                       "ssm", "moe", "mm", "moe4", "ep4", "pp4", "tp4",
+                                       "moetp4"),
                     default=None,
                     help="check: stop after building and checking the kernels; "
                          "tp4: build, then only the four-card tensor parallelism and FSDP "
                          "of gemma-7b; "
+                         "moetp4: build, then only the four-card model axis of the moe "
+                         "family (qwen2-moe-a2.7b and grok-1-314b); "
                          "ep4: build, then only the four-card expert-parallel training; "
                          "pp4: only the four-card pipeline (no build); "
                          "moe: build, then only [train-moe], [forward-moe] and [serve-moe]; "
@@ -5400,6 +5915,11 @@ def main() -> int:
     import torch.distributed as dist
 
     dry: tuple = ()
+    t_start = time.perf_counter()
+
+    def wall(tag: str) -> None:
+        log(f"[wall] {tag} done at {time.perf_counter() - t_start:.1f} s")
+
     try:
         from repro_torch import configs
 
@@ -5428,6 +5948,14 @@ def main() -> int:
                                           for name, n in tp4.items()]}), flush=True)
             log("[only] tp4: tensor parallelism and FSDP on four cards matched one card; no "
                 "result line")
+            return 0
+        if args.only == "moetp4":
+            _need_cards("moetp4", MOETP4)
+            moetp4 = phase_moetp4(card)
+            print(json.dumps({"kernels": [{"name": name, "launches_by_phase": {"moetp4": n}}
+                                          for name, n in moetp4.items()]}), flush=True)
+            log("[only] moetp4: the moe family on the model axis of four cards matched one "
+                "card; no result line")
             return 0
         if args.only == "ring4":
             if torch.cuda.device_count() < RING4:
@@ -5488,10 +6016,12 @@ def main() -> int:
         if args.only is None:
             # the dry run's CPU work runs beside the card's phases; [dryrun] reads it
             dry = _dryrun_start()
+        wall("build")
         worst = phase_check(n_full)
         worst.update(phase_check_ring(n_full))
         worst.update(phase_check_flash())
         worst.update(phase_check_scans())
+        wall("check")
         if args.only == "check":
             log("[only] check: the kernels built and agree; no result line")
             return 0
@@ -5500,28 +6030,37 @@ def main() -> int:
         timing.update(phase_time_flash())
         timing.update(phase_time_scans(card, baselines))
         torch.cuda.empty_cache()
+        wall("time")
         phase_small_reference()
         launches, uncompressed = phase_main_path()
         launches["pack_transposed_ef"] = phase_main_bf16()["pack_transposed_ef"]
         int8 = phase_main_int8(uncompressed)
         launches.update({k: int8[k] for k in HOPS})
+        wall("main")
         gspmd_pack = phase_train_gspmd()
         phase_dryrun(card, dry)
+        wall("train-gspmd, dryrun")
         phase_abi_swap(card)
+        wall("abi-swap")
         phase_fault(card)
+        wall("fault")
         by_phase = {"flash_attention": {"forward": phase_forward(card)},
                     "pack_transposed": {"main": launches["pack_transposed"],
                                         "train-gspmd": gspmd_pack}}
         phase_forward_gemma(card)
+        wall("forward, forward-gemma")
         by_phase["pack_transposed"]["train-moe"] = phase_train_moe(card)
         by_phase["flash_attention"]["forward-moe"], model = phase_forward_moe(card)
         phase_serve_moe(card, model)
         del model
         torch.cuda.empty_cache()
+        wall("moe")
         for name, runs in phase_mm(card).items():
             by_phase[name].update(runs)
+        wall("encdec, vlm")
         by_phase.update({"wkv6": {"train-ssm": phase_train_recurrent(card, SSM_ARCH)},
                          "ssd": {"train-hybrid": phase_train_recurrent(card, HYBRID_ARCH)}})
+        wall("train-ssm, train-hybrid")
         by_phase["wkv6"]["forward-ssm"], model = phase_forward_ssm(card)
         phase_serve_recurrent(card, SSM_ARCH, model)
         del model
@@ -5531,10 +6070,13 @@ def main() -> int:
         phase_serve_recurrent(card, HYBRID_ARCH, model)
         del model
         torch.cuda.empty_cache()
+        wall("forward-ssm, serve-ssm, forward-hybrid, serve-hybrid")
         for name, runs in by_phase.items():
             launches[name] = sum(runs.values())
         phase_card_vs_cpu()
+        wall("card-vs-cpu")
         phase_serve(card)
+        wall("serve")
         record = {"kernels": [
             {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches[name], "max_abs_err": worst[name],

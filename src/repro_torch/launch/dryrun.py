@@ -24,8 +24,10 @@ CPU device, so the kernels take their shape-only variant
 bytes (the state's leaves as this rank holds them) and the peak, temp =
 peak - argument; ``FlopCounterMode`` for the FLOPs; ``hlo_analysis``'s
 ``StepCounter`` for the collectives and the memory traffic; the roofline on
-``model_flops_per_token``.  The dense family runs its tensor-parallel and
-FSDP layout; the other families run their layers whole on every
+``model_flops_per_token``.  The dense and moe families run their
+tensor-parallel and FSDP layout (the moe family's experts split by expert
+under ``ep``, by each expert's ``d_ff`` under ``tp``), in every cell; the
+ssm, hybrid, encdec and vlm families still run their layers whole on every
 model-axis rank and say so in the record (``"tp": "replicated"``).
 
 The cells, the ``PAX_OVERRIDE_*`` knobs and the accounting are the
@@ -55,6 +57,7 @@ from ..configs.base import ShapeConfig
 from ..core import ByteCounter, Mesh
 from ..models import batch_shapes, build_model
 from ..models.model import _family, model_flops_per_token
+from ..models.tensor_parallel import is_split
 from ..optim.adamw import AdamWConfig
 from ..runtime.dist import make_dist
 from ..train import train_loop
@@ -164,11 +167,8 @@ def lower(cfg, shape: ShapeConfig, mesh: Mesh, impl: str = "paxi") -> dict:
     dev = torch.device("cpu")
     try:
         with FakeTensorMode(allow_non_fake_inputs=True):
-            # a train cell holds what init_state gives the rank; the moe family
-            # serves a whole model (EP slices its own experts where it applies)
-            part = (train_loop.model_part(api, dist)
-                    if shape.kind == "train" or cfg.family == "dense" else {})
-            model = _family(cfg)[1](cfg, dev, **part)
+            # every cell holds what init_state gives the rank
+            model = _family(cfg)[1](cfg, dev, **train_loop.model_part(api, dist))
             mt = MemTracker()
             t0 = time.time()
             if shape.kind == "train":
@@ -218,7 +218,7 @@ def lower(cfg, shape: ShapeConfig, mesh: Mesh, impl: str = "paxi") -> dict:
         "impl": impl,
         "tp": "split" if held is not None and held.tp_size > 1 else "replicated",
         "fsdp": "split" if held is not None and held.fsdp_size > 1 else "replicated",
-        "experts": ("split" if getattr(model, "expert_part", (0, 1))[1] > 1
+        "experts": ("split" if is_split(getattr(model, "held", {}).get("layers.moe.experts.wi"))
                     else "replicated"),
         "params_held": sum(p.numel() for p in model.parameters()),
         "run_s": round(t_run, 2),
@@ -244,7 +244,7 @@ def _decode_cache(api, model, cfg, rows: int, S: int, dist):
         frames = torch.zeros((rows, cfg.encdec.encoder_frames, cfg.d_model),
                              dtype=torch.bfloat16)
         return encdec.init_cache(model, frames, cfg, rows, S)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return api.decode_init(rows, S, device="cpu", model_axis=model.part.tp_size)
     return api.decode_init(rows, S, device="cpu")
 

@@ -4,18 +4,18 @@
         --steps 5 --global-batch 8 --seq-len 128
 
 Runs on the card unless ``--device cpu``.  ``--smoke`` selects the reduced
-config.  The flags are the reference's; ``--zero1-buckets`` overrides the
-config's bucket count, ``--grad-compression {bf16,int8}`` sets the config's
-gradient wire (``parallelism.grad_compression``), and
-``--world-size``/``--rank``/``--init-method``
-place this process in a multi-rank world (one process per rank, each given
+config.  The flags are the reference's; ``--num-layers`` cuts the config's
+depth (its widths stay), ``--zero1-buckets`` overrides the config's bucket
+count, ``--grad-compression {bf16,int8}`` sets the config's gradient wire
+(``parallelism.grad_compression``), and ``--world-size``/``--rank``/
+``--init-method`` place this process in a multi-rank world (one process per rank, each given
 the same rendezvous, e.g. ``tcp://localhost:<port>``; a world of one needs
 none of them).  ``--model-axis R`` lays the world out as
-``(world / R, R)``: the moe config then trains expert-parallel, each rank
-holding its ``E_pad / R`` experts, and a dense config tensor-parallel, each
-rank holding its heads, FFN columns and vocabulary rows
-(``train_loop.init_state``).  ``--production-mesh`` lays it out as the
-reference's 16 x 16 (data, model) mesh, which needs a world of 256 ranks.
+``(world / R, R)``: a dense or moe config then trains tensor-parallel,
+each rank holding its heads, FFN columns and vocabulary rows, and under
+expert parallelism its ``E_pad / R`` experts (``train_loop.init_state``).
+``--production-mesh`` lays it out as the reference's 16 x 16 (data, model)
+mesh, which needs a world of 256 ranks.
 
 The loop runs under ``runtime.fault.run_supervised``, as the reference's
 does: ``--ckpt-dir D --ckpt-every N`` saves every N steps (async) in the
@@ -89,6 +89,8 @@ def main(argv=None) -> TrainReport:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=cfgs.ARCH_NAMES)
     ap.add_argument("--smoke", action="store_true", help="reduced config")
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="cut the config's depth (its widths stay)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128)
@@ -126,6 +128,8 @@ def main(argv=None) -> TrainReport:
                          f"{', '.join(frontend)}, which the synthetic token stream does not "
                          f"carry (the reference's launcher fails there too); train it "
                          f"through train_loop.make_train_step with models.make_batch")
+    if args.num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
     if args.zero1_buckets is not None:
         cfg = dataclasses.replace(cfg, parallelism=dataclasses.replace(
             cfg.parallelism, zero1_buckets=args.zero1_buckets))

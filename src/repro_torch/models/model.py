@@ -2,22 +2,23 @@
 
 ``build_model(cfg)`` returns a :class:`ModelApi` with ``init(seed, device,
 model_rank=0, model_axis=1, fsdp_rank=0, fsdp_size=1)`` (-> the parameter
-module; the moe family under expert parallelism holds that model rank's
-part of the experts, the dense family its block of every leaf the model
-axis and the fsdp axes split, ``transformer.held_layout``),
+module; the dense and moe families hold their block of every leaf the
+model axis and the fsdp axes split, ``transformer.held_layout``),
 ``param_specs(fsdp, tp)`` (-> the reference's parameter specs, a nested
 dict with the parameters' keys, see ``runtime/sharding.py``),
 ``loss_fn(model, batch)``,
 ``forward(model, batch, last_only=False)`` (-> logits),
 ``decode_init(batch, max_seq, device=None)`` (-> the decode state: the
-dense, moe and vlm families' contiguous KV cache, the ssm family's
+dense, moe and vlm families' contiguous KV cache — the dense and moe
+families' with ``model_axis=``, a rank's K/V heads where they split — the ssm family's
 recurrent ``RwkvState``, the hybrid's ``HybridState``; None for encdec,
 whose cache needs the frames: ``encdec.init_cache``) and
 ``decode_step(model, token, state, index)`` (-> logits, state; the state is
 written in place) and, for the dense and moe families, ``cache_specs()``
 (the reference's specs of the contiguous cache).  ``loss_fn``, ``forward``
-and ``decode_step`` take the ``dist`` the model axis runs on (the moe
-family's expert parallelism, the dense family's tensor parallelism).  The
+and ``decode_step`` take the ``dist`` the model axis runs on (the
+transformer's tensor parallelism and the moe family's expert
+parallelism).  The
 port holds six families of the reference: ``dense`` and ``moe``
 (``transformer``), ``ssm`` (rwkv6, ``rwkv``), ``hybrid`` (Mamba2 + shared
 attention, ``hybrid``), ``encdec`` (whisper, ``encdec``) and ``vlm``
@@ -42,10 +43,8 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..runtime.device import resolve_device
-from ..runtime.sharding import _strip_axes
 from . import encdec, hybrid, rwkv, transformer, vlm
-from .common import is_glu, stack_specs
-from .moe import _ep_expert_specs
+from .common import is_glu
 from .tensor_parallel import FSDP, TP
 
 #: family -> (its module, its parameter module)
@@ -81,8 +80,8 @@ def build_model(cfg: ModelConfig) -> ModelApi:
     fam, _ = _family(cfg)
     # the transformer's and the vlm's functions take the dist (the MoE block's EP)
     on = (lambda dist: {"dist": dist}) if fam in (transformer, vlm) else (lambda dist: {})
-    # the transformer's moe experts split over the model axis, its dense
-    # layers over the model and the fsdp axes; the other families hold it all
+    # the transformer splits over the model and the fsdp axes; the other
+    # families hold it all
     part = ((lambda r, n, f, F: {"model_rank": r, "model_axis": n, "fsdp_rank": f,
                                  "fsdp_size": F}) if fam is transformer
             else (lambda r, n, f, F: {}))
@@ -121,33 +120,15 @@ def param_leaves(model: nn.Module) -> list[tuple[str, nn.Parameter]]:
     return sorted(model.named_parameters(), key=lambda kv: kv[0].split("."))
 
 
-def held_specs(api: ModelApi, expert_parts: int = 1, tp: str = "model") -> dict:
-    """The specs of what a rank holds of a model whose experts are split
-    into ``expert_parts`` (its ``expert_part[1]``): the reference's
-    ``param_specs(fsdp=None, tp)`` with ``tp`` kept only on the leaves the
-    port splits over the model axis — each layer's experts under expert
-    parallelism at ``model_axis > 1`` — and every other leaf whole (the
-    port keeps the dense layers replicated where GSPMD would split them)."""
-    def whole(tree):
-        return {k: whole(v) if isinstance(v, dict) else _strip_axes(v, frozenset({tp}))
-                for k, v in tree.items()}
-
-    specs = whole(api.param_specs(fsdp=None, tp=tp))
-    if expert_parts > 1:
-        specs["layers"]["moe"]["experts"] = stack_specs(_ep_expert_specs(api.cfg, tp))
-    return specs
-
-
 def leaf_splits(model: nn.Module) -> tuple:
     """Per leaf, in ``param_leaves`` order: (is it split over the model
     axis, is it split over the fsdp axes) — from what ``model`` holds (its
-    experts' part, the dense family's ``held`` specs)."""
+    ``held`` specs, ``transformer.held_layout``)."""
     held = getattr(model, "held", {})
-    n = getattr(model, "expert_part", (0, 1))[1]
     tp, fs = [], []
     for name, _ in param_leaves(model):
         spec = held.get(name, ())
-        tp.append(TP in spec or (n > 1 and name.startswith("layers.moe.experts.")))
+        tp.append(TP in spec)
         fs.append(FSDP in spec)
     return tp, fs
 
@@ -165,24 +146,18 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig, device=None, model_rank: in
     """The reference's parameter pytree (nested dicts of numpy arrays, e.g.
     ``jax.tree.map(np.asarray, api.init(key))``) as the port's parameters.
     Layouts agree, so this is a name map; shapes and dtypes are checked.
-    Under expert parallelism on ``model_axis`` ranks (the moe family) the
-    model keeps rank ``model_rank``'s part of each layer's experts; a dense
-    model keeps its block (``model_rank``, ``fsdp_rank``) of every leaf the
-    model axis and the fsdp axes split."""
+    A dense or moe model keeps its block (``model_rank``, ``fsdp_rank``) of
+    every leaf the model axis and the fsdp axes split."""
     fam, cls = _family(cfg)
     kw = ({"model_rank": model_rank, "model_axis": model_axis, "fsdp_rank": fsdp_rank,
            "fsdp_size": fsdp_size} if fam is transformer else {})
     model = cls(cfg, resolve_device(device), **kw)
-    r, n = getattr(model, "expert_part", (0, 1))
     held = getattr(model, "held", {})
     for name, p in model.named_parameters():
         node = np_tree
         for part in name.split("."):
             node = node[part]
         t = _to_tensor(node)
-        if n > 1 and name.startswith("layers.moe.experts."):
-            El = t.shape[1] // n
-            t = t[:, r * El:(r + 1) * El]
         if held.get(name):
             t = t[model.part.index(tuple(t.shape), held[name])]
         if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:

@@ -1,21 +1,25 @@
-"""Tensor parallelism and FSDP of the dense family: what a rank holds of
-each parameter, and Megatron-LM's collectives as autograd Functions.
+"""Tensor parallelism and FSDP of the transformer (the dense and moe
+families): what a rank holds of each parameter, and Megatron-LM's
+collectives as autograd Functions.
 
 **What a rank holds** (:class:`Part`, :func:`held_spec`).  The reference
 writes the layout down as parameter specs (``spec_attention``,
-``spec_mlp``, ``spec_embedding``) and GSPMD executes it.  Here one process
+``spec_mlp``, ``spec_moe``, ``spec_embedding``) and GSPMD executes it.  Here one process
 is one rank, and a rank's module holds its block of every leaf whose spec
 names the model axis (``"tp"``) or, under ``grad_sync="gspmd"``, the fsdp
 axes (``"fsdp"``): each such dimension divided by that axis's size, where
 the size divides it (the reference's dry run replicates an uneven
 dimension the same way).
 
-**How the layers compute** (:class:`DenseParallel`).  Each split region is
-Megatron's column-then-row pair: the replicated activation enters through
-:func:`copy_to` (identity forward, all-reduce of the gradient backward),
-each rank computes its heads or its slice of the FFN, and the partial
-output leaves through :func:`reduce_from` (all-reduce forward, identity
-backward).  Under sequence parallelism (nemotron-4-340b) the residual
+**How the layers compute** (:class:`TensorParallel`).  Each split region
+is Megatron's column-then-row pair: the replicated activation enters
+through :func:`copy_to` (identity forward, all-reduce of the gradient
+backward), each rank computes its heads or its slice of the FFN (the moe
+layer's shared experts, and under ``parallelism="tp"`` its block of every
+expert's ``d_ff``), and the partial output leaves through
+:func:`reduce_from` (all-reduce forward, identity backward).  Under expert
+parallelism the moe block takes the residual that attention's reduction
+left identical on every rank (``models/moe.py``).  Under sequence parallelism (nemotron-4-340b) the residual
 stream holds this rank's slice of the sequence: a region is entered by an
 all-gather along the sequence (:func:`gather`, reduce-scatter backward)
 and left by a reduce-scatter (:func:`scatter`, all-gather backward).  The
@@ -26,11 +30,13 @@ max, the sum and the target logit over the model axis and gathers no
 logits.
 
 A leaf a rank holds whole but computes with only partly — the K/V
-projections where the query heads split and the K/V heads do not, and
-under sequence parallelism every whole leaf, read on this rank's slice of
-the sequence — passes through :func:`copy_to` too, so its gradient is the
-sum over the model axis, as GSPMD's transpose of a replicated operand
-gives it.  Under FSDP a layer's leaves are all-gathered along their fsdp
+projections where the query heads split and the K/V heads do not, the moe
+router where each rank runs its block of the experts' ``d_ff``, the shared
+experts' gate where it scales this rank's partial output, and under
+sequence parallelism every whole leaf, read on this rank's slice of the
+sequence — passes through :func:`copy_to` too, so its gradient is the sum
+over the model axis, as GSPMD's transpose of a replicated operand gives
+it.  Under FSDP a layer's leaves are all-gathered along their fsdp
 dimension just before the layer runs (inside the remat body, so the
 recompute gathers again and the full weights are not kept), and the
 gradient is reduce-scattered back: the shard's gradient is the sum over
@@ -197,12 +203,12 @@ def scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the dense family's layout in one call
+# the transformer's layout in one call
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass
-class DenseParallel:
-    """One call's tensor-parallel and FSDP layout of a model that holds a
-    :class:`Part` of the dense family (:meth:`of`)."""
+class TensorParallel:
+    """One call's tensor-parallel and FSDP layout of a transformer that
+    holds a :class:`Part` of the dense or the moe family (:meth:`of`)."""
 
     part: Part
     held: dict            # leaf name -> held spec
@@ -210,16 +216,27 @@ class DenseParallel:
     fsdp_group: object
     sp: bool              # the residual stream holds this rank's slice of the sequence
     q_split: bool
+    #: the dense MLP, or the moe layer's shared experts, split by ``d_ff``
     ffn_split: bool
     vocab_split: bool
+    #: the moe layer's routed experts: ``"ep"`` (this rank's experts),
+    #: ``"ffn"`` (this rank's block of every expert's ``d_ff``), ``"whole"``
+    #: (every expert whole) or None (the dense family)
+    experts: Optional[str]
     #: the K/V heads this rank's query heads read, where the query heads
     #: split and the K/V heads do not (None: the usual grouping)
     kv_heads: Optional[list]
     #: leaves whose gradient is summed over the model axis (:func:`copy_to`)
     grad_sum: frozenset
+    #: the data-parallel group of a full-sequence call of a ``gspmd``
+    #: model at dp > 1, whose reference routes one global batch (the moe
+    #: aux loss's load is averaged over it and the dispatch takes the
+    #: global batch's capacity, ``moe._global_slots``); None for a cached
+    #: call (each data rank serves its own requests)
+    batch_group: object = None
 
     @classmethod
-    def of(cls, model, cfg, dist, seq: int = 0) -> Optional["DenseParallel"]:
+    def of(cls, model, cfg, dist, seq: int = 0) -> Optional["TensorParallel"]:
         """The layout of ``model`` (its ``part`` and ``held`` specs) on
         ``dist``'s groups for a call over ``seq`` positions (0: a cached
         call, which runs without sequence parallelism); None for a whole
@@ -237,7 +254,15 @@ class DenseParallel:
         R = part.tp_size
         q_split = is_split(held["layers.attn.wq"])
         kv_split = is_split(held["layers.attn.wk"])
-        ffn_split = is_split(held["layers.mlp.wi"])
+        experts = None
+        if cfg.moe is None:
+            ffn_split = is_split(held["layers.mlp.wi"])
+        else:
+            ffn_split = is_split(held.get("layers.moe.shared.wi"))
+            if not is_split(held["layers.moe.experts.wi"]):
+                experts = "whole"
+            else:
+                experts = "ep" if cfg.moe.parallelism == "ep" else "ffn"
         vocab_split = is_split(held["embed.tok"])
         sp = bool(cfg.parallelism.sequence_parallel and R > 1 and seq and seq % R == 0)
         if sp and not vocab_split:
@@ -256,14 +281,20 @@ class DenseParallel:
         whole = {n for n, s in held.items() if not is_split(s)}
         if sp:
             grad_sum = whole
-        elif q_split and not kv_split:
-            grad_sum = {n for n in whole if n.split(".")[-1] in ("wk", "wv", "bk", "bv")
-                        and n.startswith("layers.attn.")}
         else:
             grad_sum = set()
+            if q_split and not kv_split:
+                grad_sum |= {n for n in whole if n.split(".")[-1] in ("wk", "wv", "bk", "bv")
+                             and n.startswith("layers.attn.")}
+            if experts == "ffn":
+                grad_sum.add("layers.moe.router")
+            if ffn_split and cfg.moe is not None:
+                grad_sum.add("layers.moe.shared_gate")
         return cls(part, held, dist.tp_group if R > 1 else None,
                    dist.dp_group if part.fsdp_size > 1 else None, sp, q_split, ffn_split,
-                   vocab_split, kv_heads, frozenset(grad_sum))
+                   vocab_split, experts, kv_heads, frozenset(grad_sum),
+                   dist.dp_group if (seq and cfg.moe is not None and dist.dp_size > 1
+                                     and cfg.parallelism.grad_sync == "gspmd") else None)
 
     # -- parameters ----------------------------------------------------------
     def params(self, node: dict, prefix: str, stacked: bool = False) -> dict:

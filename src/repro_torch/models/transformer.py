@@ -16,19 +16,21 @@ the backward and changes no number).  With ``cfg.moe`` set each layer's
 FFN is the MoE block (``layers.moe.*``, ``models/moe.py``), the forward
 carries the sum of the layers' router aux losses and the loss is
 cross-entropy plus that sum, as in the reference.  Every function takes the
-``dist`` the MoE block's expert parallelism and the dense family's tensor
-parallelism run on.
+``dist`` the tensor parallelism and the MoE block's expert parallelism run
+on.
 
-Tensor parallelism and FSDP (the dense family): a model built for a
-:class:`~.tensor_parallel.Part` of the mesh (``model_rank``/``model_axis``,
-``fsdp_rank``/``fsdp_size``) holds its block of each leaf as
-:func:`held_layout` places it (the reference's specs, with its divisibility
-rules), and every path computes through
-:class:`~.tensor_parallel.DenseParallel`: Megatron's collectives on the
+Tensor parallelism and FSDP (the dense and moe families): a model built
+for a :class:`~.tensor_parallel.Part` of the mesh
+(``model_rank``/``model_axis``, ``fsdp_rank``/``fsdp_size``) holds its
+block of each leaf as :func:`held_layout` places it (the reference's
+specs, with its divisibility rules: under expert parallelism its
+``E_pad / model_axis`` experts of each layer, under ``parallelism="tp"``
+its block of every expert's ``d_ff``), and every path computes through
+:class:`~.tensor_parallel.TensorParallel`: Megatron's collectives on the
 model axis, sequence parallelism where the config asks for it and the
-sequence divides, the fsdp gathers inside the remat body, the
-vocabulary-parallel embedding and loss, and full logits gathered where a
-path returns them.
+sequence divides, the fsdp gathers inside the remat body, the moe block in
+that layout (``moe._moe_split``), the vocabulary-parallel embedding and
+loss, and full logits gathered where a path returns them.
 
 Serving: :func:`prefill` and :func:`decode_step` run on a contiguous
 cache (:func:`init_cache`); :func:`prefill_chunk_paged` and
@@ -66,20 +68,18 @@ from .common import (
     unembed,
 )
 from .mlp import mlp, mlp_shapes, spec_mlp
-from .moe import expert_shards, moe_block, moe_shapes, spec_moe
-from .tensor_parallel import FSDP, TP, DenseParallel, Part, held_spec, is_split
+from .moe import moe_block, moe_shapes, spec_moe
+from .tensor_parallel import FSDP, TP, Part, TensorParallel, held_spec, is_split
 from .tensor_parallel import vocab_parallel_cross_entropy
 
 
 class TransformerLM(nn.Module):
     """Parameters of the dense or MoE LM; the forward math is :func:`forward`.
-    ``model_rank``/``model_axis``: under expert parallelism on a model axis
-    of ``model_axis`` ranks, this rank's part of the experts only
-    (``moe.expert_shards``); for the dense family, this rank's block of
-    every leaf the model axis splits (:func:`held_layout`), and with
-    ``fsdp_rank``/``fsdp_size`` its block over the fsdp axes too.  Every
-    other leaf whole.  ``part`` is the dense family's block, ``held`` each
-    leaf's held spec and ``full_shapes`` each leaf's whole shape."""
+    ``model_rank``/``model_axis`` and ``fsdp_rank``/``fsdp_size``: this
+    rank's block (``part``) of every leaf the model axis and the fsdp axes
+    split, as :func:`held_layout` places it; every other leaf whole.
+    ``held`` is each leaf's held spec (empty for the whole model) and
+    ``full_shapes`` each leaf's whole shape."""
 
     #: the families this module's parameter tree builds
     FAMILIES = ("dense", "moe")
@@ -90,17 +90,8 @@ class TransformerLM(nn.Module):
         if cfg.family not in self.FAMILIES:
             raise ValueError(f"{type(self).__name__} builds the {' and '.join(self.FAMILIES)} "
                              f"families, got {cfg.family!r}")
-        dense = cfg.family == "dense"
-        shards = expert_shards(cfg, model_axis)
-        if not dense and (not 0 <= model_rank < max(shards, 1) or (shards == 1 and model_rank)):
-            raise ValueError(f"model rank {model_rank} of {model_axis} holds no expert part")
-        if not dense and fsdp_size > 1:
-            raise ValueError(f"FSDP is ported for the dense family, not {cfg.family!r}")
-        #: (this rank, the parts) of each layer's experts it holds
-        self.expert_part = (model_rank if shards > 1 else 0, shards)
-        #: the dense family's block of the mesh
-        self.part = (Part(model_rank, model_axis, fsdp_rank, fsdp_size) if dense
-                     else Part())
+        #: this rank's block of the mesh
+        self.part = Part(model_rank, model_axis, fsdp_rank, fsdp_size)
         L, d = cfg.num_layers, cfg.d_model
         pdt = dtype_of(cfg.param_dtype)
         blocks = {"embed": embed_shapes(cfg, pdt),
@@ -108,9 +99,9 @@ class TransformerLM(nn.Module):
                   "layers.attn": attention_shapes(cfg, pdt, (L,)),
                   "layers.ln1": norm_shapes((L, d), cfg.norm),
                   "layers.ln2": norm_shapes((L, d), cfg.norm)}
-        children = {}
         if cfg.moe is not None:
-            blocks["layers.moe"], children = moe_shapes(cfg, pdt, (L,), shards)
+            blocks["layers.moe"], children = moe_shapes(cfg, pdt, (L,))
+            blocks.update({f"layers.moe.{k}": v for k, v in children.items()})
         else:
             blocks["layers.mlp"] = mlp_shapes(d, cfg.d_ff, cfg.activation, pdt, (L,))
         self.full_shapes = {f"{b}.{k}": shape for b, shapes in blocks.items()
@@ -125,21 +116,31 @@ class TransformerLM(nn.Module):
         self.final_norm = block("final_norm")
         self.layers = nn.Module()
         for name in blocks:
-            if name.startswith("layers."):
-                setattr(self.layers, name.split(".")[1], block(name))
-        for name, shapes in children.items():
-            self.layers.moe.add_module(name, ParamBlock(shapes, device))
+            path = name.split(".")
+            if len(path) == 2 and path[0] == "layers":
+                setattr(self.layers, path[1], block(name))
+            elif len(path) == 3:
+                self.layers.moe.add_module(path[2], block(name))
 
 
 @functools.lru_cache(maxsize=None)
 def held_layout(cfg, part: Part) -> dict:
-    """Leaf name -> what a rank of ``part`` holds of it (the dense family):
-    the reference's spec (``spec_lm(fsdp="fsdp", tp="tp")``, the fsdp
-    entries only with more than one fsdp rank), each entry kept where its
-    axis divides the dimension, and the attention projections split only
-    where whole query (K/V) heads divide the model axis."""
-    if cfg.family != "dense":
-        raise ValueError(f"the held layout splits the dense family, not {cfg.family!r}")
+    """Leaf name -> what a rank of ``part`` holds of it: the reference's
+    spec (``spec_lm(fsdp="fsdp", tp="tp")``, the fsdp entries only with
+    more than one fsdp rank), each entry kept where its axis divides the
+    dimension, and the attention projections split only where whole query
+    (K/V) heads divide the model axis.  Under expert parallelism the model
+    axis must divide the (padded) experts: each rank holds its
+    ``E_pad / model_axis`` of them."""
+    if cfg.family not in TransformerLM.FAMILIES:
+        raise ValueError(f"the held layout splits the dense and moe families, not "
+                         f"{cfg.family!r}")
+    m = cfg.moe
+    R = part.tp_size
+    if m is not None and m.parallelism == "ep" and R > 1:
+        E_pad = m.padded_experts or m.num_experts
+        if E_pad % R:
+            raise ValueError(f"EP needs the model axis ({R}) to divide {E_pad} experts")
     specs = spec_lm(cfg, fsdp=FSDP if part.fsdp_size > 1 else None, tp=TP)
     full = TransformerLM(cfg, "meta").full_shapes
     out = {}
@@ -152,7 +153,6 @@ def held_layout(cfg, part: Part) -> dict:
                 out[prefix + k] = held_spec(v, full[prefix + k], part)
 
     walk(specs, "")
-    R = part.tp_size
     heads = {"q": cfg.num_heads % R == 0, "kv": cfg.num_kv_heads % R == 0}
     for k in ("wq", "wk", "wv", "wo", "bq", "bk", "bv"):
         name = f"layers.attn.{k}"
@@ -198,7 +198,6 @@ def init_weights_(model: TransformerLM, cfg, seed: int) -> TransformerLM:
     1/sqrt(2L)), N(0, 0.02) embeddings, zero biases, unit norm scales.  A
     model holding one rank's part of the experts, or a rank's block of the
     dense layers, holds that part of the whole model's draw."""
-    part = model.expert_part
     gen = torch.Generator().manual_seed(seed)
     held = getattr(model, "held", {})
     for name, p in sorted(model.named_parameters()):
@@ -209,9 +208,7 @@ def init_weights_(model: TransformerLM, cfg, seed: int) -> TransformerLM:
             if name.startswith("layers."):  # per layer slice: drop the layer axis
                 full, spec = full[1:], spec[1:]
             block = {"full": full, "index": model.part.index(full, spec)}
-        if name.startswith("layers.moe.experts."):
-            dense_init_(p, gen, part=part)
-        elif name.startswith("embed."):
+        if name.startswith("embed."):
             if leaf == "tok":
                 embed_init_(p, gen, **block)
             else:
@@ -229,7 +226,7 @@ def init_weights_(model: TransformerLM, cfg, seed: int) -> TransformerLM:
 
 def _embed(model: TransformerLM, tokens: torch.Tensor, cfg, par=None) -> torch.Tensor:
     """The tokens' embedding in the compute dtype (under tensor parallelism
-    in the residual stream's layout, :meth:`DenseParallel.embed`)."""
+    in the residual stream's layout, :meth:`TensorParallel.embed`)."""
     dtype = dtype_of(cfg.compute_dtype)
     if par is None:
         return embed_tokens(model.embed.tok, tokens, dtype)
@@ -237,15 +234,16 @@ def _embed(model: TransformerLM, tokens: torch.Tensor, cfg, par=None) -> torch.T
 
 
 def _layers(lay, x: torch.Tensor, cfg, attend, dist=None, remat: str = "none",
-            par: Optional[DenseParallel] = None) -> tuple:
+            par: Optional[TensorParallel] = None) -> tuple:
     """Every layer of ``lay`` on the residual ``x``: pre-norm attention
     (``attend(p, h, l)``, layer ``l``'s attention on its normed input: the
     forward's, a contiguous cache's or the pages'), then the pre-norm MLP
     or MoE block, each added; each layer body under ``maybe_remat(remat)``.
     With ``par`` the layer's leaves are gathered and wrapped first
-    (:meth:`DenseParallel.params`, inside the remat body), and each block
+    (:meth:`TensorParallel.params`, inside the remat body), and each block
     is entered and left in Megatron's layout (``attend`` then takes the
-    K/V heads its query heads read).  Returns the residual and the layers'
+    K/V heads its query heads read; the moe block enters and leaves it
+    itself).  Returns the residual and the layers'
     summed aux loss (None for the dense FFN)."""
     kw = {"kv_heads": par.kv_heads} if par is not None and par.kv_heads else {}
 
@@ -264,7 +262,7 @@ def _layers(lay, x: torch.Tensor, cfg, attend, dist=None, remat: str = "none",
                 return xx + mlp(p["mlp"], h, cfg.activation), None
             f = mlp(p["mlp"], par.enter(h, par.ffn_split), cfg.activation)
             return xx + par.leave(f, par.ffn_split), None
-        f, aux = moe_block(p["moe"], h, cfg, dist)
+        f, aux = moe_block(p["moe"], h, cfg, dist, par)
         return xx + f, aux
 
     body = maybe_remat(body, remat)
@@ -276,7 +274,7 @@ def _layers(lay, x: torch.Tensor, cfg, attend, dist=None, remat: str = "none",
 
 
 def _trunk(model: TransformerLM, x: torch.Tensor, cfg, attend, dist=None,
-           par: Optional[DenseParallel] = None) -> tuple:
+           par: Optional[TensorParallel] = None) -> tuple:
     """:func:`_layers` over ``model``'s layers from the embedded residual
     ``x`` (the tokens' embedding, or the vlm's image tokens before it),
     under the config's remat.  Returns the hidden state before the final
@@ -284,7 +282,7 @@ def _trunk(model: TransformerLM, x: torch.Tensor, cfg, attend, dist=None,
     return _layers(model.layers, x, cfg, attend, dist, cfg.parallelism.remat, par)
 
 
-def _head(model: TransformerLM, x: torch.Tensor, cfg, par: Optional[DenseParallel] = None,
+def _head(model: TransformerLM, x: torch.Tensor, cfg, par: Optional[TensorParallel] = None,
           last_only: bool = False) -> torch.Tensor:
     """The final norm and the unembedding of the residual ``x`` (with
     ``last_only`` its final position): the logits of the whole vocabulary,
@@ -300,7 +298,7 @@ def _head(model: TransformerLM, x: torch.Tensor, cfg, par: Optional[DenseParalle
     return unembed(emb, x, cfg.tie_embeddings)
 
 
-def _logits(model: TransformerLM, x: torch.Tensor, cfg, par: Optional[DenseParallel] = None,
+def _logits(model: TransformerLM, x: torch.Tensor, cfg, par: Optional[TensorParallel] = None,
             last_only: bool = False) -> torch.Tensor:
     """:func:`_head`'s logits over the whole vocabulary."""
     logits = _head(model, x, cfg, par, last_only)
@@ -361,7 +359,7 @@ def _forward_local(model: TransformerLM, tokens: torch.Tensor, cfg, last_only: b
                    dist) -> tuple:
     """(:func:`_head`'s logits, the summed aux loss, the call's layout)."""
     B, S = tokens.shape
-    par = DenseParallel.of(model, cfg, dist, S)
+    par = TensorParallel.of(model, cfg, dist, S)
     positions = _positions(0, S, B, tokens.device)
     x, aux = _trunk(model, _embed(model, tokens, cfg, par), cfg,
                     lambda p, h, l, **kw: attention(p, h, cfg, positions=positions,
@@ -410,10 +408,10 @@ def cache_specs(cfg) -> KVCache:
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, device=None,
                model_axis: int = 1) -> KVCache:
     """The contiguous cache, (L, batch, max_seq, kv_heads, head_dim) per
-    side; a dense model on ``model_axis`` ranks whose K/V heads split holds
-    its ``kv_heads / model_axis`` of them."""
+    side; a dense or moe model on ``model_axis`` ranks whose K/V heads
+    split holds its ``kv_heads / model_axis`` of them."""
     heads = cfg.num_kv_heads
-    if cfg.family == "dense" and model_axis > 1 and is_split(
+    if cfg.family in TransformerLM.FAMILIES and model_axis > 1 and is_split(
             held_layout(cfg, Part(0, model_axis))["layers.attn.wk"]):
         heads //= model_axis
     return init_kv_cache(cfg, batch, max_seq, dtype, resolve_device(device),
@@ -421,7 +419,7 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, device=None,
 
 
 def _run_cached(model: TransformerLM, x: torch.Tensor, cache: KVCache, index: int,
-                positions: torch.Tensor, cfg, dist, par: Optional[DenseParallel] = None
+                positions: torch.Tensor, cfg, dist, par: Optional[TensorParallel] = None
                 ) -> torch.Tensor:
     """The layers over a contiguous cache from the embedded residual ``x``,
     writing from position ``index``."""
@@ -435,7 +433,7 @@ def decode_step(model: TransformerLM, token: torch.Tensor, cache: KVCache, index
     """token: (B, 1) int; ``index``: the position it is written at.
     Returns (logits (B, vocab), cache)."""
     B = token.shape[0]
-    par = DenseParallel.of(model, cfg, dist)
+    par = TensorParallel.of(model, cfg, dist)
     positions = torch.full((B, 1), int(index), dtype=torch.int32, device=token.device)
     x = _run_cached(model, _embed(model, token, cfg, par), cache, int(index), positions, cfg,
                     dist, par)
@@ -447,7 +445,7 @@ def prefill(model: TransformerLM, tokens: torch.Tensor, cfg, dist=None,
     """Run the prompt (B, S) into a fresh cache of ``max_seq`` positions
     (default the config's); returns (last logits (B, vocab), cache, S)."""
     B, S = tokens.shape
-    par = DenseParallel.of(model, cfg, dist)
+    par = TensorParallel.of(model, cfg, dist)
     cache = init_cache(cfg, B, max_seq or cfg.max_seq_len, device=tokens.device,
                        model_axis=getattr(model, "part", Part()).tp_size)
     x = _run_cached(model, _embed(model, tokens, cfg, par), cache, 0,

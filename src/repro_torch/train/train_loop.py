@@ -27,14 +27,14 @@ process is one rank, so the code that the reference runs inside a
 rank's rows.  The step updates the parameter module in place (the
 reference returns new arrays) — that keeps one copy of the weights.
 
-At ``model_axis = R > 1`` the moe family trains expert-parallel: each rank
-holds its ``E_pad / R`` experts of each layer (``init_state`` builds it so)
-and every other leaf whole, and the EP block's exchanges carry the
-gradient through ``dist.abi`` (``models/moe.py``).  The dense family trains
+At ``model_axis = R > 1`` the dense and moe families train
 tensor-parallel: each rank holds its block of every leaf the model axis
-splits (``transformer.held_layout``) and the layers compute in Megatron's
-layout (``models/tensor_parallel.py``), their collectives on
-``torch.distributed`` beside the ABI.  A rank's ZeRO-1 flat
+splits (``transformer.held_layout``; ``init_state`` builds it so) and the
+layers compute in Megatron's layout (``models/tensor_parallel.py``), their
+collectives on ``torch.distributed`` beside the ABI.  Under expert
+parallelism each rank holds its ``E_pad / R`` experts of each layer and the
+EP block's exchanges carry the gradient through ``dist.abi``
+(``models/moe.py``).  A rank's ZeRO-1 flat
 vector is its *own* leaves, reduce-scattered over ``dp_comm`` (its column
 of the mesh); the per-leaf layout all-reduces its own leaves.  The grad
 norm AdamW clips by counts each leaf once: the split leaves' squares
@@ -55,8 +55,8 @@ microbatched gradients, the per-leaf AdamW update, under
 ``use_rules(dist.rules)``.  In the reference XLA inserts its collectives
 beside PAX; here, at dp > 1, the gradients' and the loss's mean over the
 data axes runs through ``torch.distributed`` on the dp group directly, not
-through the ABI (that split is the mode's point).  A dense model that
-``init_state`` builds at dp > 1 is sharded over ``parallelism.fsdp_axes``
+through the ABI (that split is the mode's point).  A dense or moe model
+that ``init_state`` builds at dp > 1 is sharded over ``parallelism.fsdp_axes``
 (FSDP): each rank holds its block of every leaf whose spec names the fsdp
 axes, and so do its AdamW moments; each layer's leaves are all-gathered
 just before the layer runs and its gradient reduce-scattered back
@@ -75,8 +75,8 @@ from torch.profiler import record_function
 
 from ..core import PAX_SUM
 from ..models.model import ModelApi, leaf_splits, param_leaves
-from ..models.moe import expert_shards
 from ..models.tensor_parallel import Part
+from ..models.transformer import TransformerLM
 from ..optim import adamw
 from ..optim.adamw import AdamState, AdamWConfig, FlatAdamState
 from ..runtime.dist import DistContext, dp_comm_of
@@ -107,9 +107,8 @@ def init_state(api: ModelApi, seed: int, dist: DistContext, model=None) -> Train
     with an unchanged layout — padded length,
     dp, buckets, wire dtype and compression — keeps the live plans; a
     layout change retires them and re-plans.  The weights are the block
-    of the seed's draw this rank holds (:func:`model_part`): its experts
-    under expert parallelism, its tensor-parallel and FSDP block of a
-    dense model."""
+    of the seed's draw this rank holds (:func:`model_part`): its
+    tensor-parallel and FSDP block of a dense or moe model."""
     if model is None:
         model = api.init(seed, dist.device, **model_part(api, dist))
     _check_part(api, dist, model)
@@ -134,51 +133,43 @@ def init_state(api: ModelApi, seed: int, dist: DistContext, model=None) -> Train
     return TrainState(model, opt, torch.zeros((), dtype=torch.int32, device=dist.device))
 
 
-def _expert_part(api: ModelApi, dist: DistContext) -> tuple:
-    """(this rank, the parts) of each moe layer's experts a model on
-    ``dist`` holds: (tp rank, tp size) under expert parallelism at
-    ``model_axis > 1``, else (0, 1)."""
-    shards = expert_shards(api.cfg, dist.tp_size)
-    return (dist.abi.comm_rank(dist.tp_comm), shards) if shards > 1 else (0, 1)
-
-
-def _dense_part(api: ModelApi, dist: DistContext) -> Part:
-    """The block of a dense model a rank of ``dist`` holds: its heads, FFN
-    columns and vocabulary rows at ``model_axis > 1``, and under
-    ``grad_sync="gspmd"`` at dp > 1 its block over the fsdp axes (the dp
-    axes of the mesh)."""
+def _part(dist: DistContext, grad_sync: str) -> Part:
+    """The block of a transformer a rank of ``dist`` holds: its heads,
+    FFN columns, experts (or each expert's ``d_ff`` block) and vocabulary
+    rows at ``model_axis > 1``, and under ``grad_sync="gspmd"`` at dp > 1
+    its block over the fsdp axes (the dp axes of the mesh)."""
     tp = (dist.abi.comm_rank(dist.tp_comm), dist.tp_size) if dist.tp_size > 1 else (0, 1)
     fsdp = ((dist.abi.comm_rank(dist.dp_comm), dist.dp_size)
-            if api.cfg.parallelism.grad_sync == "gspmd" and dist.dp_size > 1 else (0, 1))
+            if grad_sync == "gspmd" and dist.dp_size > 1 else (0, 1))
     return Part(*tp, *fsdp)
 
 
 def model_part(api: ModelApi, dist: DistContext) -> dict:
     """The ``api.init``/``from_jax_params`` keywords of what a rank of
-    ``dist`` holds: the moe family's expert part, the dense family's
-    :func:`_dense_part`, nothing for the other families."""
-    if api.cfg.family == "dense":
-        p = _dense_part(api, dist)
-        return {"model_rank": p.tp_rank, "model_axis": p.tp_size, "fsdp_rank": p.fsdp_rank,
-                "fsdp_size": p.fsdp_size}
-    r, R = _expert_part(api, dist)
-    return {"model_rank": r, "model_axis": R} if R > 1 else {}
+    ``dist`` holds: the dense and moe families' :func:`_part`, nothing for
+    the other families."""
+    if api.cfg.family not in TransformerLM.FAMILIES:
+        return {}
+    p = _part(dist, api.cfg.parallelism.grad_sync)
+    return {"model_rank": p.tp_rank, "model_axis": p.tp_size, "fsdp_rank": p.fsdp_rank,
+            "fsdp_size": p.fsdp_size}
 
 
 def _check_part(api: ModelApi, dist: DistContext, model) -> None:
-    """A moe model must hold the expert part ``dist`` gives it; a dense
-    model either its block or the whole model (trained replicated)."""
-    want = _expert_part(api, dist)
-    got = getattr(model, "expert_part", (0, 1))
-    if got != want:
-        raise ValueError(f"the model holds expert part {got} (rank, parts); a step at "
-                         f"model_axis={dist.tp_size} needs {want}: build it with "
-                         f"init_state or api.init(model_rank=, model_axis=)")
+    """A transformer holds the block ``dist`` gives it, or the whole model
+    (trained replicated) — except a moe model under expert parallelism at
+    ``model_axis > 1``, which must hold its block."""
     held = getattr(model, "part", Part())
-    if held not in (Part(), _dense_part(api, dist)):
+    if api.cfg.family not in TransformerLM.FAMILIES:
+        return
+    want = _part(dist, api.cfg.parallelism.grad_sync)
+    m = api.cfg.moe
+    whole_ok = not (m is not None and m.parallelism == "ep" and dist.tp_size > 1)
+    if held != want and not (whole_ok and held == Part()):
         raise ValueError(f"the model holds {held}; a rank of {dist.mesh.shape} under "
-                         f"grad_sync={api.cfg.parallelism.grad_sync!r} holds "
-                         f"{_dense_part(api, dist)} or the whole model")
+                         f"grad_sync={api.cfg.parallelism.grad_sync!r} holds {want}"
+                         f"{' or the whole model' if whole_ok else ''}: build it with "
+                         f"init_state or api.init(**train_loop.model_part(api, dist))")
 
 
 def grad_norm(dist: Optional[DistContext], grads: list, split: list,
@@ -378,8 +369,7 @@ def make_train_step_abi(api: ModelApi, dist: DistContext, opt_cfg: AdamWConfig, 
 
     def step_fn(state: TrainState, batch: dict):
         _check_part(api, dist, state.params)
-        # per leaf: split over the model axis (the experts under EP, the
-        # dense family's tensor-parallel leaves), as the model holds them
+        # per leaf: split over the model axis, as the model holds it
         split, fsdp_split = leaf_splits(state.params)
         if any(fsdp_split):
             raise ValueError("the abi step syncs whole data-parallel replicas; a model "

@@ -4,9 +4,11 @@ counting and its H100 roofline (``launch/hlo_analysis.py``), on the CPU.
 * the cells equal the reference's: 10 archs x 4 shapes = 40 assigned, 32
   runnable (``shapes_for`` drops ``long_500k`` for full attention), and
   ``--list`` prints them at both meshes (64 lines);
-* every train-state leaf of nemotron-4-340b (``gspmd``: FSDP and tensor
-  parallelism) and gemma-7b (the ABI ZeRO-1 step, tensor parallelism) as
-  rank 0 of ``pod1`` and ``pod2`` holds it equals the per-device shape of
+* every train-state leaf of nemotron-4-340b and grok-1-314b (``gspmd``:
+  FSDP and tensor parallelism; grok-1's experts split by ``d_ff``) and
+  gemma-7b and qwen2-moe-a2.7b (the ABI ZeRO-1 step, tensor parallelism;
+  qwen2-moe's experts split by expert) as rank 0 of ``pod1`` and ``pod2``
+  holds it equals the per-device shape of
   the reference's ``state_specs`` under ``NamedSharding(AbstractMesh)``,
   with the reference dry run's rule that an axis not dividing a dimension
   leaves it whole (``repro/launch/dryrun.py:95-116``; that module itself
@@ -46,7 +48,7 @@ from repro_torch.launch.hlo_analysis import (HBM_BW, NVLINK_BW, PEAK_FLOPS_BF16,
                                              shape_bytes)
 
 SRC = Path(__file__).resolve().parents[1] / "src"
-ARCHS = ("nemotron-4-340b", "gemma-7b")
+ARCHS = ("nemotron-4-340b", "gemma-7b", "grok-1-314b", "qwen2-moe-a2.7b")
 MESHES = {"pod1": ((16, 16), ("data", "model")), "pod2": ((2, 16, 16), ("pod", "data", "model"))}
 
 _SCRIPT = """
@@ -195,10 +197,18 @@ def test_state_leaves_have_the_reference_per_device_shapes(arch, mesh, runs):
     assert sorted(got) == sorted(want)
     for k in want:
         assert got[k] == want[k], (k, got[k], want[k])
-    # the layout really splits: the FFN over the model axis everywhere, FSDP under gspmd
-    assert got["params.layers.mlp.wi"][2] == cfg.d_ff // 16
+    # the layout really splits: the FFN (the moe layer's experts) over the
+    # model axis everywhere, FSDP under gspmd
+    m = cfg.moe
+    if m is None:
+        wi, split = got["params.layers.mlp.wi"], (2, cfg.d_ff)
+    elif m.parallelism == "ep":
+        wi, split = got["params.layers.moe.experts.wi"], (1, m.padded_experts or m.num_experts)
+    else:
+        wi, split = got["params.layers.moe.experts.wi"], (3, m.expert_d_ff)
+    assert wi[split[0]] == split[1] // 16
     if mode == "gspmd":
-        assert got["params.layers.mlp.wi"][1] == cfg.d_model // math.prod(sizes[:-1])
+        assert wi[-2] == cfg.d_model // math.prod(sizes[:-1])
 
 
 # ---------------------------------------------------------------------------

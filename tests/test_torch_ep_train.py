@@ -6,18 +6,22 @@ The reference runs once in a subprocess with two fake CPU devices
 (``(data, model) = (1, 2)``): ``jax.value_and_grad`` of ``loss_fn`` through
 its ``shard_map`` with the aux-loss weight at 0.01 (the config's) and at 0,
 and its ABI ZeRO-1 step for two steps.  The port runs on two gloo ranks,
-each holding its two experts of each layer (``from_jax_params`` with the
-model rank):
+each holding its block of the model axis (``from_jax_params`` with the
+model rank): its two experts of each layer, and where the model axis
+divides them (``transformer.held_layout``; the smoke config's four heads
+do not divide its production axis of 16) the shared experts' FFN and the
+vocabulary:
 
-* the loss and every gradient leaf within 1e-5 (an expert leaf against its
-  rank's slice) at both aux weights — with 0.01 the aux loss is the mean of
+* the loss and every gradient leaf within 1e-5 (a split leaf against its
+  rank's block) at both aux weights — with 0.01 the aux loss is the mean of
   the ranks' per-slice terms, another function than local mode's;
 * the ABI calls of the EP block's backward: per layer the inverse alltoall
   pair, the sequence slice's allgather and the router's allreduce;
 * the ZeRO-1 step's losses and grad norms within 1e-5 and its parameters
   within 1e-5 after two steps, each rank's flat shard its own leaves, and
   the per-leaf step's likewise;
-* every replicated leaf bitwise equal on the two ranks.
+* every replicated leaf bitwise equal on the two ranks, every split leaf
+  different.
 """
 import dataclasses
 import os
@@ -29,6 +33,7 @@ import numpy as np
 import pytest
 
 import repro_torch.configs as T_cfgs
+from repro_torch.models.transformer import TransformerLM
 
 import _torch_ranks
 
@@ -99,17 +104,21 @@ def _nest(flat: dict) -> dict:
     return tree
 
 
-def _is_expert(name: str) -> bool:
-    return name.startswith("layers.moe.experts.")
+def _rank_model(r: int, R: int = 2) -> TransformerLM:
+    """The (meta) model rank ``r`` of the model axis builds: its held layout."""
+    return TransformerLM(T_cfgs.smoke_config(ARCH), "meta", r, R)
 
 
-def _mine(name: str, full: np.ndarray, r: int, R: int = 2) -> np.ndarray:
-    """An expert leaf's slice on rank ``r`` (the expert axis follows the
-    layer axis), any other leaf whole."""
-    if not _is_expert(name):
-        return full
-    El = full.shape[1] // R
-    return full[:, r * El:(r + 1) * El]
+def _is_split(name: str) -> bool:
+    return "tp" in _rank_model(0).held[name]
+
+
+def _mine(name: str, full: np.ndarray, r: int) -> np.ndarray:
+    """A leaf's block on rank ``r`` (each layer's experts, the shared
+    experts' FFN columns or rows, the vocabulary's rows), a whole leaf
+    whole."""
+    m = _rank_model(r)
+    return full[m.part.index(full.shape, m.held[name])]
 
 
 @pytest.fixture(scope="module")
@@ -199,8 +208,9 @@ def test_replicated_leaves_stay_bitwise_equal_on_the_model_axis(runs, layout):
     names = [k for k in a if k.startswith(f"{layout}:param:")]
     assert len(names) == 20
     assert int(a["flat_shard"]) == int(b["flat_shard"])
+    assert _is_split("layers.moe.experts.wi") and not _is_split("layers.moe.router")
     for k in names:
-        if _is_expert(k.split(":", 2)[2]):
+        if _is_split(k.split(":", 2)[2]):
             assert not np.array_equal(a[k], b[k]), k
         else:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)

@@ -36,7 +36,8 @@ from repro.train import train_loop as r_tl
 from repro_torch import configs as T_cfgs
 from repro_torch.models import build_model as t_build
 from repro_torch.models import from_jax_params, param_leaves
-from repro_torch.models.model import _family, held_specs, leaf_splits
+from repro_torch.models.model import _family, leaf_splits
+from repro_torch.models.transformer import held_layout
 from repro_torch.optim.adamw import AdamWConfig as T_Adam
 from repro_torch.runtime.dist import make_dist as t_make_dist
 from repro_torch.runtime.sharding import AxisRules, _strip_axes, production_rules
@@ -190,6 +191,12 @@ def test_state_specs_match_the_reference(mode, dp_axes):
 
 
 def test_held_specs_split_only_the_experts_under_ep():
+    """What a qwen2-moe rank at ``model_axis=2`` holds is the reference's
+    layout (``param_specs(fsdp=None)``, each axis kept where it divides):
+    its experts, the shared experts' FFN and the vocabulary split over the
+    model axis, the attention whole (the smoke config's four heads do not
+    divide its production axis of 16), the router, the shared gate and the
+    norms whole; each split block is the whole draw's block."""
     cfg = T_cfgs.smoke_config("qwen2-moe-a2.7b")
     api = t_build(cfg)
     whole = api.init(0, "cpu")
@@ -197,19 +204,33 @@ def test_held_specs_split_only_the_experts_under_ep():
     names = [n for n, _ in param_leaves(part)]
     assert not any(leaf_splits(whole)[0])
     split = leaf_splits(part)[0]
-    from repro.models.moe import _ep_expert_specs as r_ep_specs
+    held = {n: tuple("model" if e == "tp" else e for e in spec)
+            for n, spec in held_layout(cfg, part.part).items()}
+    want = {}
 
-    assert held_specs(api, part.expert_part[1])["layers"]["moe"]["experts"] == {
-        k: (None, *v) for k, v in _as_tuples(r_ep_specs(cfg, "model")).items()}
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.")
+            else:
+                want[prefix + k] = v
+
+    walk(_as_tuples(r_build(R_cfgs.smoke_config("qwen2-moe-a2.7b")).param_specs(fsdp=None)), "")
+    assert held == want
     assert [n for n, k in zip(names, split) if k] == [
-        "layers.moe.experts.wg", "layers.moe.experts.wi", "layers.moe.experts.wo"]
-    # rank 1's part is the whole draw's second half of every layer's experts
+        "embed.tok", "embed.unembed", "layers.moe.experts.wg", "layers.moe.experts.wi",
+        "layers.moe.experts.wo", "layers.moe.shared.wg", "layers.moe.shared.wi",
+        "layers.moe.shared.wo"]
+    # rank 1's block is the whole draw's: the second half of every layer's
+    # experts, and of the vocabulary's rows
     for n in ("wi", "wg", "wo"):
         w = getattr(whole.layers.moe.experts, n)
         np.testing.assert_array_equal(getattr(part.layers.moe.experts, n).detach().numpy(),
                                       w[:, 2:].detach().numpy())
     np.testing.assert_array_equal(part.embed.tok.detach().numpy(),
-                                  whole.embed.tok.detach().numpy())
+                                  whole.embed.tok[256:].detach().numpy())
+    np.testing.assert_array_equal(part.layers.moe.router.detach().numpy(),
+                                  whole.layers.moe.router.detach().numpy())
 
 
 def test_placements_on_a_device_mesh(tmp_path):

@@ -186,12 +186,14 @@ def _flat_specs(tree, prefix="") -> dict:
     return out
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ("qwen2-moe-a2.7b", "grok-1-314b"))
 def test_held_specs_are_the_references_specs_at_the_production_axes(arch):
     """What a rank of the 16 x 16 mesh holds (``held_layout``), in the
     reference's axis names, is the reference's ``param_specs`` leaf by
-    leaf (every production dimension divides); under ``gspmd`` with the
-    fsdp axis too; and the dense family's cache specs are the reference's."""
+    leaf (every production dimension divides; the moe family's experts by
+    expert under ``ep``, by ``d_ff`` under ``tp``); under ``gspmd`` with
+    the fsdp axis too; and the transformer's cache specs are the
+    reference's."""
     cfg = T_cfgs.get_config(arch)
     rapi, tapi = r_build(R_cfgs.get_config(arch)), t_build(cfg)
     for part, fsdp in ((Part(0, 16), None), (Part(0, 16, 0, 16), "data")):

@@ -4,12 +4,14 @@ the reference's ABI step on four fake CPU devices, ``(data, model) = (2, 2)``.
 
     PYTHONPATH=src python tests/torch_ep_battery.py   # prints "TORCH EP BATTERY PASSED"
 
-Each rank holds its model rank's two experts and trains on its data rows;
-its flat ZeRO-1 vector (its own leaves) is reduce-scattered over its column
-of the mesh.  Checks, over two steps: losses and grad norms within 1e-5 of
-the reference's, every parameter within 1e-5 (an expert leaf against its
-slice), every replicated leaf bitwise equal on the four ranks, and each
-expert leaf bitwise equal on the two data rows.  Not collected by pytest
+Each rank holds its model rank's block (``transformer.held_layout``: its
+two experts of each layer, the shared experts' FFN and the vocabulary rows)
+and trains on its data rows; its flat ZeRO-1 vector (its own leaves) is
+reduce-scattered over its column of the mesh.  Checks, over two steps:
+losses and grad norms within 1e-5 of the reference's, every parameter
+within 1e-5 (a split leaf against its block), every replicated leaf
+bitwise equal on the four ranks, and each split leaf bitwise equal on the
+two data rows.  Not collected by pytest
 (it takes longer than the CPU suite's budget for one leg).
 """
 from __future__ import annotations
@@ -131,6 +133,10 @@ def main() -> int:
         ranks = _torch_ranks.run_ranks(ep_grid_rank, DP * TP, d / "ranks",
                                        T_cfgs.smoke_config("qwen2-moe-a2.7b"), init, batch,
                                        STEPS, timeout=300)
+    from repro_torch.models.transformer import TransformerLM
+
+    cfg = T_cfgs.smoke_config("qwen2-moe-a2.7b")
+    held = {r: TransformerLM(cfg, "meta", r, TP) for r in range(TP)}
     print(f"reference losses {ref['losses']} grad norms {ref['grad_norms']}")
     names = [k for k in ref if k.startswith("param:")]
     for i, rank in enumerate(ranks):
@@ -140,13 +146,11 @@ def main() -> int:
         np.testing.assert_allclose(rank["losses"], ref["losses"], rtol=TOL)
         np.testing.assert_allclose(rank["grad_norms"], ref["grad_norms"], rtol=TOL)
         for k in names:
-            want = ref[k]
-            if k.startswith("param:layers.moe.experts."):
-                El = want.shape[1] // TP
-                want = want[:, r * El:(r + 1) * El]
+            m = held[r]
+            want = ref[k][m.part.index(ref[k].shape, m.held[k[len("param:"):]])]
             np.testing.assert_allclose(rank[k], want, rtol=TOL, atol=TOL, err_msg=k)
     for k in names:
-        if k.startswith("param:layers.moe.experts."):
+        if "tp" in held[0].held[k[len("param:"):]]:
             for r in range(TP):
                 same = [x[k] for x in ranks if int(x["model_rank"]) == r]
                 assert all(np.array_equal(same[0], y) for y in same[1:]), k
