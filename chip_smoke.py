@@ -14,6 +14,8 @@
     python3 chip_smoke.py --only ep4    # build + [ep4] only, four cards
     python3 chip_smoke.py --only pp4    # [pp4] only, four cards (no kernel to build)
     python3 chip_smoke.py --only tp4    # build + [tp4] only, four cards
+    python3 chip_smoke.py --only moetp4 # build + [moetp4] only, four cards
+    python3 chip_smoke.py --only ssmtp4 # build + [ssmtp4] only, four cards
     python3 chip_smoke.py --baseline wkv6=build/wkv6_parent.cu  # [time] also an earlier wkv6
 
 ``--baseline NAME=PATH`` (repeatable; NAME ``wkv6`` or ``ssd``) builds an
@@ -271,7 +273,19 @@ grok-1-314b at 1 of 64 layers, each card holding its ``d_ff`` block of
 every expert (a float32 step at (1, 4) and (2, 2) against one card's
 unsharded gradient, the forward under flash at 12/2 heads, bf16 ``gspmd``
 steps with FSDP); it prints a ``kernels`` line with the ``moetp4``
-launches.
+launches.  ``--only ssmtp4`` (four cards, :func:`phase_ssmtp4`) runs the
+ssm and hybrid families on the model axis: rwkv6-7b and zamba2-2.7b at
+full width, each card holding a quarter of the heads, Mamba2 channels
+(per segment), ``d_ff`` and vocabulary: the bf16 forward at full depth
+(``wkv6`` at 16 of 64 heads, ``ssd`` at 20 of 80, flash at 8/8 heads of
+D=80 under zamba2's ``"flash"``; the last call of each held to its plain
+version), a float32 forward, split decode and two steps under the ABI
+ZeRO-1 step at (1, 4) and ``gspmd`` with FSDP at (2, 2) against one card's
+whole model (rwkv6-7b at 8 of 32 layers, the depth whose unsharded f32
+step one card holds; zamba2-2.7b at its 54), rwkv6-7b's split forward and
+gradient in float64 against one card's (its float32 gradient is
+ill-conditioned), and bf16 steps at full depth in both modes; it prints a
+``kernels`` line with the ``ssmtp4`` launches.
 
 ``--only ring4`` runs the one path a single card cannot: [ring4] starts
 ``launch.train`` as four ranks, one per card, on NCCL, for 2 ZeRO-1 steps
@@ -743,6 +757,7 @@ FA_CHECKS = (
     (4, 2000, 14, 2, 64, True, "bfloat16", BF16_ROUNDINGS),   # ragged S
     (4, 2048, 32, 32, 80, True, "bfloat16", BF16_ROUNDINGS),  # HYBRID_ATTN, [forward-hybrid]'s
     (4, 2048, 32, 32, 80, True, "float32", (2e-5, 2e-5)),     # HYBRID_ATTN
+    (4, 2048, 8, 8, 80, True, "bfloat16", BF16_ROUNDINGS),    # HYBRID_TP_ATTN, [ssmtp4]'s
     (2, 256, 4, 2, 64, False, "float32", (2e-5, 2e-5)),       # non-causal
     (1, 192, 2, 1, 64, False, "float32", (2e-5, 2e-5)),       # non-causal, ragged S
     # the tensor-core kernel's edges (bf16): head dims of each template width
@@ -767,6 +782,7 @@ FA_CHECKS = (
 FWD_BATCH, FWD_SEQ = 4, 2048                        # [forward]'s batch and sequence
 FULL_ATTN = (FWD_BATCH, FWD_SEQ, 14, 2, 64)         # qwen2-0.5b's heads at that batch
 HYBRID_ATTN = (FWD_BATCH, FWD_SEQ, 32, 32, 80)      # zamba2-2.7b's shared block
+HYBRID_TP_ATTN = (FWD_BATCH, FWD_SEQ, 8, 8, 80)     # its heads on a rank of four ([ssmtp4])
 GEMMA_ATTN = (FWD_BATCH, FWD_SEQ, 16, 16, 256)      # gemma-7b's heads (D=256)
 MOE_ATTN = (FWD_BATCH, FWD_SEQ, 16, 16, 128)        # qwen2-moe-a2.7b's heads (D=128)
 VLM_ATTN = (FWD_BATCH, FWD_SEQ, 32, 32, 96)         # phi-3-vision: 576 patches + 1472 text
@@ -833,7 +849,8 @@ def phase_time_flash() -> dict:
     """Kernel, plain version and ``scaled_dot_product_attention`` at the
     main path's shape, in bf16 (the tensor-core kernel, the record) and f32
     (the CUDA-core kernel), and the bf16 kernel and library at
-    [forward-hybrid]'s shape (D=80), [forward-gemma]'s (D=256),
+    [forward-hybrid]'s shape (D=80, and its 8/8 heads on a rank of
+    [ssmtp4]), [forward-gemma]'s (D=256),
     [forward-moe]'s (D=128), [forward-vlm]'s (D=96 over 2048 positions, and
     a ragged 776) and [forward-encdec]'s (D=64, 6/6 heads over 448).
     Bound: the causal FLOPs (QK^T and PV over
@@ -850,6 +867,7 @@ def phase_time_flash() -> dict:
             ("float32", FULL_ATTN, "float32", F32_FLOP_PER_S),
             ("bfloat16", FULL_ATTN, "bfloat16", BF16_FLOP_PER_S),
             ("hybrid", HYBRID_ATTN, "bfloat16", BF16_FLOP_PER_S),
+            ("hybrid_tp", HYBRID_TP_ATTN, "bfloat16", BF16_FLOP_PER_S),
             ("gemma", GEMMA_ATTN, "bfloat16", BF16_FLOP_PER_S),
             ("moe", MOE_ATTN, "bfloat16", BF16_FLOP_PER_S),
             ("vlm", VLM_ATTN, "bfloat16", BF16_FLOP_PER_S),
@@ -877,7 +895,8 @@ def phase_time_flash() -> dict:
         del q, k, v, q4, k4, v4
     record = dict(out["bfloat16"])
     record.update({f"{name}_{key}": out[name][key]
-                   for name in ("float32", "hybrid", "gemma", "moe", "vlm", "vlm776", "whisper")
+                   for name in ("float32", "hybrid", "hybrid_tp", "gemma", "moe", "vlm", "vlm776",
+                                "whisper")
                    for key in ("ms", "library_ms", "bound_ms", "tflops")})
     return {"flash_attention": record}
 
@@ -1465,6 +1484,7 @@ ENCDEC_ARCH, VLM_ARCH = "whisper-tiny", "phi-3-vision-4.2b"
 # that ssd's inputs stay those of earlier runs
 WKV_SHAPES = ((2, 64, 3, 8, 16), (1, 128, 2, 16, 32), (2, 96, 1, 32, 32), (1, 64, 4, 64, 16))
 WKV_FULL = (FWD_BATCH, FWD_SEQ, 64, 64, 32)
+WKV_TP = (FWD_BATCH, FWD_SEQ, 16, 64, 32)       # its 16 heads on a rank of four ([ssmtp4])
 WKV_EDGES = ((2, 48, 3, 13, 12), (1, 60, 2, 3, 5), (1, 16, 2, 8, 1), (2, 32, 3, 64, 32),
              (1, 40, 2, 16, 40), (1, 256, 2, 64, 64))
 # B, T, H, P, N, chunk: the reference's SSD_SWEEP, then the tensor-core kernel's
@@ -1475,6 +1495,7 @@ SSD_SHAPES = ((2, 64, 3, 4, 8, 16), (1, 128, 2, 16, 16, 32), (2, 128, 1, 32, 64,
               (2, 24, 3, 7, 13, 8), (1, 60, 2, 5, 3, 12), (1, 16, 2, 8, 8, 1),
               (2, 64, 2, 64, 64, 64))
 SSD_FULL = (FWD_BATCH, FWD_SEQ, 80, 64, 64, 64)
+SSD_TP = (FWD_BATCH, FWD_SEQ, 20, 64, 64, 64)    # its 20 heads on a rank of four ([ssmtp4])
 #: the reference's tolerances (atol = rtol): against the chunked form, and
 #: against the sequential oracle
 CHUNKED_TOL, ORACLE_TOL = 3e-4, 5e-4
@@ -1563,7 +1584,9 @@ def phase_check_scans() -> dict:
     kernel within twice the plain form's distance; a record at ``wkv6``'s
     chunk of 64).  Every row must launch the kernel's entry point, and the
     kernel must be not finite exactly where the plain form is not.  Returns
-    the worst kernel-vs-plain difference at the full-width shapes."""
+    the worst kernel-vs-plain difference at the full-width shapes (the
+    models' heads, and their heads on a rank of [ssmtp4]: ``WKV_TP``,
+    ``SSD_TP``)."""
     import torch
     from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
     from repro_torch.kernels.mamba2_ssd import ref as ssd_ref
@@ -1572,17 +1595,21 @@ def phase_check_scans() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst = {"wkv6": 0.0, "ssd": 0.0}
-    scans = {"wkv6": (wkv_ops.wkv6_apply, wkv_ref.wkv6, _wkv_inputs, _wkv_oracle, WKV_FULL),
-             "ssd": (ssd_ops.ssd_apply, ssd_ref.ssd, _ssd_inputs, _ssd_oracle, SSD_FULL)}
+    scans = {"wkv6": (wkv_ops.wkv6_apply, wkv_ref.wkv6, _wkv_inputs, _wkv_oracle,
+                      (WKV_FULL, WKV_TP)),
+             "ssd": (ssd_ops.ssd_apply, ssd_ref.ssd, _ssd_inputs, _ssd_oracle,
+                     (SSD_FULL, SSD_TP))}
     entries = {"wkv6": wkv_ops.ENTRY, "ssd": ssd_ops.ENTRY}
     dists = ("sweep", "model")
-    cases = ([("wkv6", shape, dist) for shape in (*WKV_SHAPES, WKV_FULL) for dist in dists]
-             + [("ssd", shape, dist) for shape in (*SSD_SHAPES, SSD_FULL) for dist in dists]
+    cases = ([("wkv6", shape, dist) for shape in (*WKV_SHAPES, WKV_FULL, WKV_TP)
+              for dist in dists]
+             + [("ssd", shape, dist) for shape in (*SSD_SHAPES, SSD_FULL, SSD_TP)
+                for dist in dists]
              + [("ssd", (2, 128, 3, 64, 64, 64), "misaligned")]
              + [("wkv6", shape, dist) for shape in WKV_EDGES for dist in dists]
              + [("wkv6", (2, 128, 3, 64, 32), "misaligned")])
     for name, shape, dist in cases:
-        ops, ref, make, oracle_fn, full_shape = scans[name]
+        ops, ref, make, oracle_fn, full_shapes = scans[name]
         if dist == "misaligned":
             _check_misaligned(name, shape, ops, ref, make, oracle_fn, entries[name], gen)
             continue
@@ -1593,7 +1620,7 @@ def phase_check_scans() -> dict:
         via = f" via {entries[name]}" if ops.launches == before + 1 else ""
         plain = ref(*args, chunk=chunk)
         oracle = oracle_fn(*args)
-        full = shape == full_shape
+        full = shape in full_shapes
         torch_sync()
         # wkv6's factorised form (the reference's) overflows exp(-la) once a
         # chunk's log decay passes about -88 (ROADMAP queue 3): the kernel
@@ -1762,7 +1789,9 @@ def _baseline(name: str, path: Path):
 
 def phase_time_scans(card: str, baselines: dict) -> dict:
     """Kernel and plain version at the main paths' shapes (the models'
-    input distribution); no single PyTorch call computes either scan, so
+    input distribution), and at their heads on a rank of [ssmtp4] (a
+    record: ``tp_ms``, ``tp_plain_ms``, ``tp_bound_ms``); no single PyTorch
+    call computes either scan, so
     there is no library time.  Each also logs its 3xTF32 tensor-core floor
     (three times its FLOPs at the TF32 rate) and its resident blocks per
     SM and, where ``baselines`` names one (``{"wkv6": path, "ssd": path}``),
@@ -1779,7 +1808,11 @@ def phase_time_scans(card: str, baselines: dict) -> dict:
     out = {}
     for name, shape, make, ops, kernel, plain in (
             ("wkv6", WKV_FULL, _wkv_inputs, wkv_ops, wkv_ops.wkv6_apply, wkv_ref.wkv6),
-            ("ssd", SSD_FULL, _ssd_inputs, ssd_ops, ssd_ops.ssd_apply, ssd_ref.ssd)):
+            ("ssd", SSD_FULL, _ssd_inputs, ssd_ops, ssd_ops.ssd_apply, ssd_ref.ssd),
+            ("wkv6_tp", WKV_TP, _wkv_inputs, wkv_ops, wkv_ops.wkv6_apply, wkv_ref.wkv6),
+            ("ssd_tp", SSD_TP, _ssd_inputs, ssd_ops, ssd_ops.ssd_apply, ssd_ref.ssd)):
+        tp = name.endswith("_tp")
+        name = name.removesuffix("_tp")
         *dims, chunk = shape
         args = make(*dims, "model", gen)
         nbytes, flops = _scan_work(name, args, chunk)
@@ -1797,6 +1830,10 @@ def phase_time_scans(card: str, baselines: dict) -> dict:
         log(f"[time] {name} as 3xTF32: {3 * flops:.3e} FLOP on the tensor cores, the kernel's "
             f"own floor {3 * flops / TF32_FLOP_PER_S * 1e3:.4f} ms; "
             f"{ops.blocks_per_sm()} resident blocks per SM")
+        if tp:  # the rank's heads of [ssmtp4]: a record beside the full-head row
+            out[name].update({f"tp_{k}": t[k] for k in ("ms", "plain_ms", "bound_ms")})
+            del args
+            continue
         if name == "ssd":
             turns = ("scan", "scan + pass", "scan + pass", "scan")
             ms = {}
@@ -5052,12 +5089,16 @@ def _tp4_batches(cfg, B: int, S: int, n: int) -> list:
     return out
 
 
-def _tp4_steps(api, dist, batches, on_card: bool, dev, counted: bool = False) -> dict:
-    """``init_state`` (this rank's block, drawn from seed 0) and a step per
-    batch: losses, grad norms, ms, ``pack_transposed`` launches a step, the
-    peak memory after the first ``TP4_WARM`` steps, the model's bytes on
-    the card (its block, read around the draw) and, with ``counted``, the
-    collectives of one more step by op (``hlo_analysis.StepCounter``)."""
+def _tp4_steps(api, dist, batches, on_card: bool, dev, counted: bool = False,
+               model=None) -> dict:
+    """``init_state`` (this rank's block, drawn from seed 0, or ``model``
+    as it stands) and a step per batch: losses, grad norms, ms,
+    ``pack_transposed`` launches a step (with ``model``, every kernel's),
+    the peak memory after the first ``TP4_WARM`` steps, the model's bytes
+    on the card (its block, read around the draw), the bytes its held
+    specs give (each leaf's whole bytes over the ranks of each axis that
+    splits it) and, with ``counted``,
+    the collectives of one more step by op (``hlo_analysis.StepCounter``)."""
     import dataclasses
 
     import torch
@@ -5065,16 +5106,24 @@ def _tp4_steps(api, dist, batches, on_card: bool, dev, counted: bool = False) ->
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train import train_loop as tl
 
+    given = model is not None
     before = torch.cuda.memory_allocated(dev) if on_card else 0
-    model = api.init(0, dev, **tl.model_part(api, dist))
-    drawn = (torch.cuda.memory_allocated(dev) if on_card else 0) - before
+    if not given:
+        model = api.init(0, dev, **tl.model_part(api, dist))
+    drawn = 0 if given else (torch.cuda.memory_allocated(dev) if on_card else 0) - before
     held = sum(p.numel() * p.element_size() for p in model.parameters())
     whole = sum(math.prod(model.full_shapes[n]) * p.element_size()
                 for n, p in model.named_parameters())
+    held_specs = getattr(model, "held", {})
+    expect = sum(math.prod(model.full_shapes[n]) * p.element_size()
+                 // (model.part.tp_size if "tp" in held_specs.get(n, ()) else 1)
+                 // (model.part.fsdp_size if "fsdp" in held_specs.get(n, ()) else 1)
+                 for n, p in model.named_parameters())
     state = tl.init_state(api, 0, dist, model=model)
     step = tl.make_train_step(api, dist, AdamWConfig())
     rec = dict(losses=[], grad_norms=[], ms=[], packs=[], held_bytes=held, drawn_bytes=drawn,
-               whole_bytes=whole, part=list(dataclasses.astuple(model.part)))
+               whole_bytes=whole, expect_bytes=expect,
+               part=list(dataclasses.astuple(model.part)))
     for i, b in enumerate(batches):
         batch = tl.local_batch(b, dist)
         if i == TP4_WARM and on_card:
@@ -5085,6 +5134,8 @@ def _tp4_steps(api, dist, batches, on_card: bool, dev, counted: bool = False) ->
         rec["grad_norms"].append(float(met.grad_norm))
         rec["ms"].append(t)
         rec["packs"].append(_counts()["pack_transposed"])
+        if given:
+            rec.setdefault("launches", []).append(_counts())
     rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else 0.0
     if counted:
         with StepCounter() as sc:
@@ -5840,6 +5891,687 @@ def _moetp4_bf16(tag: str, b: list, p: dict, depth: int, bad: list) -> None:
         bad.append(f"{tag}: collectives {col} against the dry run's {p['collectives']}")
 
 
+# ---------------------------------------------------------------------------
+# [ssmtp4]: the ssm and hybrid families on the model axis, four cards
+# ---------------------------------------------------------------------------
+SSMTP4 = 4
+SSMTP4_ARCHS = (SSM_ARCH, HYBRID_ARCH)
+#: (a), (c') and (d): float32 against one card's whole model, which must
+#: hold the unsharded step: 16 bytes a parameter (the f32 weight, its
+#: gradient and AdamW's two moments) and the update's temporaries.
+#: zamba2-2.7b's 54 layers are 2.45 B parameters (39 GB); rwkv6-7b's 32 are
+#: 7.6 B (121 GB), and its step at 12 layers (3.15 B) ran out of an NVIDIA
+#: H100's 80 GB, so 8 of them (2.28 B)
+SSMTP4_F32_DEPTH = {SSM_ARCH: 8, HYBRID_ARCH: 54}
+#: (e) the float64 witness of rwkv6-7b: the split model and one card's
+#: whole model in float64 (the plain chunked scan in place of the float32
+#: kernel, ``_PlainWkv6``) agree within this share of the logits' largest
+#: magnitude, of the loss, of the grad norm and of each leaf's gradient
+#: (its norm, its projection on a seeded probe, rank 0's block element by
+#: element).  The split changes the summation order only.  rwkv6-7b's
+#: float32 gradient amplifies that order's rounding about 10^4 times (a
+#: head's first output, which ``ln_x`` normalises over its 64 channels, is
+#: rank one, and its scale may sit near ``sqrt(eps)`` = 1e-3), which
+#: float32 cannot tell from a wrong gradient; float64's rounding times that
+#: stays near 1e-12
+SSMTP4_F64_TOL = 1e-8
+SSMTP4_F32_BATCH, SSMTP4_F32_SEQ, SSMTP4_F32_STEPS = 8, 256, 2
+#: (c') the float32 forward's batch and sequence; (d) the split decode's
+#: batch and steps from the zero state
+SSMTP4_F32_FWD = (1, 512)
+SSMTP4_DECODE = (2, 8)
+#: (d) zamba2-2.7b's decode reads a bfloat16 K/V cache (one card's and the
+#: split model's alike): a K/V element that the two summation orders put on
+#: either side of a rounding boundary is stored one bfloat16 step (2^-8
+#: relative) apart, so its logits are held within that share of their
+#: largest magnitude (rwkv6-7b's float32 state within ``F32_LOGIT_TOL``)
+SSMTP4_BF16_CACHE_TOL = 2.0 ** -8
+#: (b) one warm step, then the timed ones, a mode
+SSMTP4_WARM, SSMTP4_TIMED = 1, 2
+SSMTP4_TIMEOUT = 900
+#: NCCL's wait for a collective in [ssmtp4]'s ranks
+SSMTP4_NCCL_TIMEOUT_S = 240
+
+
+def _ssmtp4_cfg(arch: str, device: str, depth, grad_sync: str, dtype: str | None = None,
+                zero1: bool = True, **change):
+    """``arch`` at full width (the smoke config with ``tp_size=4`` on the
+    CPU, so every unit splits), ``depth`` layers (None: the config's),
+    ``grad_sync``, the ABI step's ZeRO-1 (``zero1``) or per-leaf layout,
+    the weights and the compute in ``dtype`` (None: the config's)."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    on_card = device != "cpu"
+    cfg = configs.get_config(arch) if on_card else configs.smoke_config(arch)
+    par = dict(grad_sync=grad_sync, zero1=zero1)
+    if not on_card:
+        par.update(tp_size=SSMTP4, microbatch=4, remat="full")
+    cfg = dataclasses.replace(cfg, num_layers=depth or cfg.num_layers, **change,
+                              parallelism=dataclasses.replace(cfg.parallelism, **par))
+    if dtype:
+        cfg = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+    return cfg
+
+
+class _ScanSpy:
+    """Within ``with``, keeps copies of the inputs and output of the last
+    ``wkv6`` and ``ssd`` call the models make (the wrappers run as they
+    are, so the launch counts are the run's own); ``check`` holds each to its plain
+    version on the same inputs (``CHUNKED_TOL``)."""
+
+    def __enter__(self):
+        from repro_torch.models import mamba, rwkv
+
+        self.seen, self._real = {}, (rwkv.wkv6_apply, mamba.ssd_apply)
+
+        def spy(name, fn):
+            def call(*args, chunk):
+                out = fn(*args, chunk=chunk)
+                # copies: an argument may view a parameter the step updates
+                self.seen[name] = (tuple(a.detach().clone() for a in args), chunk,
+                                   out.detach().clone())
+                return out
+            return call
+
+        rwkv.wkv6_apply, mamba.ssd_apply = spy("wkv6", self._real[0]), spy("ssd", self._real[1])
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import mamba, rwkv
+
+        rwkv.wkv6_apply, mamba.ssd_apply = self._real
+
+    def check(self, tag: str) -> dict:
+        """name -> the call's heads, its max abs difference to the plain
+        version, and its gate (``ok``): every output within ``CHUNKED_TOL``
+        (abs and rel) of the plain version, or else within ``CHUNKED_TOL``
+        of the outputs' largest magnitude (the models' activations reach
+        larger outputs than [check]'s inputs, and an output near zero then
+        carries the float32 sums' cancellation); the distances of both to
+        the plain form run in float64 are a record.  Records, never
+        raises: a rank that left the world here would hang the others in
+        their next collective."""
+        from repro_torch.kernels.mamba2_ssd import ref as ssd_ref
+        from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
+
+        import torch
+
+        out = {}
+        for name, (args, chunk, got) in self.seen.items():
+            plain = {"wkv6": wkv_ref.wkv6, "ssd": ssd_ref.ssd}[name]
+            args, got = [a.detach() for a in args], got.detach()
+            with torch.no_grad():
+                want = plain(*args, chunk=chunk)
+            torch_sync()
+            err = _max_err(got, want)
+            rec = dict(heads=int(args[0].shape[2]), max_abs=err,
+                       y_max=float(want.float().abs().max()),
+                       ok=_excess(got.float(), want.float(), CHUNKED_TOL) <= 0)
+            if not rec["ok"]:
+                with torch.no_grad():
+                    f64 = plain(*(a.double() for a in args), chunk=chunk)
+                rec.update(kernel_f64=_max_err(got, f64), plain_f64=_max_err(want, f64))
+                rec["ok"] = err <= CHUNKED_TOL * rec["y_max"]
+                del f64
+            log(f"[{tag}] the last {name} call (shape {tuple(args[0].shape)}, chunk {chunk}) "
+                f"on the layer's own activations against its plain version: {json.dumps(rec)} "
+                f"(gate {CHUNKED_TOL} abs and rel, or {CHUNKED_TOL} of the largest output)")
+            out[name] = rec
+        self.seen = {}
+        return out
+
+
+def _ssmtp4_decode(api, model, tokens, dist, dev) -> list:
+    """The logits of each step of a decode that feeds ``tokens`` (B, n) one
+    position at a time from the zero state (this rank's block of the state
+    where the model splits)."""
+    import torch
+
+    B, n = tokens.shape
+    tp = getattr(model, "part", None)
+    with torch.no_grad():
+        kw = {"model_axis": tp.tp_size} if tp is not None and tp.tp_size > 1 else {}
+        state = api.decode_init(B, n, device=dev, **kw)
+        out = []
+        for i in range(n):
+            logits, state = api.decode_step(model, tokens[:, i:i + 1], state, i, dist)
+            out.append(logits.float())
+    return out
+
+
+def _ssmtp4_vs(got, want) -> dict:
+    """Logits against one card's: the largest difference (in float64), the
+    scale."""
+    import torch
+
+    d = (got.double() - want.double()).abs()
+    return dict(max_abs=float(d.max()), scale=float(want.double().abs().max()),
+                finite=bool(torch.isfinite(got).all()))
+
+
+class _PlainWkv6:
+    """Within ``with``, the rwkv6 model's scan runs its plain chunked form
+    (``ref.wkv6``, differentiated as plain torch) in the inputs' own type:
+    (e)'s float64 witness, which the float32 kernel does not take."""
+
+    def __enter__(self):
+        from repro_torch.kernels.rwkv6_scan import ref
+        from repro_torch.models import rwkv
+
+        self._real = rwkv.wkv6_apply
+        rwkv.wkv6_apply = lambda r, k, v, w, u, *, chunk: ref.wkv6(r, k, v, w, u, chunk=chunk)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import rwkv
+
+        rwkv.wkv6_apply = self._real
+
+
+class _LnxSpy:
+    """Within ``with``, each rwkv6 ``ln_x`` call (the per-head group norm
+    of the scan's output, (B, T, H, N)) records its input's smallest
+    per-head standard deviation at the first position and at the others:
+    at the first the state is zero and a head's output is rank one, and
+    where its scale nears ``sqrt(eps)`` the norm amplifies its rounding."""
+
+    def __enter__(self):
+        from repro_torch.models import rwkv
+
+        self.rows, self._real = [], rwkv.norm
+
+        def spy(p, x, kind):
+            if x.ndim == 4 and x.shape[1] > 1:
+                sd = x.float().std(dim=-1, unbiased=False)
+                self.rows.append([float(sd[:, 0].min()), float(sd[:, 1:].min())])
+            return self._real(p, x, kind)
+
+        rwkv.norm = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import rwkv
+
+        rwkv.norm = self._real
+
+
+def _ssmtp4_f64(api, model, tokens, batch, dist, dev, against=None) -> tuple:
+    """(e): ``model``'s float64 forward of ``tokens`` and the gradient of
+    ``batch``'s loss under :class:`_PlainWkv6`.  Returns the logits (the
+    whole vocabulary, on the CPU), a record (the loss, the grad norm and,
+    per leaf, the gradient's squared norm and its dot product with a
+    seeded N(0, 1) probe of the whole leaf, each summed over the model
+    axis where the leaf splits, and the probe's squared norm) and this
+    rank's gradient blocks on the CPU; with ``against`` (leaf -> (take,
+    block): another model's block and the function that takes it from a
+    whole leaf) each leaf's largest difference to it and the leaf's
+    largest magnitude instead of the blocks."""
+    import torch
+    from repro_torch.models import param_leaves
+    from repro_torch.models.tensor_parallel import TP, take_block
+
+    with torch.no_grad(), _PlainWkv6():
+        logits = api.forward(model, {"tokens": tokens}, dist).cpu()
+    with _PlainWkv6():
+        leaves = param_leaves(model)
+        loss = api.loss_fn(model, batch, dist)
+        grads = torch.autograd.grad(loss, [p for _, p in leaves], materialize_grads=True)
+    held = getattr(model, "held", {})
+    rec, out = {"loss": float(loss.detach()), "leaves": {}}, {}
+    for i, ((name, _), g) in enumerate(zip(leaves, grads)):
+        gen = torch.Generator(device=dev).manual_seed(1000 + i)
+        probe = torch.randn(model.full_shapes[name], generator=gen, device=dev,
+                            dtype=g.dtype)
+        pb = take_block(model, name, probe)
+        v = torch.stack([(g * g).sum(), (g * pb).sum()])
+        if TP in held.get(name, ()):
+            torch.distributed.all_reduce(v, group=dist.tp_group)
+        leaf = dict(sq=float(v[0]), dot=float(v[1]), probe_sq=float((probe * probe).sum()))
+        if against is None:
+            out[name] = g.cpu()
+        else:
+            take, block = against[name]
+            leaf.update(block_max_abs=float((take(name, g) - block.to(dev)).abs().max()),
+                        g_max=float(g.abs().max()))
+        rec["leaves"][name] = leaf
+        del probe, pb
+    rec["grad_norm"] = math.sqrt(sum(x["sq"] for x in rec["leaves"].values()))
+    del grads, loss
+    return logits, rec, out
+
+
+def _ssmtp4_rank(rank: int, world: int, init_method: str, out_dir: str,
+                 device: str = "cuda") -> None:
+    """One rank of [ssmtp4] (``device="cpu"``: the smoke configs on gloo).
+    One world; mesh (1, 4), and (2, 2) built on it.  For rwkv6-7b, then
+    zamba2-2.7b, each rank holding its block (a quarter of the heads,
+    channels, ``d_ff`` and vocabulary): (c) the bf16 forward at full depth
+    (zamba2-2.7b under flash), B=4, S=2048, its kernels' launches and the
+    last call of each held to its plain version; (c') the float32 forward
+    and (d) the split decode at ``SSMTP4_F32_DEPTH``; (a) float32 steps at
+    that depth, the ABI ZeRO-1 step at (1, 4) and ``gspmd`` with FSDP at
+    (2, 2), the last scan call of (c') and of each mode's steps held to its
+    plain version; (e) rwkv6-7b's float64 witness at (1, 4): the forward of
+    (c')'s tokens and the gradient of (a)'s first batch at the initial
+    weights.  Then (b) bf16 steps at full depth in both modes (the ABI step
+    in its per-leaf layout), batch 8 x 1024, on the forward's model at
+    (1, 4).  Rank 0 then runs the one-card references on its card with no
+    process group: the whole model's float32 forward (``_LnxSpy`` on
+    rwkv6-7b's), decode and unsharded steps, and rwkv6-7b's float64
+    forward and gradient.  Each leg's records are saved as it ends."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    sys.path.insert(0, str(SRC))
+    import dataclasses
+
+    import torch
+    from repro_torch.core import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.model import _family
+    from repro_torch.models.tensor_parallel import take_block
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.dist import make_dist
+    from repro_torch.train import train_loop as tl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    on_card = device != "cpu"
+    torch.set_num_threads(1)
+    dev = torch.device(f"cuda:{rank}") if on_card else torch.device("cpu")
+    if on_card:
+        torch.cuda.set_device(dev)
+    B, S = (TRAIN_BATCH, TRAIN_SEQ) if on_card else (8, 32)
+    B32, S32 = (SSMTP4_F32_BATCH, SSMTP4_F32_SEQ) if on_card else (8, 32)
+    FB, FS = (FWD_BATCH, FWD_SEQ) if on_card else (4, 32)
+    F32B, F32S = SSMTP4_F32_FWD if on_card else (1, 16)
+    DB, DN = SSMTP4_DECODE
+    depth32 = {a: SSMTP4_F32_DEPTH[a] if on_card else None for a in SSMTP4_ARCHS}
+    if on_card:
+        # a rank that fails between collectives ends the others within
+        # minutes, not NCCL's default ten (make_dist joins this world)
+        import datetime
+
+        torch.distributed.init_process_group(
+            "nccl", init_method=f"file://{Path(out_dir) / 'world'}", world_size=world,
+            rank=rank, timeout=datetime.timedelta(seconds=SSMTP4_NCCL_TIMEOUT_S))
+    gen = torch.Generator().manual_seed(1)
+    data = {}
+    for arch in SSMTP4_ARCHS:
+        c = _ssmtp4_cfg(arch, device, None, "abi")
+        data[arch] = dict(
+            f32=_tp4_batches(c, B32, S32, SSMTP4_F32_STEPS),
+            bf16=_tp4_batches(c, B, S, SSMTP4_WARM + SSMTP4_TIMED),
+            fwd=torch.randint(0, c.vocab_size, (FB, FS), generator=gen),
+            f32_fwd=torch.randint(0, c.vocab_size, (F32B, F32S), generator=gen),
+            decode=torch.randint(0, c.vocab_size, (DB, DN), generator=gen))
+    rec: dict = {}
+    keep: dict = {}
+    t0 = time.perf_counter()
+
+    def done(leg: str) -> None:
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
+        log(f"[ssmtp4] rank {rank}: {leg} done at {time.perf_counter() - t0:.1f} s")
+
+    def free() -> None:
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def first_batch(arch: str) -> dict:
+        return {k: torch.as_tensor(data[arch]["f32"][0][k]).to(dev)
+                for k in ("tokens", "targets")}
+
+    with make_dist(device=str(dev), model_axis=SSMTP4, world_size=world, rank=rank,
+                   init_method=f"file://{Path(out_dir) / 'world'}") as dist4:
+        dist22 = make_dist(mesh=Mesh(("data", "model"), (2, 2), dist4.device))
+        try:
+            bf16_models = {}
+            for arch in SSMTP4_ARCHS:
+                r = rec.setdefault(arch, {})
+                d = data[arch]
+                # (c) the bf16 forward at full depth; zamba2's shared block under flash
+                fcfg = _ssmtp4_cfg(arch, device, None, "abi", zero1=False,
+                                   attention_impl="flash" if arch == HYBRID_ARCH else "xla")
+                api = build_model(fcfg)
+                t = time.perf_counter()
+                model = api.init(0, dev, **tl.model_part(api, dist4))
+                r["draw_s"] = time.perf_counter() - t
+                r["part"] = list(dataclasses.astuple(model.part))
+                r["split"] = sorted(n for n, spec in model.held.items() if "tp" in spec)
+                tokens = d["fwd"].to(dev)
+                with torch.no_grad(), _FlashSpy() as fspy, _ScanSpy() as sspy:
+                    _zero_counts()
+                    _, t1 = _timed(lambda: api.forward(model, {"tokens": tokens}, dist4),
+                                   on_card, dev)
+                    r["fwd_launches"] = _counts()
+                    if on_card:
+                        r["fwd_last"] = sspy.check(f"ssmtp4 {arch}")
+                        if arch == HYBRID_ARCH:
+                            try:  # recorded, not raised: the world goes on
+                                fspy.check(f"ssmtp4 {arch}")
+                                r["fwd_last"]["flash"] = dict(ok=True)
+                            except AssertionError as e:
+                                r["fwd_last"]["flash"] = dict(ok=False, error=str(e))
+                with torch.no_grad():
+                    r["fwd_ms"] = [_timed(lambda: api.forward(model, {"tokens": tokens}, dist4),
+                                          on_card, dev)[1] for _ in range(3)]
+                r["fwd_first_ms"] = t1
+                if arch == HYBRID_ARCH:
+                    a = model.shared.attn
+                    hd = fcfg.resolved_head_dim
+                    r["fwd_heads"] = [int(a.wq.shape[-1] // hd), int(a.wk.shape[-1] // hd), hd]
+                bf16_models[arch] = model
+                del model
+                free()
+                done(f"(c) {arch} the bf16 forward")
+                # (c') the float32 forward and (d) the split decode, then (a) the
+                # ABI ZeRO-1 steps on the same weights; the last scan call of
+                # each held to its plain version
+                cfg = _ssmtp4_cfg(arch, device, depth32[arch], "abi", "float32")
+                api = build_model(cfg)
+                model = api.init(0, dev, **tl.model_part(api, dist4))
+                with torch.no_grad(), _ScanSpy() as sspy:
+                    logits = api.forward(model, {"tokens": d["f32_fwd"].to(dev)}, dist4)
+                    if on_card:
+                        r["f32_fwd_last"] = sspy.check(f"ssmtp4 {arch} float32 forward")
+                steps = _ssmtp4_decode(api, model, d["decode"].to(dev), dist4, dev)
+                if rank == 0:
+                    keep[arch] = dict(logits=logits.cpu(), decode=[x.cpu() for x in steps])
+                del logits, steps
+                with _ScanSpy() as sspy:
+                    r["f32_abi"] = _tp4_steps(api, dist4, d["f32"], on_card, dev, model=model)
+                    if on_card:
+                        r["f32_abi_last"] = sspy.check(f"ssmtp4 {arch} float32 abi step")
+                del model
+                free()
+                done(f"(c', d, a) {arch} float32 at (1, 4)")
+                api = build_model(_ssmtp4_cfg(arch, device, depth32[arch], "gspmd", "float32"))
+                with _ScanSpy() as sspy:
+                    r["f32_gspmd"] = _tp4_steps(api, dist22, d["f32"], on_card, dev)
+                    if on_card:
+                        r["f32_gspmd_last"] = sspy.check(f"ssmtp4 {arch} float32 gspmd step")
+                free()
+                done(f"(a) {arch} float32 gspmd at (2, 2)")
+                if arch == SSM_ARCH:
+                    # (e) the float64 witness at (1, 4)
+                    api = build_model(_ssmtp4_cfg(arch, device, depth32[arch], "abi",
+                                                  "float64"))
+                    model = api.init(0, dev, **tl.model_part(api, dist4))
+                    logits, r["f64"], blocks = _ssmtp4_f64(
+                        api, model, d["f32_fwd"].to(dev), first_batch(arch), dist4, dev)
+                    if rank == 0:
+                        keep[arch].update(f64_logits=logits, f64_blocks=blocks,
+                                          f64_part=dataclasses.astuple(model.part))
+                    del model, logits, blocks
+                    free()
+                    done(f"(e) {arch} float64 at (1, 4)")
+            for arch in SSMTP4_ARCHS:
+                # (b) bf16 at full depth: the ABI step per leaf at (1, 4) on the
+                # forward's model, then gspmd with FSDP at (2, 2)
+                r, d = rec[arch], data[arch]
+                api = build_model(_ssmtp4_cfg(arch, device, None, "abi", zero1=False))
+                model = bf16_models.pop(arch)
+                r["bf16_abi"] = _tp4_steps(api, dist4, d["bf16"], on_card, dev, model=model)
+                del model
+                free()
+                done(f"(b) {arch} bf16 abi")
+                api = build_model(_ssmtp4_cfg(arch, device, None, "gspmd"))
+                r["bf16_gspmd"] = _tp4_steps(api, dist22, d["bf16"], on_card, dev)
+                free()
+                done(f"(b) {arch} bf16 gspmd")
+        finally:
+            dist22.shutdown()
+    if rank == 0:
+        # the one-card references, no process group
+        for arch in SSMTP4_ARCHS:
+            d = data[arch]
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(dev)
+            cfg = _ssmtp4_cfg(arch, device, depth32[arch], "gspmd", "float32")
+            api = build_model(cfg)
+            model = api.init(0, dev)
+            with torch.no_grad(), _LnxSpy() as lnx:
+                want = api.forward(model, {"tokens": d["f32_fwd"].to(dev)})
+            rec[arch]["lnx_std_min"] = lnx.rows
+            rec[arch]["f32_fwd_vs_one_card"] = _ssmtp4_vs(keep[arch]["logits"].to(dev), want)
+            keep[arch]["one_f32_logits"] = want.cpu()
+            want = _ssmtp4_decode(api, model, d["decode"].to(dev), None, dev)
+            rec[arch]["decode_vs_one_card"] = [_ssmtp4_vs(g.to(dev), w)
+                                               for g, w in zip(keep[arch]["decode"], want)]
+            del want
+            state = tl.TrainState(model, adamw.init_tree(tl.param_leaves(model)),
+                                  torch.zeros((), dtype=torch.int32, device=dev))
+            step = tl.make_train_step(api, None, AdamWConfig())
+            ref = dict(losses=[], grad_norms=[])
+            for b in d["f32"]:
+                state, met = step(state, {k: torch.as_tensor(v).to(dev) for k, v in b.items()})
+                ref["losses"].append(float(met.loss))
+                ref["grad_norms"].append(float(met.grad_norm))
+            rec[arch]["f32_one_card"] = ref
+            rec[arch]["one_card_peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9
+                                             if on_card else 0.0)
+            del state, model, step
+            free()
+            if arch == SSM_ARCH:
+                # (e) one card's float64 model against rank 0's block
+                api = build_model(_ssmtp4_cfg(arch, device, depth32[arch], "abi", "float64"))
+                model = api.init(0, dev)
+                k = keep[arch]
+                meta = _family(api.cfg)[1](api.cfg, "meta", *k["f64_part"])
+                logits, one, _ = _ssmtp4_f64(
+                    api, model, d["f32_fwd"].to(dev), first_batch(arch), None, dev,
+                    against={n: (lambda name, g: take_block(meta, name, g), b)
+                             for n, b in k["f64_blocks"].items()})
+                rec[arch]["f64_one_card"] = one
+                rec[arch]["f64_logits"] = dict(
+                    split=_ssmtp4_vs(k["f64_logits"], logits),
+                    f32_split=_ssmtp4_vs(k["logits"].double(), logits),
+                    f32_one_card=_ssmtp4_vs(k["one_f32_logits"].double(), logits))
+                del model, logits
+                free()
+            done(f"the one-card references of {arch}")
+    done("the one-card references" if rank == 0 else "all legs")
+
+
+def phase_ssmtp4(card: str, device: str = "cuda",
+                 out_dir: Path = HERE / "build" / "ssmtp4") -> dict:
+    """[ssmtp4] (four cards, NCCL; ``device="cpu"``: the smoke configs on
+    gloo, a rehearsal): :func:`_ssmtp4_rank` on four spawned ranks.  Gates,
+    for rwkv6-7b and zamba2-2.7b: (c) at full depth each rank launches
+    ``wkv6`` once a layer at 16 of 64 heads (``ssd`` at 20 of 80 heads, and
+    flash once a firing at 8/8 heads of D=80), the last call of each held to
+    its plain version (``_ScanSpy.check``, ``_FlashSpy.check``; 0 launches
+    on the CPU), and so the last scan call of (c') and of each mode's (a)
+    steps; (c') zamba2-2.7b's float32 forward within ``F32_LOGIT_TOL`` of
+    one card's whole model (rwkv6-7b's is a record: (e) holds it); (d) each
+    split decode step within ``F32_LOGIT_TOL`` of one card's (zamba2-2.7b,
+    on its bfloat16 K/V cache, within ``SSMTP4_BF16_CACHE_TOL`` of the
+    logits' largest magnitude); (a) each mode's float32 step-1 loss within
+    ``TP4_LOSS_RTOL`` of one card's unsharded step, zamba2-2.7b's step-1
+    grad norm within ``TP4_NORM_RTOL`` (rwkv6-7b's float32 gradient is
+    ill-conditioned: (e) holds it), every value finite, step 2 a record
+    (step 1's AdamW update moves every weight by the learning rate, and
+    step 2 reads the model it blew up), ``pack_transposed`` once a step per
+    rank under the ABI ZeRO-1 step (0 under ``gspmd``; 0 on the CPU);
+    (e) rwkv6-7b's float64 split forward and gradient within
+    ``SSMTP4_F64_TOL`` of one card's; (b) finite bf16 losses equal on every
+    rank, each step's scan launches twice a layer and microbatch (forward
+    and remat's recompute) and a card's weights exactly the bytes its held
+    specs give.  The ranks' records stay in ``out_dir``.  Returns the
+    launches by kernel on rank 0."""
+    import shutil
+
+    t0 = time.perf_counter()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    on_card = device != "cpu"
+    try:
+        ranks = _spawn_ranks("ssmtp4", _ssmtp4_rank, SSMTP4, out_dir, device,
+                             timeout=SSMTP4_TIMEOUT)
+    except RuntimeError:
+        for r in range(SSMTP4):
+            part = out_dir / f"rank{r}.json"
+            log(f"[ssmtp4] rank {r}'s records so far: "
+                f"{part.read_text() if part.exists() else 'none'}")
+        raise
+    where = card if on_card else "gloo"
+    width = "full width" if on_card else "smoke"
+    bad = []
+    launches = {"wkv6": 0, "ssd": 0, "flash_attention": 0, "pack_transposed": 0}
+    scan = {SSM_ARCH: "wkv6", HYBRID_ARCH: "ssd"}
+    for arch in SSMTP4_ARCHS:
+        r0 = ranks[0][arch]
+        cfg = _ssmtp4_cfg(arch, device, None, "abi")
+        L = cfg.num_layers
+        firings = L // cfg.hybrid.shared_attn_every if arch == HYBRID_ARCH else 0
+        name = scan[arch]
+        fl = [r[arch]["fwd_launches"] for r in ranks]
+        want = {name: L if on_card else 0,
+                "flash_attention": firings if on_card else 0}
+        log(f"[ssmtp4] {arch} {width} on four ranks of {where}: parts "
+            f"{[r[arch]['part'] for r in ranks]}; split leaves (rank 0) {r0['split']}; the "
+            f"weight draw {r0['draw_s']:.1f} s")
+        log(f"[ssmtp4] (c) {arch} bf16 forward, {L} layers, B={FWD_BATCH if on_card else 4} "
+            f"S={FWD_SEQ if on_card else 32}"
+            f"{', shared attention under flash' if arch == HYBRID_ARCH else ''}: launches per "
+            f"rank {[{k: x[k] for k in want} for x in fl]}; the last calls against their plain "
+            f"versions (rank 0) {json.dumps(r0.get('fwd_last'))}"
+            + (f"; shared attention {r0['fwd_heads'][0]}/{r0['fwd_heads'][1]} heads of D="
+               f"{r0['fwd_heads'][2]} a rank" if arch == HYBRID_ARCH else "")
+            + f"; ms per forward (rank 0) {[round(t, 1) for t in r0['fwd_ms']]} after a first "
+            f"{r0['fwd_first_ms']:.1f}")
+        if any(x[k] != v for x in fl for k, v in want.items()):
+            bad.append(f"(c) {arch} launches {fl}")
+        if on_card:
+            heads = (cfg.d_model // cfg.ssm.head_dim if arch == SSM_ARCH
+                     else cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim) // SSMTP4
+            last = [r[arch]["fwd_last"][name]["heads"] for r in ranks]
+            if last != [heads] * SSMTP4 or (arch == HYBRID_ARCH and r0["fwd_heads"][:2] != [
+                    cfg.num_heads // SSMTP4, cfg.num_kv_heads // SSMTP4]):
+                bad.append(f"(c) {arch} heads a rank {last}, {r0.get('fwd_heads')}")
+            if not all(c["ok"] for r in ranks for c in r[arch]["fwd_last"].values()):
+                bad.append(f"(c) {arch} the last calls {[r[arch]['fwd_last'] for r in ranks]}")
+        f32 = r0["f32_fwd_vs_one_card"]
+        dec = r0["decode_vs_one_card"]
+        depth = SSMTP4_F32_DEPTH[arch] if on_card else cfg.num_layers
+        dec_tol = ([F32_LOGIT_TOL] * len(dec) if arch == SSM_ARCH
+                   else [SSMTP4_BF16_CACHE_TOL * x["scale"] for x in dec])
+        log(f"[ssmtp4] (c') {arch} float32 forward, {depth} layers, against one card's whole "
+            f"model: {json.dumps(f32)} ("
+            + (f"bound {F32_LOGIT_TOL}" if arch == HYBRID_ARCH else "a record: (e) holds it")
+            + f"); (d) the split decode, {SSMTP4_DECODE[1]} steps from the zero state: max "
+            f"abs per step {[f'{x['max_abs']:.3e}' for x in dec]} (bounds "
+            f"{[f'{t:.2e}' for t in dec_tol]})")
+        if arch == SSM_ARCH:
+            log(f"[ssmtp4] (c') {arch} one card's ln_x inputs, smallest per-head std per "
+                f"layer at the first position and at the others: "
+                f"{[[f'{v:.3e}' for v in row] for row in r0['lnx_std_min']]}")
+        checks = [(f"(d) step {i}", x, t) for i, (x, t) in enumerate(zip(dec, dec_tol))]
+        if arch == HYBRID_ARCH:
+            checks.append(("(c')", f32, F32_LOGIT_TOL))
+        for what, x, tol in checks:
+            if not x["finite"] or x["max_abs"] > tol:
+                bad.append(f"{what} {arch}: {x}")
+        if not f32["finite"]:
+            bad.append(f"(c') {arch}: {f32}")
+        ref = r0["f32_one_card"]
+        log(f"[ssmtp4] (a) {arch} float32, {depth} layers, batch "
+            f"{SSMTP4_F32_BATCH if on_card else 8}x{SSMTP4_F32_SEQ if on_card else 32}, one "
+            f"card's unsharded step (peak {r0['one_card_peak_gb']:.2f} GB): losses "
+            f"{ref['losses']} grad norms {ref['grad_norms']}")
+        for mode in ("abi", "gspmd"):
+            a = [r[arch][f"f32_{mode}"] for r in ranks]
+            diff = {key: [max(abs(x[key][i] - ref[key][i]) / abs(ref[key][i]) for x in a)
+                          for i in range(SSMTP4_F32_STEPS)] for key in ("losses", "grad_norms")}
+            log(f"[ssmtp4] (a) {arch} {mode} at "
+                f"{'(1, 4), ZeRO-1' if mode == 'abi' else '(2, 2), FSDP'}: losses "
+                f"{a[0]['losses']} grad norms {a[0]['grad_norms']}; largest relative "
+                f"difference to one card per step: losses "
+                f"{[f'{v:.3e}' for v in diff['losses']]} (step 1's bound {TP4_LOSS_RTOL}), "
+                f"grad norms {[f'{v:.3e}' for v in diff['grad_norms']]} ("
+                + (f"step 1's bound {TP4_NORM_RTOL}" if arch == HYBRID_ARCH
+                   else "a record: (e) holds the gradient")
+                + f"); pack_transposed a step per rank {[x['packs'] for x in a]}; peak GB "
+                f"{[round(x['peak_gb'], 2) for x in a]}")
+            want_pack = [1 if (on_card and mode == "abi") else 0] * SSMTP4_F32_STEPS
+            over = diff["losses"][0] > TP4_LOSS_RTOL or (
+                arch == HYBRID_ARCH and diff["grad_norms"][0] > TP4_NORM_RTOL)
+            finite = all(math.isfinite(v) for x in a for k in ("losses", "grad_norms")
+                         for v in x[k])
+            if over or not finite or any(x["packs"] != want_pack for x in a):
+                bad.append(f"(a) {arch} {mode}: {diff}, packs {[x['packs'] for x in a]}")
+        if on_card:
+            for key in ("f32_fwd_last", "f32_abi_last", "f32_gspmd_last"):
+                calls = [r[arch][key] for r in ranks]
+                log(f"[ssmtp4] (c', a) {arch} {key}: the last {name} call against its plain "
+                    f"version per rank {json.dumps(calls)}")
+                if not all(c.get(name, {}).get("ok") for c in calls):
+                    bad.append(f"(c', a) {arch} {key} {calls}")
+        if arch == SSM_ARCH:
+            split, one = r0["f64"], r0["f64_one_card"]
+            lg = r0["f64_logits"]
+            tol = SSMTP4_F64_TOL
+            leaves = []
+            for n, o in one["leaves"].items():
+                x = split["leaves"][n]
+                norm = math.sqrt(o["sq"])
+                errs = dict(norm=abs(math.sqrt(x["sq"]) - norm) / max(norm, 1e-300),
+                            dot=abs(x["dot"] - o["dot"]) / max(norm * math.sqrt(o["probe_sq"]),
+                                                               1e-300),
+                            block=o["block_max_abs"] / max(o["g_max"], 1e-300))
+                leaves.append((max(errs.values()), n, errs))
+            worst = max(leaves)
+            g_rel = abs(split["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
+            l_rel = abs(split["loss"] - one["loss"]) / abs(one["loss"])
+            log(f"[ssmtp4] (e) {arch} float64, {depth} layers, the plain scan: split (1, 4) "
+                f"against one card's whole model: logits {lg['split']['max_abs']:.3e} of "
+                f"{lg['split']['scale']:.3f}; loss {split['loss']!r} vs {one['loss']!r} "
+                f"({l_rel:.3e}); grad norm {split['grad_norm']!r} vs {one['grad_norm']!r} "
+                f"({g_rel:.3e}); worst leaf {worst[1]} {json.dumps(worst[2])} (bound {tol}); "
+                f"the float32 logits against one card's float64: split "
+                f"{lg['f32_split']['max_abs']:.3e}, one card {lg['f32_one_card']['max_abs']:.3e}")
+            if (lg["split"]["max_abs"] > tol * lg["split"]["scale"] or l_rel > tol
+                    or g_rel > tol or worst[0] > tol or not lg["split"]["finite"]):
+                bad.append(f"(e) {arch}: logits {lg['split']}, loss {l_rel}, grad norm {g_rel}, "
+                           f"worst leaf {worst}")
+        for mode in ("abi", "gspmd"):
+            b = [r[arch][f"bf16_{mode}"] for r in ranks]
+            ms = statistics.median(b[0]["ms"][SSMTP4_WARM:])
+            micro = cfg.parallelism.microbatch
+            per_step = 2 * L * micro if on_card else 0
+            got = [x.get("launches", [{}] * len(x["ms"])) for x in b]
+            log(f"[ssmtp4] (b) {arch} {mode} at "
+                f"{'(1, 4), per-leaf' if mode == 'abi' else '(2, 2), FSDP'} bf16, {L} layers, "
+                f"batch {TRAIN_BATCH if on_card else 8}x{TRAIN_SEQ if on_card else 32}: losses "
+                f"{[round(v, 4) for v in b[0]['losses']]} grad norms "
+                f"{[round(v, 4) for v in b[0]['grad_norms']]}; ms/step per rank "
+                f"{[[round(t, 1) for t in x['ms']] for x in b]} (rank 0's median of the "
+                f"{SSMTP4_TIMED} after {SSMTP4_WARM} warm {ms:.1f}); peak GB per card "
+                f"{[round(x['peak_gb'], 2) for x in b]}; bytes of weights per card "
+                f"{[x['held_bytes'] for x in b]} of {b[0]['whole_bytes']} (the held specs "
+                f"give {[x['expect_bytes'] for x in b]})"
+                + (f"; {name} launches a step (rank 0) {[c[name] for c in got[0]]}"
+                   if mode == "abi" else ""))
+            if any(x["losses"] != b[0]["losses"] or not all(math.isfinite(v)
+                                                            for v in x["losses"]) for x in b):
+                bad.append(f"(b) {arch} {mode}: losses {[x['losses'] for x in b]}")
+            if mode == "abi" and any(c[name] != per_step for g in got for c in g):
+                bad.append(f"(b) {arch} {name} launches a step {[[c[name] for c in g] for g in got]}"
+                           f", expected {per_step}")
+            if any(x["held_bytes"] != x["expect_bytes"] for x in b):
+                bad.append(f"(b) {arch} {mode}: bytes held {[x['held_bytes'] for x in b]}, "
+                           f"by the held specs {[x['expect_bytes'] for x in b]}")
+        launches[name] += fl[0][name]
+        launches["flash_attention"] += fl[0]["flash_attention"]
+        launches["pack_transposed"] += sum(sum(r0[f"f32_{m}"]["packs"]) for m in ("abi",))
+    log(f"[ssmtp4] phase wall {time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError("[ssmtp4] " + "; ".join(bad))
+    return launches
+
+
 CU = "src/repro_torch/kernels/ring_wire/csrc/"
 TPU = "src/repro/kernels/ring_wire/kernel.py:"
 #: name -> (CUDA source, the TPU kernel it replaces)
@@ -5872,9 +6604,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("check", "ring4", "serve", "swap", "fault", "fault4",
                                        "ssm", "moe", "mm", "moe4", "ep4", "pp4", "tp4",
-                                       "moetp4"),
+                                       "moetp4", "ssmtp4"),
                     default=None,
                     help="check: stop after building and checking the kernels; "
+                         "ssmtp4: build, then only the four-card model axis of the ssm and "
+                         "hybrid families (rwkv6-7b and zamba2-2.7b); "
                          "tp4: build, then only the four-card tensor parallelism and FSDP "
                          "of gemma-7b; "
                          "moetp4: build, then only the four-card model axis of the moe "
@@ -5956,6 +6690,14 @@ def main() -> int:
                                           for name, n in moetp4.items()]}), flush=True)
             log("[only] moetp4: the moe family on the model axis of four cards matched one "
                 "card; no result line")
+            return 0
+        if args.only == "ssmtp4":
+            _need_cards("ssmtp4", SSMTP4)
+            ssmtp4 = phase_ssmtp4(card)
+            print(json.dumps({"kernels": [{"name": name, "launches_by_phase": {"ssmtp4": n}}
+                                          for name, n in ssmtp4.items()]}), flush=True)
+            log("[only] ssmtp4: the ssm and hybrid families on the model axis of four cards "
+                "matched one card; no result line")
             return 0
         if args.only == "ring4":
             if torch.cuda.device_count() < RING4:

@@ -3,10 +3,11 @@ calls on the full sequence (``models/rwkv.py:time_mix`` with no state).
 
 :func:`wkv6_apply` takes the model layout, r, k, v and wlog (B, T, H, N)
 and u (H, N), as the reference's ``wkv6_apply`` does, and returns
-y (B, T, H, N) in float32.  It casts to float32, checks what the kernel
-takes, then runs the variant the kernel registry (:mod:`repro_torch.kernels`)
-holds for the tensors' device: on a CUDA tensor :func:`launch_wkv6`, which
-launches ``csrc/wkv6_wgmma.cu`` (entry point :data:`ENTRY`: the four
+y (B, T, H, N) in float32 (float64 from float64 inputs, which only the
+plain version takes: a float64 model's scan on the CPU).  It casts to
+float32, checks what the kernel takes, then runs the variant the kernel
+registry (:mod:`repro_torch.kernels`) holds for the tensors' device: on a
+CUDA tensor :func:`launch_wkv6`, which launches ``csrc/wkv6_wgmma.cu`` (entry point :data:`ENTRY`: the four
 products of every chunk as 3xTF32 wgmma on the tensor cores) on the current
 stream (raising if the launch is refused) and adds one to
 ``wkv6_apply.launches``; on a CPU tensor :func:`.ref.wkv6`.  Any other
@@ -72,6 +73,8 @@ def blocks_per_sm() -> int:
 def launch_wkv6(r, k, v, wlog, u, *, chunk: int) -> torch.Tensor:
     """The ``cuda`` variant of :func:`wkv6_apply`: one kernel launch on
     contiguous float32 tensors."""
+    if r.dtype != torch.float32:
+        raise ValueError(f"the wkv6 kernel takes float32, got {r.dtype}")
     y = torch.empty_like(r)
     _build.launch(_lib, ENTRY, (r, k, v, wlog, u, y), *r.shape, chunk)
     wkv6_apply.launches += 1
@@ -85,9 +88,9 @@ def shape_wkv6(r, k, v, wlog, u, *, chunk: int) -> torch.Tensor:
 
 
 def wkv6_apply(r, k, v, wlog, u, *, chunk: int = 32) -> torch.Tensor:
-    """r, k, v, wlog: (B, T, H, N); u: (H, N) -> y (B, T, H, N) float32,
-    the WKV6 scan from a zero state.  N and chunk in [1, 64], T a positive
-    multiple of chunk."""
+    """r, k, v, wlog: (B, T, H, N); u: (H, N) -> y (B, T, H, N) float32
+    (float64 from float64), the WKV6 scan from a zero state.  N and chunk
+    in [1, 64], T a positive multiple of chunk."""
     tensors = (r, k, v, wlog, u)
     shapes_ok = (r.ndim == 4 and k.shape == v.shape == wlog.shape == r.shape
                  and u.shape == r.shape[2:] and r.shape[0] * r.shape[2] > 0)
@@ -104,8 +107,9 @@ def wkv6_apply(r, k, v, wlog, u, *, chunk: int = 32) -> torch.Tensor:
                          f"{[str(t.device) for t in tensors]}")
     _, fn = kernels.resolve("rwkv6_scan", r)
     # the casts stay outside the Function, so the gradient reaches bf16 inputs
-    return kernels.plain_gradient(fn, ref.wkv6, *(t.float().contiguous() for t in tensors),
-                                  chunk=chunk)
+    dtype = torch.float64 if r.dtype == torch.float64 else torch.float32
+    return kernels.plain_gradient(fn, ref.wkv6,
+                                  *(t.to(dtype).contiguous() for t in tensors), chunk=chunk)
 
 
 wkv6_apply.launches = 0  # counted by the ``cuda`` variant only

@@ -24,11 +24,13 @@ CPU device, so the kernels take their shape-only variant
 bytes (the state's leaves as this rank holds them) and the peak, temp =
 peak - argument; ``FlopCounterMode`` for the FLOPs; ``hlo_analysis``'s
 ``StepCounter`` for the collectives and the memory traffic; the roofline on
-``model_flops_per_token``.  The dense and moe families run their
-tensor-parallel and FSDP layout (the moe family's experts split by expert
-under ``ep``, by each expert's ``d_ff`` under ``tp``), in every cell; the
-ssm, hybrid, encdec and vlm families still run their layers whole on every
-model-axis rank and say so in the record (``"tp": "replicated"``).
+``model_flops_per_token``.  The dense, moe, ssm and hybrid families run
+their tensor-parallel and FSDP layout (the moe family's experts split by
+expert under ``ep``, by each expert's ``d_ff`` under ``tp``; the Mamba2
+layers' per segment), in every cell, and a decode cell holds the rank's
+block of the decode state (``cache_specs``); the encdec and vlm families
+still run their layers whole on every model-axis rank and say so in the
+record (``"tp": "replicated"``).
 
 The cells, the ``PAX_OVERRIDE_*`` knobs and the accounting are the
 reference's: ``run_cell`` takes the memory from the deployable run (full
@@ -244,7 +246,7 @@ def _decode_cache(api, model, cfg, rows: int, S: int, dist):
         frames = torch.zeros((rows, cfg.encdec.encoder_frames, cfg.d_model),
                              dtype=torch.bfloat16)
         return encdec.init_cache(model, frames, cfg, rows, S)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in train_loop.SPLIT_FAMILIES:
         return api.decode_init(rows, S, device="cpu", model_axis=model.part.tp_size)
     return api.decode_init(rows, S, device="cpu")
 

@@ -22,7 +22,14 @@ from torch.utils.checkpoint import checkpoint
 
 def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,
-            "float16": torch.float16}[name]
+            "float16": torch.float16, "float64": torch.float64}[name]
+
+
+def widened(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, the type of the float32 islands (the norms, the
+    loss, rwkv6's adapters and scan) in a bf16 or float32 model; ``x`` as
+    it is in a float64 model, which computes them in float64."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 # ---------------------------------------------------------------------------
@@ -112,11 +119,12 @@ class ParamBlock(nn.Module):
         return out
 
 
-def norm_shapes(shape: tuple, kind: str) -> dict:
-    # norm scales stay float32 whatever the model's parameter dtype
-    out = {"scale": (shape, torch.float32)}
+def norm_shapes(shape: tuple, kind: str, dtype=torch.float32) -> dict:
+    # norm scales stay float32 whatever the model's parameter dtype (float64
+    # in a float64 model, which passes it)
+    out = {"scale": (shape, dtype)}
     if kind != "rmsnorm":
-        out["bias"] = (shape, torch.float32)
+        out["bias"] = (shape, dtype)
     return out
 
 
@@ -154,16 +162,24 @@ def embed_shapes(cfg, dtype) -> dict:
 # norms
 # ---------------------------------------------------------------------------
 def apply_norm(scale: torch.Tensor, x: torch.Tensor, kind: str = "rmsnorm",
-               eps: float = 1e-6, bias: torch.Tensor | None = None) -> torch.Tensor:
-    xf = x.float()
+               eps: float = 1e-6, bias: torch.Tensor | None = None,
+               reduce=None, width: int = 0) -> torch.Tensor:
+    """The reference's norm over ``x``'s last dimension.  With ``reduce``
+    (RMSNorm only) ``x`` holds one block of ``width`` features: the block's
+    sum of squares goes through ``reduce`` (the all-reduce over the ranks
+    holding the other blocks) before it is divided by ``width``."""
+    xf = widened(x)
     if kind == "rmsnorm":
-        var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
-        y = xf * torch.rsqrt(var + eps) * scale.float()
+        if reduce is None:
+            var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+        else:
+            var = reduce(torch.square(xf).sum(dim=-1, keepdim=True)) / width
+        y = xf * torch.rsqrt(var + eps) * widened(scale)
     else:
         mu = torch.mean(xf, dim=-1, keepdim=True)
         var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
         y = (xf - mu) * torch.rsqrt(var + eps)
-        y = y * scale.float() + bias.float()
+        y = y * widened(scale) + widened(bias)
     return y.to(x.dtype)
 
 
@@ -251,7 +267,7 @@ def unembed(embed: dict, x: torch.Tensor, tie: bool) -> torch.Tensor:
 def softmax_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                           ignore_id: int = -1, z_loss: float = 1e-4) -> torch.Tensor:
     """Token-mean CE with z-loss; fp32 reduction."""
-    logits = logits.float()
+    logits = widened(logits)
     mask = (targets != ignore_id).float()
     tclip = targets.clamp_min(0).long()
     lse = torch.logsumexp(logits, dim=-1)

@@ -16,11 +16,24 @@ the plain chunked form's gradient (the reference's lax gradient).
 Decode (``mamba_block(..., state=MambaState)``) keeps the last K - 1 conv
 inputs (in the compute dtype) as a rolling window and the SSM state
 (float32), advanced by ``ssd_step``; no kernel runs.
+
+On the model axis (``mamba_block(..., par=)`` where the layer splits) a
+rank holds 1/model_axis of ``in_proj``'s columns, of the conv's channels
+and of ``out_proj``'s rows, as the reference's ``spec_mamba_layer`` does,
+but per segment (:func:`mamba_segments`): its ``d_inner / R`` columns of
+z and of x, its ``N / R`` of B and of C and its ``H / R`` of dt, so its
+heads' x, dt and gate and its share of B and C come out of one product.
+After the causal conv the ranks' B and C are all-gathered (every head
+reads all of them); the scan runs on the rank's heads; ``out_norm`` (an
+RMSNorm over the whole ``d_inner``) all-reduces the rank's sum of squares
+forward and backward (``tensor_parallel.sum_over``); ``out_proj``'s
+partial output leaves through ``reduce_from``.  The decode state holds the
+rank's conv channels (per segment) and SSM heads.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -28,7 +41,9 @@ import torch.nn.functional as F
 from ..kernels.mamba2_ssd.ops import ssd_apply
 from ..kernels.mamba2_ssd.ref import ssd_chunked  # noqa: F401  (the reference's name)
 from ..runtime.device import resolve_device
-from .common import dense_init_, dtype_of, norm, norm_shapes, normal_init_, spec_norm
+from .common import (apply_norm, dense_init_, dtype_of, norm, norm_shapes, normal_init_,
+                     spec_norm)
+from .tensor_parallel import Part, TensorParallel, gather, held_layout, is_split, sum_over
 
 
 class MambaState(NamedTuple):
@@ -60,6 +75,21 @@ def mamba_layer_shapes(cfg, dtype, L: int) -> tuple[dict, dict]:
     return params, norms
 
 
+def mamba_segments(cfg) -> dict:
+    """Leaf -> the sizes its model-axis dimension concatenates: ``in_proj``'s
+    columns ``[z, x, B, C, dt]`` and the conv's channels ``[x, B, C]``."""
+    _, d_inner, H, _, N = _dims(cfg)
+    conv = (d_inner, N, N)
+    return {"in_proj": (d_inner, d_inner, N, N, H), "conv_w": conv, "conv_b": conv}
+
+
+def mamba_divides(cfg, R: int) -> bool:
+    """Does a model axis of ``R`` split a Mamba2 layer: whole heads and
+    the state's B and C channels divide it (then ``d_inner`` does)."""
+    _, _, H, _, N = _dims(cfg)
+    return H % R == 0 and N % R == 0
+
+
 def spec_mamba_layer(cfg, fsdp, tp) -> dict:
     """One Mamba2 layer's parameter specs (the reference's)."""
     return {
@@ -76,12 +106,14 @@ def spec_mamba_layer(cfg, fsdp, tp) -> dict:
 
 
 @torch.no_grad()
-def init_mamba_param_(leaf: str, p: torch.Tensor, gen: torch.Generator, cfg) -> None:
+def init_mamba_param_(leaf: str, p: torch.Tensor, gen: torch.Generator, cfg,
+                      **block) -> None:
     """One stacked Mamba2 parameter with the reference's initial values
     (``mamba.py:39-56`` there): the deterministic ``A_log`` =
     log(linspace(1, 16, H)), ``D`` = 1 and ``dt_bias`` = log(e - 1) (so
     softplus(dt_bias) = 1), conv weights N(0, 0.1), zero conv bias,
-    N(0,1)/sqrt(in) projections with ``out_proj`` scaled by 1/sqrt(2L)."""
+    N(0,1)/sqrt(in) projections with ``out_proj`` scaled by 1/sqrt(2L);
+    ``block``: a rank's block of the draw (``tensor_parallel.draw_block``)."""
     H = p.shape[-1]
     if leaf == "A_log":
         p.copy_(torch.log(torch.linspace(1.0, 16.0, H, dtype=torch.float32)).expand_as(p))
@@ -90,13 +122,13 @@ def init_mamba_param_(leaf: str, p: torch.Tensor, gen: torch.Generator, cfg) -> 
     elif leaf == "dt_bias":
         p.fill_(math.log(math.e - 1))
     elif leaf == "conv_w":
-        normal_init_(p, gen, 0.1)
+        normal_init_(p, gen, 0.1, **block)
     elif leaf == "conv_b":
         p.zero_()
     elif leaf == "out_proj":
-        dense_init_(p, gen, scale=1.0 / math.sqrt(2 * cfg.num_layers))
+        dense_init_(p, gen, scale=1.0 / math.sqrt(2 * cfg.num_layers), **block)
     elif leaf == "in_proj":
-        dense_init_(p, gen)
+        dense_init_(p, gen, **block)
     else:
         raise KeyError(f"not a Mamba2 parameter: {leaf!r}")
 
@@ -120,17 +152,24 @@ def ssd_step(x, dt, A, B, C, D, state):
     return y, state
 
 
-def mamba_block(p: dict, x, cfg, chunk: int | None = None, state: MambaState | None = None):
+def mamba_block(p: dict, x, cfg, chunk: int | None = None, state: MambaState | None = None,
+                par: Optional[TensorParallel] = None):
     """x: (B, T, d) -> (B, T, d): the SSD scan from a zero state through the
     kernel registry.  With ``state``, x is one token (B, 1, d) and the
     result is (output, new state): the conv over the window of the stored
     inputs and this one, then ``ssd_step``.  As in the reference, the
-    layer's ``norm`` is not applied here."""
+    layer's ``norm`` is not applied here.  Where ``par`` splits the layer,
+    ``p`` and ``state`` hold the rank's block (the module's docstring)."""
     d, d_inner, H, Pd, N = _dims(cfg)
     chunk = chunk or cfg.ssm.chunk_size
+    split = par is not None and par.splits("layers.in_proj")
+    R, r = (par.part.tp_size, par.part.tp_rank) if split else (1, 0)
+    di, n, h = d_inner // R, N // R, H // R
+    if split:
+        x = par.enter(x, True)
     B_, T, _ = x.shape
     proj = x @ p["in_proj"].to(x.dtype)
-    z, xin, Bc, Cc, dt = torch.split(proj, [d_inner, d_inner, N, N, H], dim=-1)
+    z, xin, Bc, Cc, dt = torch.split(proj, [di, di, n, n, h], dim=-1)
     conv_in = torch.cat([xin, Bc, Cc], dim=-1)
     w, b = p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype)
     if state is None:
@@ -138,29 +177,54 @@ def mamba_block(p: dict, x, cfg, chunk: int | None = None, state: MambaState | N
     else:
         window = torch.cat([state.conv, conv_in], dim=1)  # (B, K, C)
         conv_out = F.silu((window * w[None]).sum(1, keepdim=True) + b)
-    xc, Bc, Cc = torch.split(conv_out, [d_inner, N, N], dim=-1)
-    xh = xc.reshape(B_, T, H, Pd).float()
-    dtp = F.softplus(dt.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
+    xc, Bc, Cc = torch.split(conv_out, [di, n, n], dim=-1)
+    if split:  # every head reads the whole B and C: the ranks' channels gathered
+        bc = gather(torch.cat([Bc, Cc], dim=-1), par.tp_group, -1)
+        bc = bc.reshape(B_, T, R, 2, n)
+        Bc, Cc = bc[..., 0, :].reshape(B_, T, N), bc[..., 1, :].reshape(B_, T, N)
+    heads = slice(r * h, (r + 1) * h)
+    xh = xc.reshape(B_, T, h, Pd).float()
+    dtp = F.softplus(dt.float() + p["dt_bias"][heads])
+    A = -torch.exp(p["A_log"][heads])
+    D = p["D"][heads]
     if state is None:
-        y = ssd_apply(xh, dtp, A, Bc.float(), Cc.float(), p["D"], chunk=chunk)
+        y = ssd_apply(xh, dtp, A, Bc.float(), Cc.float(), D, chunk=chunk)
     else:
-        y, S = ssd_step(xh[:, 0], dtp[:, 0], A, Bc[:, 0].float(), Cc[:, 0].float(), p["D"],
+        y, S = ssd_step(xh[:, 0], dtp[:, 0], A, Bc[:, 0].float(), Cc[:, 0].float(), D,
                         state.ssm)
         y = y[:, None]
-    y = y.reshape(B_, T, d_inner).to(x.dtype)
-    y = norm(p["out_norm"], y, "rmsnorm") * F.silu(z)
-    out = y @ p["out_proj"].to(x.dtype)
+    y = y.reshape(B_, T, di).to(x.dtype)
+    if split:
+        # the statistic spans every rank's columns: its sum of squares is
+        # all-reduced forward and backward (each rank's feeds its own columns)
+        y = apply_norm(p["out_norm"]["scale"][r * di:(r + 1) * di], y, "rmsnorm",
+                       reduce=lambda s: sum_over(s, par.tp_group), width=d_inner)
+    else:
+        y = norm(p["out_norm"], y, "rmsnorm")
+    out = (y * F.silu(z)) @ p["out_proj"].to(x.dtype)
+    if split:
+        out = par.leave(out, True)
     return out if state is None else (out, MambaState(window[:, 1:], S))
 
 
-def init_mamba_state(cfg, batch: int, device=None, layers: int | None = None) -> MambaState:
+def init_mamba_state(cfg, batch: int, device=None, layers: int | None = None,
+                     model_axis: int = 1) -> MambaState:
     """The zero state of one Mamba2 layer for ``batch`` sequences, or with
-    ``layers`` every layer's, stacked on a leading axis."""
+    ``layers`` every layer's, stacked on a leading axis; on ``model_axis``
+    ranks whose layers split, a rank's conv channels and SSM heads."""
     _, d_inner, H, Pd, N = _dims(cfg)
+    R = model_axis if model_axis > 1 and is_split(
+        held_layout(cfg, Part(0, model_axis))["layers.in_proj"]) else 1
     dev = resolve_device(device)
     lead = () if layers is None else (layers,)
     return MambaState(
-        torch.zeros((*lead, batch, cfg.ssm.conv_kernel - 1, d_inner + 2 * N),
+        torch.zeros((*lead, batch, cfg.ssm.conv_kernel - 1, (d_inner + 2 * N) // R),
                     dtype=dtype_of(cfg.compute_dtype), device=dev),
-        torch.zeros((*lead, batch, H, Pd, N), dtype=torch.float32, device=dev))
+        torch.zeros((*lead, batch, H // R, Pd, N), dtype=torch.float32, device=dev))
+
+
+def mamba_state_specs() -> MambaState:
+    """The reference's specs of one layer's decode state: batch over the
+    data axes, the conv's channels and the SSM state's heads over the
+    model axis."""
+    return MambaState((("pod", "data"), None, "model"), (("pod", "data"), "model", None, None))

@@ -2,23 +2,23 @@
 
 ``build_model(cfg)`` returns a :class:`ModelApi` with ``init(seed, device,
 model_rank=0, model_axis=1, fsdp_rank=0, fsdp_size=1)`` (-> the parameter
-module; the dense and moe families hold their block of every leaf the
-model axis and the fsdp axes split, ``transformer.held_layout``),
+module; the dense, moe, ssm and hybrid families hold their block of every
+leaf the model axis and the fsdp axes split, ``tensor_parallel.held_layout``),
 ``param_specs(fsdp, tp)`` (-> the reference's parameter specs, a nested
 dict with the parameters' keys, see ``runtime/sharding.py``),
 ``loss_fn(model, batch)``,
 ``forward(model, batch, last_only=False)`` (-> logits),
 ``decode_init(batch, max_seq, device=None)`` (-> the decode state: the
-dense, moe and vlm families' contiguous KV cache — the dense and moe
-families' with ``model_axis=``, a rank's K/V heads where they split — the ssm family's
-recurrent ``RwkvState``, the hybrid's ``HybridState``; None for encdec,
-whose cache needs the frames: ``encdec.init_cache``) and
-``decode_step(model, token, state, index)`` (-> logits, state; the state is
-written in place) and, for the dense and moe families, ``cache_specs()``
-(the reference's specs of the contiguous cache).  ``loss_fn``, ``forward``
-and ``decode_step`` take the ``dist`` the model axis runs on (the
-transformer's tensor parallelism and the moe family's expert
-parallelism).  The
+dense, moe and vlm families' contiguous KV cache, the ssm family's
+recurrent ``RwkvState``, the hybrid's ``HybridState`` — the dense, moe, ssm
+and hybrid families' with ``model_axis=``, a rank's heads and channels
+where they split; None for encdec, whose cache needs the frames:
+``encdec.init_cache``) and ``decode_step(model, token, state, index)``
+(-> logits, state; the state is written in place) and, for the dense,
+moe, ssm and hybrid families, ``cache_specs()`` (the reference's specs of
+the decode state).  ``loss_fn``, ``forward`` and ``decode_step`` take the
+``dist`` the model axis runs on (tensor parallelism and the moe family's
+expert parallelism).  The
 port holds six families of the reference: ``dense`` and ``moe``
 (``transformer``), ``ssm`` (rwkv6, ``rwkv``), ``hybrid`` (Mamba2 + shared
 attention, ``hybrid``), ``encdec`` (whisper, ``encdec``) and ``vlm``
@@ -45,7 +45,7 @@ from ..configs.base import ModelConfig
 from ..runtime.device import resolve_device
 from . import encdec, hybrid, rwkv, transformer, vlm
 from .common import is_glu
-from .tensor_parallel import FSDP, TP
+from .tensor_parallel import FSDP, TP, take_block
 
 #: family -> (its module, its parameter module)
 _FAMILIES = {"dense": (transformer, transformer.TransformerLM),
@@ -76,14 +76,20 @@ class ModelApi:
     cache_specs: Optional[Callable] = None
 
 
+#: the families whose modules split over the model and the fsdp axes
+SPLIT = (transformer, rwkv, hybrid)
+#: their names
+SPLIT_FAMILIES = tuple(name for name, (fam, _) in _FAMILIES.items() if fam in SPLIT)
+
+
 def build_model(cfg: ModelConfig) -> ModelApi:
     fam, _ = _family(cfg)
-    # the transformer's and the vlm's functions take the dist (the MoE block's EP)
-    on = (lambda dist: {"dist": dist}) if fam in (transformer, vlm) else (lambda dist: {})
-    # the transformer splits over the model and the fsdp axes; the other
-    # families hold it all
+    # these families' functions take the dist (the model axis, the MoE block's EP)
+    on = ((lambda dist: {"dist": dist}) if fam in (*SPLIT, vlm)
+          else (lambda dist: {}))
+    # the other families hold it all
     part = ((lambda r, n, f, F: {"model_rank": r, "model_axis": n, "fsdp_rank": f,
-                                 "fsdp_size": F}) if fam is transformer
+                                 "fsdp_size": F}) if fam in SPLIT
             else (lambda r, n, f, F: {}))
     # encdec and vlm read the whole batch (frames, patches), the others its tokens
     inputs = (lambda b: b) if fam in (encdec, vlm) else (lambda b: b["tokens"])
@@ -107,11 +113,13 @@ def build_model(cfg: ModelConfig) -> ModelApi:
         api.decode_init = lambda batch, max_seq, device=None: transformer.init_cache(
             cfg, batch, max_seq, device=device)
     elif fam is rwkv:
-        api.decode_init = lambda batch, max_seq, device=None: rwkv.init_state(
-            cfg, batch, device=device)
+        api.decode_init = lambda batch, max_seq, device=None, model_axis=1: rwkv.init_state(
+            cfg, batch, device=device, model_axis=model_axis)
+        api.cache_specs = lambda: rwkv.state_specs(cfg)
     elif fam is hybrid:
-        api.decode_init = lambda batch, max_seq, device=None: hybrid.init_state(
-            cfg, batch, max_seq, device=device)
+        api.decode_init = lambda batch, max_seq, device=None, model_axis=1: hybrid.init_state(
+            cfg, batch, max_seq, device=device, model_axis=model_axis)
+        api.cache_specs = lambda: hybrid.state_specs(cfg)
     return api
 
 
@@ -123,7 +131,7 @@ def param_leaves(model: nn.Module) -> list[tuple[str, nn.Parameter]]:
 def leaf_splits(model: nn.Module) -> tuple:
     """Per leaf, in ``param_leaves`` order: (is it split over the model
     axis, is it split over the fsdp axes) — from what ``model`` holds (its
-    ``held`` specs, ``transformer.held_layout``)."""
+    ``held`` specs, ``tensor_parallel.held_layout``)."""
     held = getattr(model, "held", {})
     tp, fs = [], []
     for name, _ in param_leaves(model):
@@ -146,20 +154,18 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig, device=None, model_rank: in
     """The reference's parameter pytree (nested dicts of numpy arrays, e.g.
     ``jax.tree.map(np.asarray, api.init(key))``) as the port's parameters.
     Layouts agree, so this is a name map; shapes and dtypes are checked.
-    A dense or moe model keeps its block (``model_rank``, ``fsdp_rank``) of
-    every leaf the model axis and the fsdp axes split."""
+    A dense, moe, ssm or hybrid model keeps its block (``model_rank``,
+    ``fsdp_rank``) of every leaf the model axis and the fsdp axes split
+    (``tensor_parallel.take_block``)."""
     fam, cls = _family(cfg)
     kw = ({"model_rank": model_rank, "model_axis": model_axis, "fsdp_rank": fsdp_rank,
-           "fsdp_size": fsdp_size} if fam is transformer else {})
+           "fsdp_size": fsdp_size} if fam in SPLIT else {})
     model = cls(cfg, resolve_device(device), **kw)
-    held = getattr(model, "held", {})
     for name, p in model.named_parameters():
         node = np_tree
         for part in name.split("."):
             node = node[part]
-        t = _to_tensor(node)
-        if held.get(name):
-            t = t[model.part.index(tuple(t.shape), held[name])]
+        t = take_block(model, name, _to_tensor(node))
         if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
             raise ValueError(f"{name}: reference leaf {tuple(t.shape)} {t.dtype} "
                              f"does not fit {tuple(p.shape)} {p.dtype}")

@@ -49,7 +49,7 @@ batched matrix products over the expert axis (the reference's ``vmap``).
 One process is one rank.  At ``model_axis = R > 1`` a model built for
 training (``init``/``from_jax_params`` given the model rank) holds only
 experts ``[r E_pad/R, (r+1) E_pad/R)`` of each layer, as ``spec_moe``
-places them (``transformer.held_layout``); a model built whole (serving,
+places them (``tensor_parallel.held_layout``); a model built whole (serving,
 the EP-against-local checks) slices its own out.  EP has the gradient of the
 reference's ``shard_map`` (``jax.grad`` through it, ``check_vma=False``):
 each exchange is a ``torch.autograd.Function`` whose backward goes through

@@ -1,15 +1,22 @@
-"""Tensor parallelism and FSDP of the transformer (the dense and moe
-families): what a rank holds of each parameter, and Megatron-LM's
-collectives as autograd Functions.
+"""Tensor parallelism and FSDP of the dense, moe, ssm (rwkv6) and hybrid
+(Mamba2 with a shared attention block) families: what a rank holds of
+each parameter, and Megatron-LM's collectives as autograd Functions.
 
-**What a rank holds** (:class:`Part`, :func:`held_spec`).  The reference
-writes the layout down as parameter specs (``spec_attention``,
-``spec_mlp``, ``spec_moe``, ``spec_embedding``) and GSPMD executes it.  Here one process
-is one rank, and a rank's module holds its block of every leaf whose spec
-names the model axis (``"tp"``) or, under ``grad_sync="gspmd"``, the fsdp
-axes (``"fsdp"``): each such dimension divided by that axis's size, where
-the size divides it (the reference's dry run replicates an uneven
-dimension the same way).
+**What a rank holds** (:class:`Part`, :func:`held_layout`,
+:func:`take_block`).  The reference writes the layout down as parameter
+specs (each family's ``spec_lm``) and GSPMD executes it.  Here one
+process is one rank, and a rank's module holds its block of every leaf
+whose spec names the model axis (``"tp"``) or, under
+``grad_sync="gspmd"``, the fsdp axes (``"fsdp"``): each such dimension
+divided by that axis's size, where the size divides it (the reference's
+dry run replicates an uneven dimension the same way), and a unit of
+leaves that computes together (a family's ``split_units``: attention's
+query or K/V heads, rwkv's time mix or channel mix, a Mamba2 layer, the
+hybrid's shared projections) split only where all of its heads or
+segments divide the axis.  The block is contiguous, except along a
+dimension that concatenates segments (a family's ``segments``: Mamba2's
+``in_proj`` columns ``[z, x, B, C, dt]`` and its conv's channels
+``[x, B, C]``), where a rank holds its block of each segment.
 
 **How the layers compute** (:class:`TensorParallel`).  Each split region
 is Megatron's column-then-row pair: the replicated activation enters
@@ -29,14 +36,33 @@ cross entropy (:func:`vocab_parallel_cross_entropy`), which reduces the
 max, the sum and the target logit over the model axis and gathers no
 logits.
 
+The ssm and hybrid families add three forms.  rwkv6's channel mix
+multiplies the gate of ``cm_wr``'s columns (split by output) by the
+Megatron pair ``cm_wk``/``cm_wv``'s partial output: that output is
+reduce-scattered along the features (:func:`scatter`), multiplied on the
+rank's columns and all-gathered back (:func:`gather` with
+``partial=False``: every rank's consumer computes the same gradient).
+Mamba2's ``out_norm`` is an RMSNorm over the whole ``d_inner``: the rank's
+sum of squares is all-reduced forward and backward (:func:`sum_over`; each
+rank's statistic feeds only its own columns, so the gradient of the sum
+is the sum of the ranks' gradients), and the B and C the rank's conv
+channels give are all-gathered for every head (the backward sums the
+ranks' partial gradients).  The hybrid's shared ``in_proj`` and
+``out_proj`` split by output and gather their output back to the whole
+``d``.
+
 A leaf a rank holds whole but computes with only partly — the K/V
 projections where the query heads split and the K/V heads do not, the moe
 router where each rank runs its block of the experts' ``d_ff``, the shared
-experts' gate where it scales this rank's partial output, and under
-sequence parallelism every whole leaf, read on this rank's slice of the
-sequence — passes through :func:`copy_to` too, so its gradient is the sum
-over the model axis, as GSPMD's transpose of a replicated operand gives
-it.  Under FSDP a layer's leaves are all-gathered along their fsdp
+experts' gate where it scales this rank's partial output, rwkv6's token
+shift mixes and adapters (the whole, replicated input is mixed, then read
+by the rank's heads only), its decay base ``w0``, bonus ``u`` and per-head
+``ln_x``, Mamba2's ``A_log``, ``D``, ``dt_bias`` and ``out_norm`` scale
+(the rank's heads' or columns' slice), and under sequence parallelism
+every whole leaf, read on this rank's slice of the sequence — passes
+through :func:`copy_to` too, so its gradient is the sum over the model
+axis, as GSPMD's transpose of a replicated operand gives it
+(the family's ``read_partly``).  Under FSDP a layer's leaves are all-gathered along their fsdp
 dimension just before the layer runs (inside the remat body, so the
 recompute gathers again and the full weights are not kept), and the
 gradient is reduce-scattered back: the shard's gradient is the sum over
@@ -49,16 +75,17 @@ collectives beside PAX in the reference's ``gspmd`` mode.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 import torch.distributed as tdist
 
 from ..core.backends import _dist
+from .common import widened
 
 #: the placeholder names of a held spec's split dimensions
 TP, FSDP = "tp", "fsdp"
-
 
 @dataclasses.dataclass(frozen=True)
 class Part:
@@ -86,14 +113,130 @@ class Part:
         spec = tuple(spec) + (None,) * (len(full) - len(spec))
         return tuple(n // self._of(e)[1] for n, e in zip(full, spec))
 
-    def index(self, full: tuple, spec: tuple) -> tuple:
-        """The held block of a leaf of shape ``full``, as slices."""
+    def index(self, full: tuple, spec: tuple, segments: tuple = ()) -> tuple:
+        """The held block of a leaf of shape ``full``, as slices; with
+        ``segments`` (the sizes the model-axis dimension concatenates) that
+        dimension's index is a list: this rank's block of each segment."""
         spec = tuple(spec) + (None,) * (len(full) - len(spec))
         out = []
         for n, e in zip(full, spec):
             r, s = self._of(e)
-            out.append(slice(r * (n // s), (r + 1) * (n // s)))
+            if segments and e == TP and s > 1:
+                if sum(segments) != n or any(m % s for m in segments):
+                    raise ValueError(f"segments {segments} do not split {n} over {s} ranks")
+                starts = [sum(segments[:i]) for i in range(len(segments))]
+                out.append([a + r * (m // s) + j for a, m in zip(starts, segments)
+                            for j in range(m // s)])
+            else:
+                out.append(slice(r * (n // s), (r + 1) * (n // s)))
         return tuple(out)
+
+
+def _family(cfg):
+    """The module of ``cfg``'s family, one of ``model.SPLIT``, that
+    :func:`held_layout` and :meth:`TensorParallel.of` read: its
+    ``spec_lm``, ``full_shapes``, ``split_units``, ``segments``,
+    ``read_partly``, ``ATTENTION`` and ``SEQUENCE_PARALLEL``."""
+    from .model import SPLIT, SPLIT_FAMILIES
+    from .model import _family as family_of
+
+    fam = family_of(cfg)[0]
+    if fam not in SPLIT:
+        raise ValueError(f"the held layout splits the {', '.join(SPLIT_FAMILIES)} families, "
+                         f"not {cfg.family!r}")
+    return fam
+
+
+@functools.lru_cache(maxsize=None)
+def held_layout(cfg, part: Part) -> dict:
+    """Leaf name -> what a rank of ``part`` holds of it: the family's
+    reference spec (``spec_lm(fsdp="fsdp", tp="tp")``, the fsdp entries
+    only with more than one fsdp rank), each entry kept where its axis
+    divides the dimension (:func:`held_spec`), and each of the family's
+    ``split_units`` (leaves that compute together) split over the model
+    axis only where its heads or segments divide it."""
+    fam = _family(cfg)
+    specs = fam.spec_lm(cfg, fsdp=FSDP if part.fsdp_size > 1 else None, tp=TP)
+    full = fam.full_shapes(cfg)
+    out = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.")
+            else:
+                out[prefix + k] = held_spec(v, full[prefix + k], part)
+
+    walk(specs, "")
+    for names, divides in fam.split_units(cfg, part.tp_size):
+        if not divides:
+            for name in names:
+                if name in out:
+                    out[name] = tuple(None if e == TP else e for e in out[name])
+    return out
+
+
+def take_block(model, name: str, leaf):
+    """This rank's block (``model.part``) of ``name``'s whole leaf (a
+    tensor or a numpy array): the leaf itself where ``model`` holds it
+    whole."""
+    spec = getattr(model, "held", {}).get(name)
+    if not spec or not any(spec):
+        return leaf
+    return leaf[model.part.index(tuple(leaf.shape), spec, model.segments.get(name, ()))]
+
+
+def put_block(model, name: str, whole, block) -> None:
+    """:func:`take_block`'s inverse: write ``block`` (this rank's, as
+    ``model`` holds it) into ``whole`` in place."""
+    spec = getattr(model, "held", {}).get(name)
+    if not spec or not any(spec):
+        whole[...] = block
+        return
+    whole[model.part.index(tuple(whole.shape), spec, model.segments.get(name, ()))] = block
+
+
+def hold(module, cfg, blocks: dict, device, part: Part) -> None:
+    """Give ``module`` the parameters of ``blocks`` (a node's dotted path
+    -> its leaves' whole (shape, dtype), parents before children) as
+    :class:`~.common.ParamBlock` s holding ``part``'s block of each leaf
+    (:func:`held_layout`; a parent that holds no leaf of its own is an
+    empty module), and set ``part``, ``full_shapes`` (leaf name -> whole
+    shape), ``held`` (leaf name -> held spec, empty for the whole model)
+    and ``segments`` (the family's)."""
+    from torch import nn
+
+    from .common import ParamBlock
+
+    module.part = part
+    module.full_shapes = {f"{b}.{k}": shape for b, shapes in blocks.items()
+                          for k, (shape, _) in shapes.items()}
+    module.held = held_layout(cfg, part) if part != Part() else {}
+    module.segments = _family(cfg).segments(cfg) if module.held else {}
+    for name, shapes in blocks.items():
+        *path, leaf = name.split(".")
+        parent = module
+        for step in path:
+            if not hasattr(parent, step):
+                parent.add_module(step, nn.Module())
+            parent = getattr(parent, step)
+        parent.add_module(leaf, ParamBlock(
+            {k: (part.shape(shape, module.held.get(f"{name}.{k}", ())), dt)
+             for k, (shape, dt) in shapes.items()}, device))
+
+
+def draw_block(model, name: str) -> dict:
+    """The ``full``/``index`` keywords of ``common.normal_init_`` that make
+    ``model``'s block of ``name`` that block of the whole leaf's draw (a
+    stacked leaf's per layer slice); none for a leaf held whole."""
+    spec = getattr(model, "held", {}).get(name)
+    if not spec or not any(spec):
+        return {}
+    full = model.full_shapes[name]
+    index = model.part.index(full, spec, model.segments.get(name, ()))
+    if name.startswith("layers."):  # per layer slice: drop the layer axis
+        full, index = full[1:], index[1:]
+    return {"full": full, "index": index}
 
 
 def held_spec(spec: tuple, full: tuple, part: Part) -> tuple:
@@ -155,6 +298,17 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None
 
 
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim, partial):
@@ -189,6 +343,12 @@ def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
     return _ReduceFrom.apply(x, group)
 
 
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """All-reduce (sum) forward and backward: the sum of a statistic that
+    each rank computes from its part and uses on its own part only."""
+    return _SumOver.apply(x, group)
+
+
 def gather(x: torch.Tensor, group, dim: int, partial: bool = True) -> torch.Tensor:
     """All-gather along ``dim`` forward.  Backward: the gradient
     reduce-scattered (``partial``: each rank's consumer saw a part of the
@@ -203,25 +363,28 @@ def scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the transformer's layout in one call
+# a model's layout in one call
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass
 class TensorParallel:
-    """One call's tensor-parallel and FSDP layout of a transformer that
-    holds a :class:`Part` of the dense or the moe family (:meth:`of`)."""
+    """One call's tensor-parallel and FSDP layout of a model that holds a
+    :class:`Part` (:meth:`of`): the dense, moe, ssm and hybrid families."""
 
     part: Part
     held: dict            # leaf name -> held spec
     tp_group: object
     fsdp_group: object
     sp: bool              # the residual stream holds this rank's slice of the sequence
+    #: the attention's query heads split (the dense and moe layers', the
+    #: hybrid's shared block's)
     q_split: bool
-    #: the dense MLP, or the moe layer's shared experts, split by ``d_ff``
+    #: the dense MLP, the moe layer's shared experts or the hybrid's shared
+    #: MLP split by ``d_ff``
     ffn_split: bool
     vocab_split: bool
     #: the moe layer's routed experts: ``"ep"`` (this rank's experts),
     #: ``"ffn"`` (this rank's block of every expert's ``d_ff``), ``"whole"``
-    #: (every expert whole) or None (the dense family)
+    #: (every expert whole) or None (no moe layer)
     experts: Optional[str]
     #: the K/V heads this rank's query heads read, where the query heads
     #: split and the K/V heads do not (None: the usual grouping)
@@ -244,6 +407,12 @@ class TensorParallel:
         part = getattr(model, "part", Part())
         if part == Part():
             return None
+        R = part.tp_size
+        fam = _family(cfg)
+        if not fam.SEQUENCE_PARALLEL and cfg.parallelism.sequence_parallel and R > 1:
+            raise NotImplementedError(f"sequence parallelism splits the dense and moe "
+                                      f"families' residual stream, not the {cfg.family} "
+                                      f"family's (no config asks for it)")
         if dist is None:
             raise ValueError(f"a model holding {part} computes on its dist's groups: "
                              f"pass the dist")
@@ -251,12 +420,13 @@ class TensorParallel:
                 part.fsdp_size > 1 and part.fsdp_size != dist.dp_size):
             raise ValueError(f"the model holds {part}; the dist's mesh is {dist.mesh.shape}")
         held = model.held
-        R = part.tp_size
-        q_split = is_split(held["layers.attn.wq"])
-        kv_split = is_split(held["layers.attn.wk"])
+        attn = fam.ATTENTION or ""
+        q_split = is_split(held.get(attn + "wq"))
+        kv_split = is_split(held.get(attn + "wk"))
         experts = None
         if cfg.moe is None:
-            ffn_split = is_split(held["layers.mlp.wi"])
+            ffn_split = is_split(held.get({"dense": "layers.mlp.wi",
+                                           "hybrid": "shared.mlp.wi"}.get(cfg.family)))
         else:
             ffn_split = is_split(held.get("layers.moe.shared.wi"))
             if not is_split(held["layers.moe.experts.wi"]):
@@ -285,16 +455,23 @@ class TensorParallel:
             grad_sum = set()
             if q_split and not kv_split:
                 grad_sum |= {n for n in whole if n.split(".")[-1] in ("wk", "wv", "bk", "bv")
-                             and n.startswith("layers.attn.")}
+                             and n.startswith(attn)}
             if experts == "ffn":
                 grad_sum.add("layers.moe.router")
             if ffn_split and cfg.moe is not None:
                 grad_sum.add("layers.moe.shared_gate")
+            for unit, leaves in fam.read_partly(cfg).items():
+                if is_split(held.get(unit)):
+                    grad_sum |= {n for n in leaves if n in whole}
         return cls(part, held, dist.tp_group if R > 1 else None,
                    dist.dp_group if part.fsdp_size > 1 else None, sp, q_split, ffn_split,
                    vocab_split, experts, kv_heads, frozenset(grad_sum),
                    dist.dp_group if (seq and cfg.moe is not None and dist.dp_size > 1
                                      and cfg.parallelism.grad_sync == "gspmd") else None)
+
+    def splits(self, name: str) -> bool:
+        """Does this rank hold a block of ``name`` over the model axis."""
+        return is_split(self.held.get(name))
 
     # -- parameters ----------------------------------------------------------
     def params(self, node: dict, prefix: str, stacked: bool = False) -> dict:
@@ -358,7 +535,7 @@ def vocab_parallel_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, lo
     gradient: the log-sum-exp does not depend on it), the sum of
     exponentials and the target's logit are reduced over ``group``; no
     logits are gathered.  The loss is the same on every rank."""
-    logits = logits.float()
+    logits = widened(logits)
     n = logits.shape[-1]
     mask = (targets != ignore_id).float()
     m = _all_reduce(logits.detach().amax(dim=-1), group, tdist.ReduceOp.MAX)

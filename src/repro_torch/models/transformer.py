@@ -22,7 +22,7 @@ on.
 Tensor parallelism and FSDP (the dense and moe families): a model built
 for a :class:`~.tensor_parallel.Part` of the mesh
 (``model_rank``/``model_axis``, ``fsdp_rank``/``fsdp_size``) holds its
-block of each leaf as :func:`held_layout` places it (the reference's
+block of each leaf as ``tensor_parallel.held_layout`` places it (the reference's
 specs, with its divisibility rules: under expert parallelism its
 ``E_pad / model_axis`` experts of each layer, under ``parallelism="tp"``
 its block of every expert's ``d_ff``), and every path computes through
@@ -41,7 +41,6 @@ otherwise, as in the reference, and are written in place.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 from typing import Optional
 
@@ -52,7 +51,6 @@ from ..runtime.device import resolve_device
 from .attention import (KVCache, attention, attention_paged, attention_shapes, init_kv_cache,
                         spec_attention)
 from .common import (
-    ParamBlock,
     dense_init_,
     dtype_of,
     embed_init_,
@@ -69,7 +67,7 @@ from .common import (
 )
 from .mlp import mlp, mlp_shapes, spec_mlp
 from .moe import moe_block, moe_shapes, spec_moe
-from .tensor_parallel import FSDP, TP, Part, TensorParallel, held_spec, is_split
+from .tensor_parallel import Part, TensorParallel, draw_block, held_layout, hold, is_split
 from .tensor_parallel import vocab_parallel_cross_entropy
 
 
@@ -90,8 +88,6 @@ class TransformerLM(nn.Module):
         if cfg.family not in self.FAMILIES:
             raise ValueError(f"{type(self).__name__} builds the {' and '.join(self.FAMILIES)} "
                              f"families, got {cfg.family!r}")
-        #: this rank's block of the mesh
-        self.part = Part(model_rank, model_axis, fsdp_rank, fsdp_size)
         L, d = cfg.num_layers, cfg.d_model
         pdt = dtype_of(cfg.param_dtype)
         blocks = {"embed": embed_shapes(cfg, pdt),
@@ -104,61 +100,52 @@ class TransformerLM(nn.Module):
             blocks.update({f"layers.moe.{k}": v for k, v in children.items()})
         else:
             blocks["layers.mlp"] = mlp_shapes(d, cfg.d_ff, cfg.activation, pdt, (L,))
-        self.full_shapes = {f"{b}.{k}": shape for b, shapes in blocks.items()
-                            for k, (shape, _) in shapes.items()}
-        self.held = held_layout(cfg, self.part) if self.part != Part() else {}
-
-        def block(name: str) -> ParamBlock:
-            return ParamBlock({k: (self.part.shape(shape, self.held.get(f"{name}.{k}", ())), dt)
-                               for k, (shape, dt) in blocks[name].items()}, device)
-
-        self.embed = block("embed")
-        self.final_norm = block("final_norm")
-        self.layers = nn.Module()
-        for name in blocks:
-            path = name.split(".")
-            if len(path) == 2 and path[0] == "layers":
-                setattr(self.layers, path[1], block(name))
-            elif len(path) == 3:
-                self.layers.moe.add_module(path[2], block(name))
+        hold(self, cfg, blocks, device, Part(model_rank, model_axis, fsdp_rank, fsdp_size))
 
 
-@functools.lru_cache(maxsize=None)
-def held_layout(cfg, part: Part) -> dict:
-    """Leaf name -> what a rank of ``part`` holds of it: the reference's
-    spec (``spec_lm(fsdp="fsdp", tp="tp")``, the fsdp entries only with
-    more than one fsdp rank), each entry kept where its axis divides the
-    dimension, and the attention projections split only where whole query
-    (K/V) heads divide the model axis.  Under expert parallelism the model
-    axis must divide the (padded) experts: each rank holds its
-    ``E_pad / model_axis`` of them."""
-    if cfg.family not in TransformerLM.FAMILIES:
-        raise ValueError(f"the held layout splits the dense and moe families, not "
-                         f"{cfg.family!r}")
+def full_shapes(cfg) -> dict:
+    """Leaf name -> the whole leaf's shape."""
+    return TransformerLM(cfg, "meta").full_shapes
+
+
+def split_units(cfg, R: int) -> tuple:
+    """(leaves, do they split) of the units :func:`~.tensor_parallel.held_layout`
+    splits together over a model axis of ``R``: the attention's query and
+    K/V projections only where whole heads divide the axis.  Under expert
+    parallelism the axis must divide the (padded) experts: each rank holds
+    its ``E_pad / R`` of them."""
     m = cfg.moe
-    R = part.tp_size
     if m is not None and m.parallelism == "ep" and R > 1:
         E_pad = m.padded_experts or m.num_experts
         if E_pad % R:
             raise ValueError(f"EP needs the model axis ({R}) to divide {E_pad} experts")
-    specs = spec_lm(cfg, fsdp=FSDP if part.fsdp_size > 1 else None, tp=TP)
-    full = TransformerLM(cfg, "meta").full_shapes
-    out = {}
+    return attention_units(ATTENTION, cfg, R)
 
-    def walk(tree, prefix):
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                walk(v, f"{prefix}{k}.")
-            else:
-                out[prefix + k] = held_spec(v, full[prefix + k], part)
 
-    walk(specs, "")
-    heads = {"q": cfg.num_heads % R == 0, "kv": cfg.num_kv_heads % R == 0}
-    for k in ("wq", "wk", "wv", "wo", "bq", "bk", "bv"):
-        name = f"layers.attn.{k}"
-        if name in out and not heads["q" if k in ("wq", "wo", "bq") else "kv"]:
-            out[name] = tuple(None if e == TP else e for e in out[name])
-    return out
+def attention_units(prefix: str, cfg, R: int) -> tuple:
+    """The attention's two units: its query heads (``wq``, ``wo``, ``bq``)
+    and its K/V heads (``wk``, ``wv``, ``bk``, ``bv``), each split only
+    where whole heads divide a model axis of ``R``."""
+    return (tuple(prefix + k for k in ("wq", "wo", "bq")), cfg.num_heads % R == 0), \
+        (tuple(prefix + k for k in ("wk", "wv", "bk", "bv")), cfg.num_kv_heads % R == 0)
+
+
+def segments(cfg) -> dict:
+    """No leaf of the transformer concatenates segments."""
+    return {}
+
+
+#: where the attention's leaves are (``TensorParallel.of`` reads their split)
+ATTENTION = "layers.attn."
+#: the residual stream splits along the sequence under ``sequence_parallel``
+SEQUENCE_PARALLEL = True
+
+
+def read_partly(cfg) -> dict:
+    """No unit of the transformer reads a whole leaf partly by itself
+    (``TensorParallel.of`` adds the K/V projections, the router and the
+    shared experts' gate by the layout)."""
+    return {}
 
 
 def spec_layer(cfg, fsdp, tp) -> dict:
@@ -199,15 +186,9 @@ def init_weights_(model: TransformerLM, cfg, seed: int) -> TransformerLM:
     model holding one rank's part of the experts, or a rank's block of the
     dense layers, holds that part of the whole model's draw."""
     gen = torch.Generator().manual_seed(seed)
-    held = getattr(model, "held", {})
     for name, p in sorted(model.named_parameters()):
         leaf = name.rsplit(".", 1)[-1]
-        block = {}
-        if held.get(name) and any(held[name]):
-            full, spec = model.full_shapes[name], held[name]
-            if name.startswith("layers."):  # per layer slice: drop the layer axis
-                full, spec = full[1:], spec[1:]
-            block = {"full": full, "index": model.part.index(full, spec)}
+        block = draw_block(model, name)
         if name.startswith("embed."):
             if leaf == "tok":
                 embed_init_(p, gen, **block)
@@ -387,12 +368,18 @@ def loss_fn(model: TransformerLM, batch: dict, cfg, dist=None) -> torch.Tensor:
     """Token-mean cross-entropy (vocabulary-parallel where the vocabulary
     splits), plus the aux loss with the MoE block."""
     logits, aux, par = _forward_local(model, batch["tokens"], cfg, False, dist)
-    if par is not None and par.vocab_split:
-        loss = vocab_parallel_cross_entropy(logits, batch["targets"],
-                                            par.vocab_range(cfg.vocab_size)[0], par.tp_group)
-    else:
-        loss = softmax_cross_entropy(logits, batch["targets"])
+    loss = _lm_loss(logits, batch["targets"], cfg, par)
     return loss if aux is None else loss + aux
+
+
+def _lm_loss(logits: torch.Tensor, targets: torch.Tensor, cfg,
+             par: Optional[TensorParallel]) -> torch.Tensor:
+    """The token-mean cross-entropy of :func:`_head`'s logits: the
+    vocabulary-parallel form where the vocabulary splits."""
+    if par is not None and par.vocab_split:
+        return vocab_parallel_cross_entropy(logits, targets,
+                                            par.vocab_range(cfg.vocab_size)[0], par.tp_group)
+    return softmax_cross_entropy(logits, targets)
 
 
 def cache_specs(cfg) -> KVCache:

@@ -27,7 +27,7 @@ holds only a part of is written down by the models' ``spec_*`` functions
 (``ModelApi.param_specs``); a rank holds its block of the leaves the port
 splits — the moe family's experts under expert parallelism, the dense
 family's heads, FFN and vocabulary over the model axis and, under
-``gspmd``, its FSDP block (``models.transformer.held_layout``,
+``gspmd``, its FSDP block (``models.tensor_parallel.held_layout``,
 ``models/tensor_parallel.py``) — and every other leaf whole.
 """
 from __future__ import annotations

@@ -27,11 +27,11 @@ process is one rank, so the code that the reference runs inside a
 rank's rows.  The step updates the parameter module in place (the
 reference returns new arrays) — that keeps one copy of the weights.
 
-At ``model_axis = R > 1`` the dense and moe families train
+At ``model_axis = R > 1`` the dense, moe, ssm and hybrid families train
 tensor-parallel: each rank holds its block of every leaf the model axis
-splits (``transformer.held_layout``; ``init_state`` builds it so) and the
-layers compute in Megatron's layout (``models/tensor_parallel.py``), their
-collectives on ``torch.distributed`` beside the ABI.  Under expert
+splits (``tensor_parallel.held_layout``; ``init_state`` builds it so) and
+the layers compute in Megatron's layout (``models/tensor_parallel.py``),
+their collectives on ``torch.distributed`` beside the ABI.  Under expert
 parallelism each rank holds its ``E_pad / R`` experts of each layer and the
 EP block's exchanges carry the gradient through ``dist.abi``
 (``models/moe.py``).  A rank's ZeRO-1 flat
@@ -55,9 +55,9 @@ microbatched gradients, the per-leaf AdamW update, under
 ``use_rules(dist.rules)``.  In the reference XLA inserts its collectives
 beside PAX; here, at dp > 1, the gradients' and the loss's mean over the
 data axes runs through ``torch.distributed`` on the dp group directly, not
-through the ABI (that split is the mode's point).  A dense or moe model
-that ``init_state`` builds at dp > 1 is sharded over ``parallelism.fsdp_axes``
-(FSDP): each rank holds its block of every leaf whose spec names the fsdp
+through the ABI (that split is the mode's point).  A dense, moe, ssm or
+hybrid model that ``init_state`` builds at dp > 1 is sharded over
+``parallelism.fsdp_axes`` (FSDP): each rank holds its block of every leaf whose spec names the fsdp
 axes, and so do its AdamW moments; each layer's leaves are all-gathered
 just before the layer runs and its gradient reduce-scattered back
 (``models/tensor_parallel.py``), so the step only scales those shards and
@@ -74,9 +74,8 @@ import torch.distributed as tdist
 from torch.profiler import record_function
 
 from ..core import PAX_SUM
-from ..models.model import ModelApi, leaf_splits, param_leaves
+from ..models.model import SPLIT_FAMILIES, ModelApi, leaf_splits, param_leaves
 from ..models.tensor_parallel import Part
-from ..models.transformer import TransformerLM
 from ..optim import adamw
 from ..optim.adamw import AdamState, AdamWConfig, FlatAdamState
 from ..runtime.dist import DistContext, dp_comm_of
@@ -108,7 +107,7 @@ def init_state(api: ModelApi, seed: int, dist: DistContext, model=None) -> Train
     dp, buckets, wire dtype and compression — keeps the live plans; a
     layout change retires them and re-plans.  The weights are the block
     of the seed's draw this rank holds (:func:`model_part`): its
-    tensor-parallel and FSDP block of a dense or moe model."""
+    tensor-parallel and FSDP block of a dense, moe, ssm or hybrid model."""
     if model is None:
         model = api.init(seed, dist.device, **model_part(api, dist))
     _check_part(api, dist, model)
@@ -134,10 +133,10 @@ def init_state(api: ModelApi, seed: int, dist: DistContext, model=None) -> Train
 
 
 def _part(dist: DistContext, grad_sync: str) -> Part:
-    """The block of a transformer a rank of ``dist`` holds: its heads,
-    FFN columns, experts (or each expert's ``d_ff`` block) and vocabulary
-    rows at ``model_axis > 1``, and under ``grad_sync="gspmd"`` at dp > 1
-    its block over the fsdp axes (the dp axes of the mesh)."""
+    """The block of a model a rank of ``dist`` holds: its heads, FFN
+    columns, experts (or each expert's ``d_ff`` block), Mamba2 channels and
+    vocabulary rows at ``model_axis > 1``, and under ``grad_sync="gspmd"``
+    at dp > 1 its block over the fsdp axes (the dp axes of the mesh)."""
     tp = (dist.abi.comm_rank(dist.tp_comm), dist.tp_size) if dist.tp_size > 1 else (0, 1)
     fsdp = ((dist.abi.comm_rank(dist.dp_comm), dist.dp_size)
             if grad_sync == "gspmd" and dist.dp_size > 1 else (0, 1))
@@ -146,9 +145,9 @@ def _part(dist: DistContext, grad_sync: str) -> Part:
 
 def model_part(api: ModelApi, dist: DistContext) -> dict:
     """The ``api.init``/``from_jax_params`` keywords of what a rank of
-    ``dist`` holds: the dense and moe families' :func:`_part`, nothing for
-    the other families."""
-    if api.cfg.family not in TransformerLM.FAMILIES:
+    ``dist`` holds: the dense, moe, ssm and hybrid families' :func:`_part`,
+    nothing for the other families."""
+    if api.cfg.family not in SPLIT_FAMILIES:
         return {}
     p = _part(dist, api.cfg.parallelism.grad_sync)
     return {"model_rank": p.tp_rank, "model_axis": p.tp_size, "fsdp_rank": p.fsdp_rank,
@@ -156,11 +155,11 @@ def model_part(api: ModelApi, dist: DistContext) -> dict:
 
 
 def _check_part(api: ModelApi, dist: DistContext, model) -> None:
-    """A transformer holds the block ``dist`` gives it, or the whole model
-    (trained replicated) — except a moe model under expert parallelism at
-    ``model_axis > 1``, which must hold its block."""
+    """A dense, moe, ssm or hybrid model holds the block ``dist`` gives it,
+    or the whole model (trained replicated) — except a moe model under
+    expert parallelism at ``model_axis > 1``, which must hold its block."""
     held = getattr(model, "part", Part())
-    if api.cfg.family not in TransformerLM.FAMILIES:
+    if api.cfg.family not in SPLIT_FAMILIES:
         return
     want = _part(dist, api.cfg.parallelism.grad_sync)
     m = api.cfg.moe

@@ -15,6 +15,13 @@ counting and its H100 roofline (``launch/hlo_analysis.py``), on the CPU.
   sets ``XLA_FLAGS`` at import, so it is not imported here).  The ZeRO-1
   moments are flat: the held leaves' elements padded to the dp size, over
   the dp axes (``state_specs(dp_axes=...)``);
+* likewise rwkv6-7b's and zamba2-2.7b's train state (the ABI ZeRO-1
+  step, their time mix, channel mix, Mamba2 layers per segment, shared
+  block and vocabulary split over the model axis); their decode_32k cell
+  and a train cell cut to a few layers and 256 positions at ``pod1`` say
+  ``"tp": "split"`` and their argument bytes are the reference's
+  per-device parameters and decode state (``cache_specs``) or train
+  state;
 * a smoke dense cell (qwen2-0.5b's smoke config, 2 x 32 tokens a rank)
   lowers on the fake backend at ``pod1``: positive roofline terms, and its
   collective bytes by op equal a count by hand from the step's plans;
@@ -82,6 +89,37 @@ print("RESULT " + json.dumps(out))
 """
 
 
+#: the ssm and hybrid families (their own subprocesses): the decode cell
+#: at full size and a train cell cut to these layers (the hybrid's one
+#: firing of its shared block) and 256 positions for the CPU
+SSM_ARCHS = ("rwkv6-7b", "zamba2-2.7b")
+SSM_TRAIN = {"rwkv6-7b": 2, "zamba2-2.7b": 6}
+SSM_TRAIN_SHAPE = (256, 64)     # (sequence, global batch): 4 rows a data rank
+
+_SSM_SCRIPT = """
+import dataclasses, json, sys
+from repro_torch import configs
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_production_mesh
+
+pod2, train = sys.argv[1] == "pod2", json.loads(sys.argv[2])
+seq, batch = json.loads(sys.argv[3])
+out = {"shapes": {a: {k: list(v) for k, v in dryrun.state_shapes(a, pod2).items()}
+                  for a in train}}
+if not pod2:
+    mesh = make_production_mesh(device="cpu")
+    for a, layers in train.items():
+        cfg = configs.get_config(a)
+        out.setdefault("decode", {})[a] = dryrun.lower(cfg, configs.SHAPES_BY_NAME["decode_32k"],
+                                                       mesh)
+        out.setdefault("train", {})[a] = dryrun.lower(
+            dataclasses.replace(cfg, num_layers=layers), ShapeConfig("cut", seq, batch, "train"),
+            mesh)
+print("RESULT " + json.dumps(out))
+"""
+
+
 def _run(mesh: str) -> dict:
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run([sys.executable, "-c", _SCRIPT, mesh, ",".join(ARCHS)], env=env,
@@ -94,6 +132,24 @@ def _run(mesh: str) -> dict:
 @pytest.fixture(scope="module")
 def runs():
     return {m: _run(m) for m in MESHES}
+
+
+@pytest.fixture(scope="module")
+def ssm_runs():
+    """The ssm and hybrid archs' state shapes at both meshes and their
+    cells at ``pod1``, the two meshes' subprocesses run together."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = {m: subprocess.Popen([sys.executable, "-c", _SSM_SCRIPT, m, json.dumps(SSM_TRAIN),
+                                  json.dumps(SSM_TRAIN_SHAPE)], env=env,
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for m in MESHES}
+    out = {}
+    for m, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=300)
+        assert proc.returncode == 0, stderr[-4000:]
+        line = [ln for ln in stdout.splitlines() if ln.startswith("RESULT ")][-1]
+        out[m] = json.loads(line[len("RESULT "):])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -163,12 +219,10 @@ def _flat(tree, prefix) -> dict:
                 tree, is_leaf=lambda v: isinstance(v, P))[0]}
 
 
-@pytest.mark.parametrize("mesh", list(MESHES))
-@pytest.mark.parametrize("arch", ARCHS)
-def test_state_leaves_have_the_reference_per_device_shapes(arch, mesh, runs):
-    got = {k: tuple(v) for k, v in runs[mesh]["shapes"][arch].items()}
+def _want_state(cfg, mesh: str) -> dict:
+    """The reference's train state of ``cfg`` as rank 0 of ``mesh`` holds
+    it: leaf -> (per-device shape, bytes an element)."""
     sizes, names = MESHES[mesh]
-    cfg = R_cfgs.get_config(arch)
     api = r_build(cfg)
     mode = cfg.parallelism.grad_sync
     fsdp = ("pod", "data") if mesh == "pod2" else "data"
@@ -178,22 +232,34 @@ def test_state_leaves_have_the_reference_per_device_shapes(arch, mesh, runs):
     specs = r_tl.state_specs(api, mode, fsdp=fsdp, tp="model",
                              dp_axes=dp_axes if zero1 else None)
     pspecs = _flat(specs.params, "")
-    want = {f"params.{n}": _shard_shape(s.shape, pspecs[n], sizes, names)
+    want = {f"params.{n}": (_shard_shape(s.shape, pspecs[n], sizes, names), s.dtype.itemsize)
             for n, s in shapes.items()}
     if zero1:
         # the flat moments: this rank's held elements, padded to dp, over the dp axes
         dp = math.prod(sizes[:-1])
-        n_local = sum(math.prod(v) for k, v in want.items())
+        n_local = sum(math.prod(v) for v, _ in want.values())
         padded = -(-n_local // dp) * dp
         flat = _shard_shape((padded,), specs.opt.m, sizes, names)
-        want.update({"opt.m": flat, "opt.v": flat, "opt.ef": (1,), "opt.step": ()})
+        want.update({"opt.m": (flat, 4), "opt.v": (flat, 4), "opt.ef": ((1,), 4),
+                     "opt.step": ((), 4)})
     else:
         for field in ("m", "v"):
             fspecs = _flat(getattr(specs.opt, field), "")
-            want.update({f"opt.{field}.{n}": _shard_shape(s.shape, fspecs[n], sizes, names)
+            want.update({f"opt.{field}.{n}": (_shard_shape(s.shape, fspecs[n], sizes, names), 4)
                          for n, s in shapes.items()})
-        want["opt.step"] = ()
-    want["step"] = ()
+        want["opt.step"] = ((), 4)
+    want["step"] = ((), 4)
+    return want
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_state_leaves_have_the_reference_per_device_shapes(arch, mesh, runs):
+    got = {k: tuple(v) for k, v in runs[mesh]["shapes"][arch].items()}
+    sizes, names = MESHES[mesh]
+    cfg = R_cfgs.get_config(arch)
+    mode = cfg.parallelism.grad_sync
+    want = {k: shape for k, (shape, _) in _want_state(cfg, mesh).items()}
     assert sorted(got) == sorted(want)
     for k in want:
         assert got[k] == want[k], (k, got[k], want[k])
@@ -209,6 +275,66 @@ def test_state_leaves_have_the_reference_per_device_shapes(arch, mesh, runs):
     assert wi[split[0]] == split[1] // 16
     if mode == "gspmd":
         assert wi[-2] == cfg.d_model // math.prod(sizes[:-1])
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_and_hybrid_state_leaves_have_the_reference_per_device_shapes(arch, mesh,
+                                                                          ssm_runs):
+    """rwkv6-7b's and zamba2-2.7b's train state (the ABI ZeRO-1 step) as
+    rank 0 of ``pod1``/``pod2`` holds it is the reference's, leaf by leaf:
+    the time mix's heads, the channel mix, each Mamba2 leaf (per segment:
+    1/16 of each, as the reference's contiguous spec gives it), the shared
+    block and the vocabulary split over the model axis."""
+    got = {k: tuple(v) for k, v in ssm_runs[mesh]["shapes"][arch].items()}
+    want = {k: shape for k, (shape, _) in _want_state(R_cfgs.get_config(arch), mesh).items()}
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k] == want[k], (k, got[k], want[k])
+    cfg = R_cfgs.get_config(arch)
+    if arch == "rwkv6-7b":
+        assert got["params.layers.wr"][2] == cfg.d_model // 16
+        assert got["params.layers.cm_wv"][1] == cfg.d_ff // 16
+    else:
+        d_inner = cfg.ssm.expand * cfg.d_model
+        cols = 2 * d_inner + 2 * cfg.ssm.state_size + d_inner // cfg.ssm.head_dim
+        assert got["params.layers.in_proj"][2] == cols // 16
+        assert got["params.shared.in_proj"][1] == cfg.d_model // 16
+
+
+def _cache_bytes(arch: str, rows: int, seq: int) -> int:
+    """The bytes of the reference's decode state of ``rows`` sequences of
+    ``seq`` positions as rank 0 of ``pod1`` holds it (``cache_specs``)."""
+    sizes, names = MESHES["pod1"]
+    api = r_build(R_cfgs.get_config(arch))
+    shapes = jax.tree.leaves(jax.eval_shape(lambda: api.decode_init(rows, seq)))
+    specs = jax.tree.leaves(api.cache_specs(), is_leaf=lambda v: isinstance(v, P))
+    return sum(math.prod(_shard_shape(s.shape, spec, sizes, names)) * s.dtype.itemsize
+               for s, spec in zip(shapes, specs))
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_and_hybrid_cells_hold_the_split_layout_and_its_bytes(arch, ssm_runs):
+    """At ``pod1`` the decode_32k cell and a train cell (the config cut to
+    ``SSM_TRAIN`` layers and 256 positions) hold the split layout
+    (``"tp": "split"``); the decode cell's argument bytes are the
+    reference's per-device parameters (``param_specs``) and decode state
+    (``cache_specs``: the rank's WKV heads; its conv channels, SSM heads
+    and K/V heads), the train cell's its per-device train state."""
+    import dataclasses
+
+    dec, train = ssm_runs["pod1"]["decode"][arch], ssm_runs["pod1"]["train"][arch]
+    assert dec["tp"] == train["tp"] == "split" and dec["fsdp"] == "replicated"
+    cfg = R_cfgs.get_config(arch)
+    params = sum(math.prod(shape) * size for k, (shape, size) in
+                 _want_state(cfg, "pod1").items() if k.startswith("params."))
+    shape = R_cfgs.SHAPES_BY_NAME["decode_32k"]
+    assert dec["memory"]["argument_bytes"] == params + _cache_bytes(
+        arch, shape.global_batch, shape.seq_len)
+    cut = dataclasses.replace(cfg, num_layers=SSM_TRAIN[arch])
+    assert train["memory"]["argument_bytes"] == sum(
+        math.prod(shape) * size for shape, size in _want_state(cut, "pod1").values())
+    assert train["collectives"]["count"]["all-reduce"] > 0
 
 
 # ---------------------------------------------------------------------------
