@@ -16,6 +16,7 @@
     python3 chip_smoke.py --only tp4    # build + [tp4] only, four cards
     python3 chip_smoke.py --only moetp4 # build + [moetp4] only, four cards
     python3 chip_smoke.py --only ssmtp4 # build + [ssmtp4] only, four cards
+    python3 chip_smoke.py --only mmtp4  # build + [mmtp4] only, four cards
     python3 chip_smoke.py --baseline wkv6=build/wkv6_parent.cu  # [time] also an earlier wkv6
 
 ``--baseline NAME=PATH`` (repeatable; NAME ``wkv6`` or ``ssd``) builds an
@@ -285,7 +286,24 @@ whole model (rwkv6-7b at 8 of 32 layers, the depth whose unsharded f32
 step one card holds; zamba2-2.7b at its 54), rwkv6-7b's split forward and
 gradient in float64 against one card's (its float32 gradient is
 ill-conditioned), and bf16 steps at full depth in both modes; it prints a
-``kernels`` line with the ``ssmtp4`` launches.
+``kernels`` line with the ``ssmtp4`` launches.  ``--only mmtp4`` (four
+cards, :func:`phase_mmtp4`) runs the encdec and vlm families on the model
+axis, each card holding its block of one card's draw: the bf16 forward at
+full depth under flash (phi-3-vision-4.2b at 8/8 heads of D=96 over 576 +
+2048 positions, 32 launches a card; whisper-tiny's decoder at 6/6 heads at
+(1, 4), where its heads stay whole and its MLPs split, and at 3/3 at (2,
+2), 4 launches a card; the last call held to ``attention_ref``, the logits
+against one card's a record, ms per forward beside one card's whole model),
+phi-3-vision's float32 forward at full depth against one card's, float32
+steps of both under the ABI ZeRO-1 step at (1, 4) and ``gspmd`` with FSDP
+at (2, 2) against one card's unsharded step (whisper at its full 4 + 4
+layers, phi-3-vision at 2), the split decode in float32 (phi-3-vision's
+``prefill_multimodal`` and 8 steps at (1, 4); whisper's ``init_cache`` and
+8 steps at (2, 2), its self and cross K/V at 3 heads a card) against one
+card's, phi-3-vision-4.2b's bf16 steps at full depth (the ABI ZeRO-1 step
+at (1, 4), ``gspmd`` with FSDP at (2, 2): ms/step, peak GB, a card's
+weight bytes) and flash alone at a rank's heads; it prints a ``kernels``
+line with the ``mmtp4`` launches.
 
 ``--only ring4`` runs the one path a single card cannot: [ring4] starts
 ``launch.train`` as four ranks, one per card, on NCCL, for 2 ZeRO-1 steps
@@ -845,6 +863,37 @@ def phase_check_flash() -> dict:
     return {"flash_attention": worst}
 
 
+def _time_flash(tag: str, shape: tuple, dtype: str, rate: float, gen,
+                main: bool = False) -> dict:
+    """Kernel, plain version and ``scaled_dot_product_attention`` at one
+    causal shape (B, S, H, Hkv, D) on the current card (CUDA events): their
+    ms, the bound (the causal FLOPs over ``rate`` or the bytes over the
+    memory bandwidth, whichever is longer) and the kernel's TFLOP/s."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    B, S, H, Hkv, D = shape
+    flops = 4 * B * H * D * S * (S + 1) / 2
+    q, k, v = _qkv(B, S, H, Hkv, D, dtype, gen)
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+    q4, k4, v4 = q.view(B, H, S, D), k.view(B, Hkv, S, D), v.view(B, Hkv, S, D)
+    t = dict(ms=_time_ms(lambda: ops.flash_attention(q, k, v)),
+             plain_ms=_time_ms(lambda: ref.attention_ref(q, k, v)),
+             library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+                 q4, k4, v4, is_causal=True, enable_gqa=H != Hkv)),
+             bound_ms=max(flops / rate, nbytes / HBM_BYTES_PER_S) * 1e3,
+             bound_by="operations" if flops / rate > nbytes / HBM_BYTES_PER_S else "bytes",
+             entry=ops.route(q.dtype))
+    t["tflops"] = flops / t["ms"] / 1e9
+    log(f"[{tag}] flash_attention B={B} S={S} H={H}/{Hkv} D={D} causal {dtype} "
+        f"({t['entry']}{'' if main else ', a record'}): kernel "
+        f"{t['ms']:.3f} ms ({t['tflops']:.1f} TFLOP/s), plain {t['plain_ms']:.3f} ms, "
+        f"library (sdpa) {t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}: {flops:.3e} FLOP at {rate / 1e12:.0f} TFLOP/s, "
+        f"{nbytes / 1e6:.1f} MB)")
+    return t
+
+
 def phase_time_flash() -> dict:
     """Kernel, plain version and ``scaled_dot_product_attention`` at the
     main path's shape, in bf16 (the tensor-core kernel, the record) and f32
@@ -856,14 +905,12 @@ def phase_time_flash() -> dict:
     Bound: the causal FLOPs (QK^T and PV over
     the S(S+1)/2 pairs) over the peak for the inputs' type, or q, k, v read
     and o written once over the memory bandwidth, whichever is longer;
-    achieved TFLOP/s: those FLOPs over the kernel's time."""
+    achieved TFLOP/s: those FLOPs over the kernel's time (:func:`_time_flash`)."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     out = {}
-    for name, (B, S, H, Hkv, D), dtype, rate in (
+    for name, shape, dtype, rate in (
             ("float32", FULL_ATTN, "float32", F32_FLOP_PER_S),
             ("bfloat16", FULL_ATTN, "bfloat16", BF16_FLOP_PER_S),
             ("hybrid", HYBRID_ATTN, "bfloat16", BF16_FLOP_PER_S),
@@ -873,26 +920,7 @@ def phase_time_flash() -> dict:
             ("vlm", VLM_ATTN, "bfloat16", BF16_FLOP_PER_S),
             ("vlm776", VLM_RAGGED, "bfloat16", BF16_FLOP_PER_S),
             ("whisper", WHISPER_ATTN, "bfloat16", BF16_FLOP_PER_S)):
-        flops = 4 * B * H * D * S * (S + 1) / 2
-        q, k, v = _qkv(B, S, H, Hkv, D, dtype, gen)
-        nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
-        q4, k4, v4 = q.view(B, H, S, D), k.view(B, Hkv, S, D), v.view(B, Hkv, S, D)
-        t = dict(ms=_time_ms(lambda: ops.flash_attention(q, k, v)),
-                 plain_ms=_time_ms(lambda: ref.attention_ref(q, k, v)),
-                 library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
-                     q4, k4, v4, is_causal=True, enable_gqa=H != Hkv)),
-                 bound_ms=max(flops / rate, nbytes / HBM_BYTES_PER_S) * 1e3,
-                 bound_by="operations" if flops / rate > nbytes / HBM_BYTES_PER_S else "bytes",
-                 entry=ops.route(q.dtype))
-        t["tflops"] = flops / t["ms"] / 1e9
-        log(f"[time] flash_attention B={B} S={S} H={H}/{Hkv} D={D} causal {dtype} "
-            f"({t['entry']}{', a record' if name != 'bfloat16' else ''}): kernel "
-            f"{t['ms']:.3f} ms ({t['tflops']:.1f} TFLOP/s), plain {t['plain_ms']:.3f} ms, "
-            f"library (sdpa) {t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}: {flops:.3e} FLOP at {rate / 1e12:.0f} TFLOP/s, "
-            f"{nbytes / 1e6:.1f} MB)")
-        out[name] = t
-        del q, k, v, q4, k4, v4
+        out[name] = _time_flash("time", shape, dtype, rate, gen, name == "bfloat16")
     record = dict(out["bfloat16"])
     record.update({f"{name}_{key}": out[name][key]
                    for name in ("float32", "hybrid", "hybrid_tp", "gemma", "moe", "vlm", "vlm776",
@@ -6572,6 +6600,513 @@ def phase_ssmtp4(card: str, device: str = "cuda",
     return launches
 
 
+# ---------------------------------------------------------------------------
+# [mmtp4]: the encdec and vlm families on the model axis, four cards
+# ---------------------------------------------------------------------------
+MMTP4 = 4
+MMTP4_ARCHS = (ENCDEC_ARCH, VLM_ARCH)
+#: (a) float32 parity, 3 steps a mode: (depth, batch, sequence) a family;
+#: whisper-tiny at its full 4 + 4 layers over the config's 1500 frames,
+#: phi-3-vision-4.2b at 2 of 32 layers after its 576 image tokens
+MMTP4_F32 = {ENCDEC_ARCH: (None, 8, 448), VLM_ARCH: (2, 8, 256)}
+MMTP4_F32_STEPS = 3
+#: (b) phi-3-vision-4.2b in bf16 at full depth, batch 8 x 1024 text tokens:
+#: one warm step, then the timed ones, a mode
+MMTP4_WARM, MMTP4_TIMED = 1, 2
+#: (c) the TP forward under flash at full depth, B=4: text positions
+#: (phi-3-vision-4.2b's after its 576 image tokens; whisper's decoder)
+MMTP4_FWD = {ENCDEC_ARCH: 448, VLM_ARCH: 2048}
+#: (c) the split bf16 forward's distance to the float32 forward of the same
+#: bf16 weights, at most this many times one card's own
+MMTP4_TO_F32_RATIO = 2.0
+#: (c') phi-3-vision-4.2b's float32 forward at full depth against one card's:
+#: batch, text positions after the 576 image tokens
+MMTP4_F32_FWD = (1, 512)
+#: (d) the split decode in float32 on a float32 cache: depth, batch, the
+#: vlm's prompt after the image, steps
+MMTP4_DEC_DEPTH, MMTP4_DEC_BATCH, MMTP4_DEC_PROMPT, MMTP4_DEC_STEPS = 2, 2, 64, 8
+#: where each leg runs: (1, 4) or (2, 2); whisper's 6 heads split only at
+#: (2, 2), its MLPs at both
+MMTP4_FWD_MESHES = {ENCDEC_ARCH: ((1, 4), (2, 2)), VLM_ARCH: ((1, 4),)}
+MMTP4_DEC_MESH = {ENCDEC_ARCH: (2, 2), VLM_ARCH: (1, 4)}
+MMTP4_TIMEOUT = 900
+#: NCCL's wait for a collective in [mmtp4]'s ranks
+MMTP4_NCCL_TIMEOUT_S = 240
+
+
+def _mmtp4_cfg(arch: str, device: str, depth, grad_sync: str, mesh: tuple,
+               f32: bool = False, zero1: bool = True, **change):
+    """``arch`` at full width (the smoke config on the CPU), ``depth``
+    decoder (and encoder) layers (None: the config's), ``grad_sync``, the
+    ABI step's ZeRO-1 (``zero1``) or per-leaf layout, ``tp_size`` the
+    mesh's model axis (so whisper's 6 heads split at 2, not at 4), float32
+    weights and compute with ``f32``."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    on_card = device != "cpu"
+    cfg = configs.get_config(arch) if on_card else configs.smoke_config(arch)
+    par = dict(grad_sync=grad_sync, zero1=zero1, tp_size=mesh[1])
+    if not on_card:
+        par.update(microbatch=4, remat="full")
+    if depth is not None:
+        change["num_layers"] = depth
+        if cfg.encdec is not None:
+            change["encdec"] = dataclasses.replace(cfg.encdec, encoder_layers=depth)
+    cfg = dataclasses.replace(cfg, **change, parallelism=dataclasses.replace(
+        cfg.parallelism, **par))
+    if f32:
+        cfg = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    return cfg
+
+
+def _mmtp4_heads(model, cfg) -> list:
+    """(query heads, K/V heads, head width) of the decoder's self-attention
+    as ``model`` holds it."""
+    a = model.dec_layers.attn if cfg.family == "encdec" else model.layers.attn
+    hd = cfg.resolved_head_dim
+    return [int(a.wq.shape[-1] // hd), int(a.wk.shape[-1] // hd), hd]
+
+
+def _mmtp4_decode(api, model, cfg, b: dict, dist) -> tuple:
+    """The split decode on a float32 cache: whisper's ``init_cache`` on the
+    frames, the vlm's ``prefill_multimodal`` of the patches and the first
+    ``MMTP4_DEC_PROMPT`` tokens, then a ``decode_step`` for each later
+    token: (each step's logits, the cache's K/V heads)."""
+    import torch
+    from repro_torch.models import encdec, vlm
+
+    tok = b["tokens"]
+    B, n = tok.shape
+    with torch.no_grad():
+        if cfg.family == "encdec":
+            cache = encdec.init_cache(model, b["frames"], cfg, B, n, dist, dtype=torch.float32)
+            first, index, heads = 0, 0, int(cache.cross_k.shape[3])
+        else:
+            first = MMTP4_DEC_PROMPT
+            _, cache, index = vlm.prefill_multimodal(
+                model, tok[:, :first], b["patches"], cfg, dist,
+                max_seq=cfg.vlm.num_patches + n, dtype=torch.float32)
+            heads = int(cache.k.shape[3])
+        out = []
+        for i in range(n - first):
+            logits, cache = api.decode_step(model, tok[:, first + i:first + i + 1], cache,
+                                            index + i, dist)
+            out.append(logits.float())
+    return out, heads
+
+
+def _mmtp4_rank(rank: int, world: int, init_method: str, out_dir: str,
+                device: str = "cuda") -> None:
+    """One rank of [mmtp4] (``device="cpu"``: the smoke configs on gloo).
+    One world; mesh (1, 4), and (2, 2) built on it.  Each rank holds its
+    block of one card's draw from seed 0.  (c) The bf16 TP forward at full
+    depth under flash, B=4: phi-3-vision-4.2b at (1, 4) over 576 image and
+    2048 text positions, whisper-tiny at (1, 4) (its 6 heads whole, its MLPs
+    split) and at (2, 2) (3/3 heads); the flash launches, the last call
+    held to ``attention_ref``.  (c') phi-3-vision-4.2b's float32 forward at
+    full depth at (1, 4), B=1.  (a) float32 steps of both families
+    (``MMTP4_F32``) under the ABI ZeRO-1 step at (1, 4) and ``gspmd`` with
+    FSDP at (2, 2).  (d) The split decode in float32 (``_mmtp4_decode``):
+    phi-3-vision at (1, 4), whisper at (2, 2).  (b) phi-3-vision-4.2b's bf16
+    steps at full depth, batch 8 x 1024: the ABI ZeRO-1 step at (1, 4) on
+    (c)'s model, ``gspmd`` with FSDP at (2, 2).  Rank 0 then runs the
+    one-card references on its card with no process group: the whole
+    models' forwards (timed; and in float32 on the same bf16 weights), the
+    float32 forward, unsharded float32 steps and decodes, and flash alone at
+    a rank's heads.  Each leg's records are saved as it
+    ends."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    sys.path.insert(0, str(SRC))
+    import dataclasses
+
+    import torch
+    from repro_torch.core import Mesh
+    from repro_torch.models import build_model, make_batch
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.dist import make_dist
+    from repro_torch.train import train_loop as tl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    on_card = device != "cpu"
+    torch.set_num_threads(1)
+    dev = torch.device(f"cuda:{rank}") if on_card else torch.device("cpu")
+    if on_card:
+        torch.cuda.set_device(dev)
+        # a rank that fails between collectives ends the others within
+        # minutes, not NCCL's default ten (make_dist joins this world)
+        import datetime
+
+        torch.distributed.init_process_group(
+            "nccl", init_method=f"file://{Path(out_dir) / 'world'}", world_size=world,
+            rank=rank, timeout=datetime.timedelta(seconds=MMTP4_NCCL_TIMEOUT_S))
+    B, S = (TRAIN_BATCH, TRAIN_SEQ) if on_card else (8, 32)
+    data = {}
+    for i, arch in enumerate(MMTP4_ARCHS):
+        c = _mmtp4_cfg(arch, device, None, "abi", (1, MMTP4))
+        _, b32, s32 = MMTP4_F32[arch]
+        b32, s32 = (b32, s32) if on_card else (8, 32)
+        data[arch] = dict(
+            f32=[make_batch(10 * i + j, c, b32, s32, "cpu") for j in range(MMTP4_F32_STEPS)],
+            f32_fwd=make_batch(400 + i, c, *(MMTP4_F32_FWD if on_card else (1, 16)), "cpu"),
+            fwd=make_batch(100 + i, c, FWD_BATCH, MMTP4_FWD[arch] if on_card else 32, "cpu"),
+            decode=make_batch(200 + i, c, MMTP4_DEC_BATCH,
+                              (MMTP4_DEC_PROMPT if arch == VLM_ARCH else 0) + MMTP4_DEC_STEPS,
+                              "cpu"))
+    bf16 = [make_batch(300 + j, _mmtp4_cfg(VLM_ARCH, device, None, "abi", (1, MMTP4)), B, S,
+                       "cpu") for j in range(MMTP4_WARM + MMTP4_TIMED)]
+    rec: dict = {a: {} for a in MMTP4_ARCHS}
+    keep: dict = {a: {} for a in MMTP4_ARCHS}
+    t0 = time.perf_counter()
+
+    def done(leg: str) -> None:
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
+        log(f"[mmtp4] rank {rank}: {leg} done at {time.perf_counter() - t0:.1f} s")
+
+    def free() -> None:
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def on(b: dict) -> dict:
+        return {k: v.to(dev) for k, v in b.items()}
+
+    with make_dist(device=str(dev), model_axis=MMTP4, world_size=world, rank=rank,
+                   init_method=f"file://{Path(out_dir) / 'world'}") as dist4:
+        dist22 = make_dist(mesh=Mesh(("data", "model"), (2, 2), dist4.device))
+        dists = {(1, MMTP4): dist4, (2, 2): dist22}
+        try:
+            vlm_model = None
+            for arch in MMTP4_ARCHS:
+                r = rec[arch]
+                for mesh in MMTP4_FWD_MESHES[arch]:
+                    # (c) the bf16 TP forward at full depth under flash
+                    tag = f"fwd_{mesh[0]}{mesh[1]}"
+                    cfg = _mmtp4_cfg(arch, device, None, "abi", mesh, attention_impl="flash")
+                    api = build_model(cfg)
+                    t = time.perf_counter()
+                    model = api.init(0, dev, **tl.model_part(api, dists[mesh]))
+                    r[f"{tag}_draw_s"] = time.perf_counter() - t
+                    r[f"{tag}_part"] = list(dataclasses.astuple(model.part))
+                    r[f"{tag}_split"] = sorted(n for n, sp in model.held.items() if "tp" in sp)
+                    r[f"{tag}_heads"] = _mmtp4_heads(model, cfg)
+                    batch = on(data[arch]["fwd"])
+                    with torch.no_grad(), _FlashSpy() as spy:
+                        _zero_counts()
+                        logits, t1 = _timed(lambda: api.forward(model, batch, dists[mesh]),
+                                            on_card, dev)
+                        r[f"{tag}_flash"] = _counts()["flash_attention"]
+                        if on_card:
+                            try:  # recorded, not raised: the world goes on
+                                spy.check(f"mmtp4 {arch} {mesh}")
+                                r[f"{tag}_last"] = dict(ok=True)
+                            except AssertionError as e:
+                                r[f"{tag}_last"] = dict(ok=False, error=str(e))
+                        r[f"{tag}_ms"] = [_timed(lambda: api.forward(model, batch, dists[mesh]),
+                                                 on_card, dev)[1] for _ in range(3)]
+                    r[f"{tag}_first_ms"] = t1
+                    if rank == 0:
+                        keep[arch][tag] = logits.cpu()
+                    del logits
+                    if arch == VLM_ARCH:
+                        vlm_model = model
+                    del model
+                    free()
+                    done(f"(c) {arch} the bf16 forward at {mesh}")
+                if arch == VLM_ARCH:
+                    # (c') the float32 forward at full depth
+                    api = build_model(_mmtp4_cfg(arch, device, None, "abi", (1, MMTP4),
+                                                 f32=True))
+                    model = api.init(0, dev, **tl.model_part(api, dist4))
+                    with torch.no_grad():
+                        logits = api.forward(model, on(data[arch]["f32_fwd"]), dist4)
+                    if rank == 0:
+                        keep[arch]["f32_fwd"] = logits.cpu()
+                    del model, logits
+                    free()
+                    done(f"(c') {arch} the float32 forward at (1, {MMTP4})")
+                # (a) float32 steps against one card
+                depth = MMTP4_F32[arch][0] if on_card else None
+                for mode, mesh in (("abi", (1, MMTP4)), ("gspmd", (2, 2))):
+                    api = build_model(_mmtp4_cfg(arch, device, depth, mode, mesh, f32=True))
+                    r[f"f32_{mode}"] = _tp4_steps(api, dists[mesh], data[arch]["f32"], on_card,
+                                                  dev)
+                    free()
+                    done(f"(a) {arch} float32 {mode} at {mesh}")
+                # (d) the split decode, float32
+                mesh = MMTP4_DEC_MESH[arch]
+                api = build_model(_mmtp4_cfg(arch, device, MMTP4_DEC_DEPTH, "abi", mesh,
+                                             f32=True))
+                model = api.init(0, dev, **tl.model_part(api, dists[mesh]))
+                steps, r["decode_heads"] = _mmtp4_decode(api, model, api.cfg,
+                                                         on(data[arch]["decode"]), dists[mesh])
+                if rank == 0:
+                    keep[arch]["decode"] = [x.cpu() for x in steps]
+                del model, steps
+                free()
+                done(f"(d) {arch} the split decode at {mesh}")
+            # (b) phi-3-vision-4.2b bf16 at full depth: the ABI ZeRO-1 step at
+            # (1, 4) on (c)'s model, then gspmd with FSDP at (2, 2)
+            r = rec[VLM_ARCH]
+            api = build_model(_mmtp4_cfg(VLM_ARCH, device, None, "abi", (1, MMTP4)))
+            r["bf16_abi"] = _tp4_steps(api, dist4, bf16, on_card, dev, model=vlm_model)
+            del vlm_model
+            free()
+            done("(b) bf16 abi ZeRO-1 at (1, 4)")
+            api = build_model(_mmtp4_cfg(VLM_ARCH, device, None, "gspmd", (2, 2)))
+            r["bf16_gspmd"] = _tp4_steps(api, dist22, bf16, on_card, dev)
+            free()
+            done("(b) bf16 gspmd at (2, 2)")
+        finally:
+            dist22.shutdown()
+    if rank == 0:
+        # the one-card references, no process group
+        for arch in MMTP4_ARCHS:
+            r = rec[arch]
+            cfg = _mmtp4_cfg(arch, device, None, "abi", (1, 1), attention_impl="flash")
+            api = build_model(cfg)
+            model = api.init(0, dev)
+            batch = on(data[arch]["fwd"])
+            with torch.no_grad():
+                want = api.forward(model, batch)
+                r["one_fwd_ms"] = [_timed(lambda: api.forward(model, batch), on_card, dev)[1]
+                                   for _ in range(3)]
+                # the same bf16 weights computed in float32 (xla attention): how
+                # far each bf16 forward's rounding carries it
+                api32 = build_model(dataclasses.replace(
+                    cfg, param_dtype="float32", compute_dtype="float32", attention_impl="xla"))
+                exact = api32.forward(model.float(), batch).float()
+                r["one_to_f32"] = float((want.float() - exact).abs().max())
+                for mesh in MMTP4_FWD_MESHES[arch]:
+                    tag = f"fwd_{mesh[0]}{mesh[1]}"
+                    got = keep[arch].pop(tag).to(dev)
+                    diff = (got.float() - want.float()).abs()
+                    r[f"{tag}_vs_one_card"] = dict(
+                        max_abs=float(diff.max()), median_abs=float(diff.flatten()[::101].median()),
+                        scale=float(want.float().abs().max()),
+                        argmax_agree=float((got.argmax(-1) == want.argmax(-1)).float().mean()),
+                        to_f32=float((got.float() - exact).abs().max()),
+                        finite=bool(torch.isfinite(got).all()))
+                    del got, diff
+            del model, want, exact
+            free()
+            if arch == VLM_ARCH:
+                api = build_model(_mmtp4_cfg(arch, device, None, "abi", (1, 1), f32=True))
+                model = api.init(0, dev)
+                with torch.no_grad():
+                    want = api.forward(model, on(data[arch]["f32_fwd"]))
+                r["f32_fwd_vs_one_card"] = _ssmtp4_vs(keep[arch].pop("f32_fwd").to(dev), want)
+                del model, want
+                free()
+            depth = MMTP4_F32[arch][0] if on_card else None
+            api = build_model(_mmtp4_cfg(arch, device, depth, "gspmd", (1, 1), f32=True))
+            model = api.init(0, dev)
+            state = tl.TrainState(model, adamw.init_tree(tl.param_leaves(model)),
+                                  torch.zeros((), dtype=torch.int32, device=dev))
+            step = tl.make_train_step(api, None, AdamWConfig())
+            ref = dict(losses=[], grad_norms=[])
+            for b in data[arch]["f32"]:
+                state, met = step(state, on(b))
+                ref["losses"].append(float(met.loss))
+                ref["grad_norms"].append(float(met.grad_norm))
+            r["f32_one_card"] = ref
+            del state, model, step
+            free()
+            api = build_model(_mmtp4_cfg(arch, device, MMTP4_DEC_DEPTH, "abi", (1, 1), f32=True))
+            model = api.init(0, dev)
+            want, _ = _mmtp4_decode(api, model, api.cfg, on(data[arch]["decode"]), None)
+            r["decode_vs_one_card"] = [_ssmtp4_vs(g.to(dev), w)
+                                       for g, w in zip(keep[arch]["decode"], want)]
+            del model, want
+            free()
+            done(f"the one-card references of {arch}")
+        if on_card:
+            # flash alone at a rank's heads: phi-3-vision's 8/8 of D=96 over
+            # 576 + 2048 positions, whisper's 3/3 of D=64 over 448
+            gen = torch.Generator(device=dev).manual_seed(3)
+            for arch, heads in ((VLM_ARCH, 8), (ENCDEC_ARCH, 3)):
+                c = _mmtp4_cfg(arch, device, None, "abi", (1, 1))
+                S_all = MMTP4_FWD[arch] + (c.vlm.num_patches if c.vlm else 0)
+                rec[arch]["flash_time"] = _time_flash(
+                    "mmtp4", (FWD_BATCH, S_all, heads, heads, c.resolved_head_dim), "bfloat16",
+                    BF16_FLOP_PER_S, gen)
+    done("the one-card references" if rank == 0 else "all legs")
+
+
+def phase_mmtp4(card: str, device: str = "cuda",
+                out_dir: Path = HERE / "build" / "mmtp4") -> dict:
+    """[mmtp4] (four cards, NCCL; ``device="cpu"``: the smoke configs on
+    gloo, a rehearsal): :func:`_mmtp4_rank` on four spawned ranks.  Gates:
+    (c) each TP forward launches flash once a decoder layer on every rank
+    (phi-3-vision-4.2b 32 at 8/8 heads of D=96, whisper-tiny 4 at 6/6 heads
+    at (1, 4) and 3/3 at (2, 2); 0 on the CPU), the last call held to
+    ``attention_ref``, the logits finite and their distance to the float32
+    forward of the same bf16 weights at most ``MMTP4_TO_F32_RATIO`` times one
+    card's on the cards (their distance to one card's bf16 logits a record: at 32 layers
+    the bf16 roundings of two summation orders part by more than
+    ``TP4_LOGIT_TOL``); (c') phi-3-vision-4.2b's
+    float32 forward at full depth within ``F32_LOGIT_TOL`` of one card's;
+    (a) each family's float32 step-1 loss within
+    ``TP4_LOSS_RTOL`` and grad norm within ``TP4_NORM_RTOL`` of one card's
+    unsharded step, in both modes, every value finite (steps 2 and 3 a
+    record), ``pack_transposed`` once a step per rank under the ABI ZeRO-1
+    step (0 under ``gspmd``; 0 on the CPU); (d) each split decode step
+    within ``F32_LOGIT_TOL`` of one card's, whisper's caches at 3 of 6 K/V
+    heads a rank; (b) phi-3-vision-4.2b's bf16 losses finite and equal on
+    every rank, ``pack_transposed`` once a step under the ABI ZeRO-1 step,
+    a card's weight bytes exactly what its held specs give.  The ranks'
+    records stay in ``out_dir``.  Returns the launches by kernel on rank
+    0."""
+    import shutil
+
+    t0 = time.perf_counter()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    on_card = device != "cpu"
+    try:
+        ranks = _spawn_ranks("mmtp4", _mmtp4_rank, MMTP4, out_dir, device,
+                             timeout=MMTP4_TIMEOUT)
+    except RuntimeError:
+        for r in range(MMTP4):
+            part = out_dir / f"rank{r}.json"
+            log(f"[mmtp4] rank {r}'s records so far: "
+                f"{part.read_text() if part.exists() else 'none'}")
+        raise
+    where = card if on_card else "gloo"
+    width = "full width" if on_card else "smoke"
+    bad = []
+    launches = {"flash_attention": 0, "pack_transposed": 0}
+    rel = lambda x, y: abs(x - y) / abs(y)  # noqa: E731
+    for arch in MMTP4_ARCHS:
+        r0 = ranks[0][arch]
+        cfg = _mmtp4_cfg(arch, device, None, "abi", (1, MMTP4))
+        L = cfg.num_layers
+        hd = cfg.resolved_head_dim
+        for mesh in MMTP4_FWD_MESHES[arch]:
+            tag = f"fwd_{mesh[0]}{mesh[1]}"
+            fl = [r[arch][f"{tag}_flash"] for r in ranks]
+            heads = [r[arch][f"{tag}_heads"] for r in ranks]
+            R = mesh[1]
+            want_heads = [cfg.num_heads // R if cfg.num_heads % R == 0 else cfg.num_heads,
+                          cfg.num_kv_heads // R if cfg.num_kv_heads % R == 0
+                          else cfg.num_kv_heads, hd]
+            one = r0[f"{tag}_vs_one_card"]
+            positions = MMTP4_FWD[arch] + (cfg.vlm.num_patches if cfg.vlm else 0)
+            log(f"[mmtp4] (c) {arch} {width} on four ranks of {where} at {mesh}, bf16 forward "
+                f"under flash, {L} layers, B={FWD_BATCH}, {positions if on_card else 32} "
+                f"positions: parts {[r[arch][f'{tag}_part'] for r in ranks]}; split leaves "
+                f"(rank 0) {r0[f'{tag}_split']}; heads a rank {heads[0]}; flash launches per "
+                f"rank {fl}; the last call (rank 0) {json.dumps(r0.get(f'{tag}_last'))}; ms "
+                f"per forward (rank 0) {[round(t, 2) for t in r0[f'{tag}_ms']]} after a first "
+                f"{r0[f'{tag}_first_ms']:.1f}, one card's whole model "
+                f"{[round(t, 2) for t in r0['one_fwd_ms']]}; the weight draw "
+                f"{r0[f'{tag}_draw_s']:.1f} s; against one card's logits {json.dumps(one)} (a "
+                f"record; one card's own bf16 logits are {r0['one_to_f32']:.4f} from the f32 "
+                f"forward of the same bf16 weights, the split's {one['to_f32']:.4f}, bound "
+                f"{MMTP4_TO_F32_RATIO}x one card's)")
+            if any(f != (L if on_card else 0) for f in fl):
+                bad.append(f"(c) {arch} {mesh} flash launches {fl}")
+            if any(h != want_heads for h in heads):
+                bad.append(f"(c) {arch} {mesh} heads a rank {heads}, expected {want_heads}")
+            if on_card and not all(r[arch][f"{tag}_last"]["ok"] for r in ranks):
+                bad.append(f"(c) {arch} {mesh} the last flash call "
+                           f"{[r[arch][f'{tag}_last'] for r in ranks]}")
+            # (the CPU rehearsal computes in float32: both distances are rounding)
+            if not one["finite"] or (on_card and one["to_f32"]
+                                     > MMTP4_TO_F32_RATIO * r0["one_to_f32"]):
+                bad.append(f"(c) {arch} {mesh} logits {one}, one card's distance to the f32 "
+                           f"forward {r0['one_to_f32']}")
+            launches["flash_attention"] += fl[0]
+        if arch == VLM_ARCH:
+            f32 = r0["f32_fwd_vs_one_card"]
+            fb, fs = MMTP4_F32_FWD if on_card else (1, 16)
+            log(f"[mmtp4] (c') {arch} float32 forward at (1, {MMTP4}), {L} layers, B={fb}, "
+                f"{fs} text positions after the image, against one card's whole model: "
+                f"{json.dumps(f32)} (bound {F32_LOGIT_TOL})")
+            if not f32["finite"] or f32["max_abs"] > F32_LOGIT_TOL:
+                bad.append(f"(c') {arch}: {f32}")
+        ref = r0["f32_one_card"]
+        depth = MMTP4_F32[arch][0] or L if on_card else L
+        _, b32, s32 = MMTP4_F32[arch]
+        log(f"[mmtp4] (a) {arch} float32, {depth} layers, batch "
+            f"{b32 if on_card else 8}x{s32 if on_card else 32}, one card's unsharded step: "
+            f"losses {ref['losses']} grad norms {ref['grad_norms']}")
+        for mode, mesh in (("abi", (1, MMTP4)), ("gspmd", (2, 2))):
+            a = [r[arch][f"f32_{mode}"] for r in ranks]
+            diff = {key: [max(rel(x[key][i], ref[key][i]) for x in a)
+                          for i in range(MMTP4_F32_STEPS)] for key in ("losses", "grad_norms")}
+            log(f"[mmtp4] (a) {arch} {mode} at {mesh}"
+                f"{', ZeRO-1' if mode == 'abi' else ', FSDP'}: losses {a[0]['losses']} grad "
+                f"norms {a[0]['grad_norms']}; largest relative difference to one card per "
+                f"step: losses {[f'{v:.3e}' for v in diff['losses']]} (step 1's bound "
+                f"{TP4_LOSS_RTOL}), grad norms {[f'{v:.3e}' for v in diff['grad_norms']]} "
+                f"(step 1's bound {TP4_NORM_RTOL}); pack_transposed a step per rank "
+                f"{[x['packs'] for x in a]}; parts {[x['part'] for x in a]}; peak GB "
+                f"{[round(x['peak_gb'], 2) for x in a]}")
+            want_pack = [1 if (on_card and mode == "abi") else 0] * MMTP4_F32_STEPS
+            finite = all(math.isfinite(v) for x in a for k in ("losses", "grad_norms")
+                         for v in x[k])
+            if (diff["losses"][0] > TP4_LOSS_RTOL or diff["grad_norms"][0] > TP4_NORM_RTOL
+                    or not finite or any(x["packs"] != want_pack for x in a)):
+                bad.append(f"(a) {arch} {mode}: {diff}, packs {[x['packs'] for x in a]}")
+            if mode == "abi":
+                launches["pack_transposed"] += sum(a[0]["packs"])
+        dec = r0["decode_vs_one_card"]
+        mesh = MMTP4_DEC_MESH[arch]
+        dec_heads = [r[arch]["decode_heads"] for r in ranks]
+        want_h = cfg.num_kv_heads // mesh[1] if cfg.num_kv_heads % mesh[1] == 0 \
+            else cfg.num_kv_heads
+        log(f"[mmtp4] (d) {arch} the split decode at {mesh}, float32 on a float32 cache, "
+            f"{MMTP4_DEC_DEPTH} layers, B={MMTP4_DEC_BATCH}, "
+            + (f"{cfg.vlm.num_patches if on_card else 'the'} patches and a "
+               f"{MMTP4_DEC_PROMPT}-token prompt, " if arch == VLM_ARCH else "init_cache, ")
+            + f"{MMTP4_DEC_STEPS} steps: K/V heads a rank {dec_heads}; against one card: max "
+            f"abs per step {[f'{x['max_abs']:.3e}' for x in dec]} of "
+            f"{[f'{x['scale']:.3f}' for x in dec]} (bound {F32_LOGIT_TOL})")
+        if any(not x["finite"] or x["max_abs"] > F32_LOGIT_TOL for x in dec) or len(dec) != \
+                MMTP4_DEC_STEPS:
+            bad.append(f"(d) {arch}: {dec}")
+        if any(h != want_h for h in dec_heads):
+            bad.append(f"(d) {arch} K/V heads a rank {dec_heads}, expected {want_h}")
+        if on_card:
+            t = r0["flash_time"]
+            log(f"[mmtp4] {arch} flash alone at a rank's heads (rank 0's card): "
+                f"{json.dumps({k: (round(v, 4) if isinstance(v, float) else v) for k, v in t.items()})}")
+    r0 = ranks[0][VLM_ARCH]
+    for mode in ("abi", "gspmd"):
+        b = [r[VLM_ARCH][f"bf16_{mode}"] for r in ranks]
+        ms = statistics.median(b[0]["ms"][MMTP4_WARM:])
+        want_pack = [1 if (on_card and mode == "abi") else 0] * len(b[0]["ms"])
+        log(f"[mmtp4] (b) {VLM_ARCH} {mode} at "
+            f"{'(1, 4), ZeRO-1 flat' if mode == 'abi' else '(2, 2), FSDP, per-leaf'} bf16, "
+            f"{_mmtp4_cfg(VLM_ARCH, device, None, mode, (1, MMTP4)).num_layers} layers, batch "
+            f"{TRAIN_BATCH if on_card else 8}x{TRAIN_SEQ if on_card else 32}, microbatch 4, "
+            f"remat full: losses {[round(v, 4) for v in b[0]['losses']]} grad norms "
+            f"{[round(v, 4) for v in b[0]['grad_norms']]}; ms/step per rank "
+            f"{[[round(t, 1) for t in x['ms']] for x in b]} (rank 0's median of the "
+            f"{MMTP4_TIMED} after {MMTP4_WARM} warm {ms:.1f}); peak GB per card "
+            f"{[round(x['peak_gb'], 2) for x in b]}; bytes of weights per card "
+            f"{[x['held_bytes'] for x in b]} of {b[0]['whole_bytes']} (the held specs give "
+            f"{[x['expect_bytes'] for x in b]}); pack_transposed a step {[x['packs'] for x in b]}")
+        if any(x["losses"] != b[0]["losses"] or not all(math.isfinite(v) for v in x["losses"])
+               for x in b):
+            bad.append(f"(b) {mode}: losses {[x['losses'] for x in b]}")
+        if any(x["held_bytes"] != x["expect_bytes"] for x in b):
+            bad.append(f"(b) {mode}: bytes held {[x['held_bytes'] for x in b]}, by the held "
+                       f"specs {[x['expect_bytes'] for x in b]}")
+        if any(x["packs"] != want_pack for x in b):
+            bad.append(f"(b) {mode}: pack_transposed {[x['packs'] for x in b]}")
+        if mode == "abi":
+            launches["pack_transposed"] += sum(b[0]["packs"])
+    log(f"[mmtp4] phase wall {time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError("[mmtp4] " + "; ".join(bad))
+    return launches
+
+
 CU = "src/repro_torch/kernels/ring_wire/csrc/"
 TPU = "src/repro/kernels/ring_wire/kernel.py:"
 #: name -> (CUDA source, the TPU kernel it replaces)
@@ -6604,9 +7139,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("check", "ring4", "serve", "swap", "fault", "fault4",
                                        "ssm", "moe", "mm", "moe4", "ep4", "pp4", "tp4",
-                                       "moetp4", "ssmtp4"),
+                                       "moetp4", "ssmtp4", "mmtp4"),
                     default=None,
                     help="check: stop after building and checking the kernels; "
+                         "mmtp4: build, then only the four-card model axis of the encdec and "
+                         "vlm families (whisper-tiny and phi-3-vision-4.2b); "
                          "ssmtp4: build, then only the four-card model axis of the ssm and "
                          "hybrid families (rwkv6-7b and zamba2-2.7b); "
                          "tp4: build, then only the four-card tensor parallelism and FSDP "
@@ -6697,6 +7234,14 @@ def main() -> int:
             print(json.dumps({"kernels": [{"name": name, "launches_by_phase": {"ssmtp4": n}}
                                           for name, n in ssmtp4.items()]}), flush=True)
             log("[only] ssmtp4: the ssm and hybrid families on the model axis of four cards "
+                "matched one card; no result line")
+            return 0
+        if args.only == "mmtp4":
+            _need_cards("mmtp4", MMTP4)
+            mmtp4 = phase_mmtp4(card)
+            print(json.dumps({"kernels": [{"name": name, "launches_by_phase": {"mmtp4": n}}
+                                          for name, n in mmtp4.items()]}), flush=True)
+            log("[only] mmtp4: the encdec and vlm families on the model axis of four cards "
                 "matched one card; no result line")
             return 0
         if args.only == "ring4":

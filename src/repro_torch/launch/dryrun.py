@@ -24,13 +24,15 @@ CPU device, so the kernels take their shape-only variant
 bytes (the state's leaves as this rank holds them) and the peak, temp =
 peak - argument; ``FlopCounterMode`` for the FLOPs; ``hlo_analysis``'s
 ``StepCounter`` for the collectives and the memory traffic; the roofline on
-``model_flops_per_token``.  The dense, moe, ssm and hybrid families run
-their tensor-parallel and FSDP layout (the moe family's experts split by
-expert under ``ep``, by each expert's ``d_ff`` under ``tp``; the Mamba2
-layers' per segment), in every cell, and a decode cell holds the rank's
-block of the decode state (``cache_specs``); the encdec and vlm families
-still run their layers whole on every model-axis rank and say so in the
-record (``"tp": "replicated"``).
+``model_flops_per_token``.  Every family runs its tensor-parallel and
+FSDP layout (the moe family's experts split by expert under ``ep``, by
+each expert's ``d_ff`` under ``tp``; the Mamba2 layers' per segment; the
+encoder-decoder's three attentions and the vlm's projector), in every
+cell, and a decode cell holds the rank's block of the decode state
+(``cache_specs``; the encoder-decoder's self-attention cache and cross
+K/V at the rank's heads).  The record says ``"tp": "split"`` where some
+leaf splits over the model axis (whisper-tiny's 6 heads and vocabulary of
+51,865 stay whole on a 16-wide axis; its MLPs split).
 
 The cells, the ``PAX_OVERRIDE_*`` knobs and the accounting are the
 reference's: ``run_cell`` takes the memory from the deployable run (full
@@ -213,14 +215,14 @@ def lower(cfg, shape: ShapeConfig, mesh: Mesh, impl: str = "paxi") -> dict:
         fpt //= 3  # forward only (no backward): 2*N*D
     stats = sc.stats(bc)
     roof = roofline_from_counts(fc.get_total_flops(), sc, chips, float(fpt) * tokens, stats)
-    held = getattr(model, "part", None)
+    held = model.part
     return {
         "chips": chips,
         "mode": cfg.parallelism.grad_sync,
         "impl": impl,
-        "tp": "split" if held is not None and held.tp_size > 1 else "replicated",
-        "fsdp": "split" if held is not None and held.fsdp_size > 1 else "replicated",
-        "experts": ("split" if is_split(getattr(model, "held", {}).get("layers.moe.experts.wi"))
+        "tp": "split" if any(is_split(s) for s in model.held.values()) else "replicated",
+        "fsdp": "split" if held.fsdp_size > 1 else "replicated",
+        "experts": ("split" if is_split(model.held.get("layers.moe.experts.wi"))
                     else "replicated"),
         "params_held": sum(p.numel() for p in model.parameters()),
         "run_s": round(t_run, 2),
@@ -245,10 +247,8 @@ def _decode_cache(api, model, cfg, rows: int, S: int, dist):
 
         frames = torch.zeros((rows, cfg.encdec.encoder_frames, cfg.d_model),
                              dtype=torch.bfloat16)
-        return encdec.init_cache(model, frames, cfg, rows, S)
-    if cfg.family in train_loop.SPLIT_FAMILIES:
-        return api.decode_init(rows, S, device="cpu", model_axis=model.part.tp_size)
-    return api.decode_init(rows, S, device="cpu")
+        return encdec.init_cache(model, frames, cfg, rows, S, dist)
+    return api.decode_init(rows, S, device="cpu", model_axis=model.part.tp_size)
 
 
 def state_shapes(arch: str, multi_pod: bool) -> dict:

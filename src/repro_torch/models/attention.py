@@ -148,15 +148,15 @@ def attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     Under tensor parallelism ``p`` holds a rank's heads (the projections'
     columns, ``wo``'s rows): q, k and v carry the heads the weights give,
     and ``kv_heads`` names the K/V heads the rank's query heads read where
-    the query heads split and the K/V heads do not (the cache then holds
-    every K/V head)."""
+    the query heads split and the K/V heads do not (the cache, and
+    ``cross_kv``, then hold every K/V head)."""
     if cfg.attention_impl not in ATTENTION_IMPLS:
         raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, "
                          f"got {cfg.attention_impl!r}")
     if cross_kv is not None:
-        q = (x @ p["wq"].to(x.dtype)).reshape(*x.shape[:2], cfg.num_heads,
-                                               cfg.resolved_head_dim)
-        out = _sdpa(q, *cross_kv, causal=False).reshape(*x.shape[:2], -1)
+        q = (x @ p["wq"].to(x.dtype)).reshape(*x.shape[:2], -1, cfg.resolved_head_dim)
+        k, v = (_kv_select(t, kv_heads) for t in cross_kv)
+        out = _sdpa(q, k, v, causal=False).reshape(*x.shape[:2], -1)
         return out @ p["wo"].to(x.dtype)
     q, k, v = _project_qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)

@@ -111,7 +111,7 @@ def split_units(cfg, R: int) -> tuple:
     return ((("layers.in_proj", "layers.conv_w", "layers.conv_b", "layers.out_proj"),
              mamba_divides(cfg, R)),
             (("shared.in_proj", "shared.out_proj"), cfg.d_model % R == 0),
-            *attention_units(ATTENTION, cfg, R))
+            *attention_units(ATTENTIONS[0], cfg, R))
 
 
 def segments(cfg) -> dict:
@@ -119,9 +119,10 @@ def segments(cfg) -> dict:
     return {f"layers.{k}": v for k, v in mamba_segments(cfg).items()}
 
 
-#: the shared block's attention; the residual stream never splits along
-#: the sequence
-ATTENTION = "shared.attn."
+#: the shared block's attention and MLP; the residual stream never splits
+#: along the sequence
+ATTENTIONS = ("shared.attn.",)
+FFNS = ("shared.mlp.wi",)
 SEQUENCE_PARALLEL = False
 
 

@@ -2,30 +2,29 @@
 
 ``build_model(cfg)`` returns a :class:`ModelApi` with ``init(seed, device,
 model_rank=0, model_axis=1, fsdp_rank=0, fsdp_size=1)`` (-> the parameter
-module; the dense, moe, ssm and hybrid families hold their block of every
-leaf the model axis and the fsdp axes split, ``tensor_parallel.held_layout``),
+module; every family holds its block of every leaf the model axis and the
+fsdp axes split, ``tensor_parallel.held_layout``),
 ``param_specs(fsdp, tp)`` (-> the reference's parameter specs, a nested
 dict with the parameters' keys, see ``runtime/sharding.py``),
 ``loss_fn(model, batch)``,
 ``forward(model, batch, last_only=False)`` (-> logits),
-``decode_init(batch, max_seq, device=None)`` (-> the decode state: the
-dense, moe and vlm families' contiguous KV cache, the ssm family's
-recurrent ``RwkvState``, the hybrid's ``HybridState`` — the dense, moe, ssm
-and hybrid families' with ``model_axis=``, a rank's heads and channels
-where they split; None for encdec, whose cache needs the frames:
-``encdec.init_cache``) and ``decode_step(model, token, state, index)``
-(-> logits, state; the state is written in place) and, for the dense,
-moe, ssm and hybrid families, ``cache_specs()`` (the reference's specs of
-the decode state).  ``loss_fn``, ``forward`` and ``decode_step`` take the
-``dist`` the model axis runs on (tensor parallelism and the moe family's
-expert parallelism).  The
-port holds six families of the reference: ``dense`` and ``moe``
-(``transformer``), ``ssm`` (rwkv6, ``rwkv``), ``hybrid`` (Mamba2 + shared
-attention, ``hybrid``), ``encdec`` (whisper, ``encdec``) and ``vlm``
-(phi-3-vision, ``vlm``); each
-trains and decodes.  The forward and the loss of encdec and vlm read the
-whole batch (``frames``, ``patches``), the others its ``tokens``;
-:func:`make_batch` draws a batch of the reference's shapes.
+``decode_init(batch, max_seq, device=None, model_axis=1)`` (-> the decode
+state: the dense, moe and vlm families' contiguous KV cache, the ssm
+family's recurrent ``RwkvState``, the hybrid's ``HybridState``, a rank's
+heads and channels where they split; None for encdec, whose cache needs
+the frames: ``encdec.init_cache``), ``decode_step(model, token, state,
+index)`` (-> logits, state; the state is written in place) and
+``cache_specs()`` (the reference's specs of the decode state).
+``loss_fn``, ``forward`` and ``decode_step`` take the ``dist`` the model
+axis runs on (tensor parallelism and the moe family's expert
+parallelism).  The port holds six families of the reference: ``dense``
+and ``moe`` (``transformer``), ``ssm`` (rwkv6, ``rwkv``), ``hybrid``
+(Mamba2 + shared attention, ``hybrid``), ``encdec`` (whisper, ``encdec``)
+and ``vlm`` (phi-3-vision, ``vlm``); each trains, decodes and splits over
+the model axis and the fsdp axes (``tensor_parallel.held_layout``).  The
+forward and the loss of encdec and vlm read the whole batch (``frames``,
+``patches``), the others its ``tokens``; :func:`make_batch` draws a batch
+of the reference's shapes.
 
 :func:`param_leaves` is the reference's ``jax.tree.leaves`` order — sorted
 keys at every level of the parameter tree, each leaf holding all ``L``
@@ -76,42 +75,26 @@ class ModelApi:
     cache_specs: Optional[Callable] = None
 
 
-#: the families whose modules split over the model and the fsdp axes
-SPLIT = (transformer, rwkv, hybrid)
-#: their names
-SPLIT_FAMILIES = tuple(name for name, (fam, _) in _FAMILIES.items() if fam in SPLIT)
-
-
 def build_model(cfg: ModelConfig) -> ModelApi:
     fam, _ = _family(cfg)
-    # these families' functions take the dist (the model axis, the MoE block's EP)
-    on = ((lambda dist: {"dist": dist}) if fam in (*SPLIT, vlm)
-          else (lambda dist: {}))
-    # the other families hold it all
-    part = ((lambda r, n, f, F: {"model_rank": r, "model_axis": n, "fsdp_rank": f,
-                                 "fsdp_size": F}) if fam in SPLIT
-            else (lambda r, n, f, F: {}))
     # encdec and vlm read the whole batch (frames, patches), the others its tokens
     inputs = (lambda b: b) if fam in (encdec, vlm) else (lambda b: b["tokens"])
     api = ModelApi(
         cfg,
         init=lambda seed=0, device=None, model_rank=0, model_axis=1, fsdp_rank=0, fsdp_size=1:
-        fam.init_lm(cfg, seed, resolve_device(device),
-                    **part(model_rank, model_axis, fsdp_rank, fsdp_size)),
+        fam.init_lm(cfg, seed, resolve_device(device), model_rank, model_axis, fsdp_rank,
+                    fsdp_size),
         param_specs=lambda fsdp="data", tp="model": fam.spec_lm(cfg, fsdp, tp),
-        loss_fn=lambda m, b, dist=None: fam.loss_fn(m, b, cfg, **on(dist)),
+        loss_fn=lambda m, b, dist=None: fam.loss_fn(m, b, cfg, dist=dist),
         forward=lambda m, b, dist=None, last_only=False: fam.forward(
-            m, inputs(b), cfg, last_only=last_only, **on(dist)),
+            m, inputs(b), cfg, last_only=last_only, dist=dist),
         decode_step=lambda m, tok, state, idx, dist=None: fam.decode_step(
-            m, tok, state, idx, cfg, **on(dist)),
+            m, tok, state, idx, cfg, dist=dist),
     )
-    if fam is transformer:
+    if fam in (transformer, vlm):
         api.decode_init = lambda batch, max_seq, device=None, model_axis=1: (
             transformer.init_cache(cfg, batch, max_seq, device=device, model_axis=model_axis))
         api.cache_specs = lambda: transformer.cache_specs(cfg)
-    elif fam is vlm:
-        api.decode_init = lambda batch, max_seq, device=None: transformer.init_cache(
-            cfg, batch, max_seq, device=device)
     elif fam is rwkv:
         api.decode_init = lambda batch, max_seq, device=None, model_axis=1: rwkv.init_state(
             cfg, batch, device=device, model_axis=model_axis)
@@ -120,6 +103,8 @@ def build_model(cfg: ModelConfig) -> ModelApi:
         api.decode_init = lambda batch, max_seq, device=None, model_axis=1: hybrid.init_state(
             cfg, batch, max_seq, device=device, model_axis=model_axis)
         api.cache_specs = lambda: hybrid.state_specs(cfg)
+    else:  # encdec: its cache needs the frames (encdec.init_cache)
+        api.cache_specs = lambda: encdec.cache_specs(cfg)
     return api
 
 
@@ -154,13 +139,10 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig, device=None, model_rank: in
     """The reference's parameter pytree (nested dicts of numpy arrays, e.g.
     ``jax.tree.map(np.asarray, api.init(key))``) as the port's parameters.
     Layouts agree, so this is a name map; shapes and dtypes are checked.
-    A dense, moe, ssm or hybrid model keeps its block (``model_rank``,
-    ``fsdp_rank``) of every leaf the model axis and the fsdp axes split
-    (``tensor_parallel.take_block``)."""
-    fam, cls = _family(cfg)
-    kw = ({"model_rank": model_rank, "model_axis": model_axis, "fsdp_rank": fsdp_rank,
-           "fsdp_size": fsdp_size} if fam in SPLIT else {})
-    model = cls(cfg, resolve_device(device), **kw)
+    The model keeps its block (``model_rank``, ``fsdp_rank``) of every leaf
+    the model axis and the fsdp axes split (``tensor_parallel.take_block``)."""
+    model = _family(cfg)[1](cfg, resolve_device(device), model_rank, model_axis, fsdp_rank,
+                            fsdp_size)
     for name, p in model.named_parameters():
         node = np_tree
         for part in name.split("."):

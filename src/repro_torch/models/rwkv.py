@@ -137,8 +137,10 @@ def segments(cfg) -> dict:
     return {}
 
 
-#: no attention; the residual stream never splits along the sequence
-ATTENTION = None
+#: no attention and no MLP (the channel mix is a unit of its own); the
+#: residual stream never splits along the sequence
+ATTENTIONS = ()
+FFNS = ()
 SEQUENCE_PARALLEL = False
 
 

@@ -1,6 +1,7 @@
-"""Tensor parallelism and FSDP of the dense, moe, ssm (rwkv6) and hybrid
-(Mamba2 with a shared attention block) families: what a rank holds of
-each parameter, and Megatron-LM's collectives as autograd Functions.
+"""Tensor parallelism and FSDP of every family of the port — dense, moe,
+ssm (rwkv6), hybrid (Mamba2 with a shared attention block), encdec
+(whisper) and vlm (phi-3-vision): what a rank holds of each parameter,
+and Megatron-LM's collectives as autograd Functions.
 
 **What a rank holds** (:class:`Part`, :func:`held_layout`,
 :func:`take_block`).  The reference writes the layout down as parameter
@@ -68,6 +69,15 @@ recompute gathers again and the full weights are not kept), and the
 gradient is reduce-scattered back: the shard's gradient is the sum over
 the data-parallel ranks.
 
+The encoder-decoder runs Megatron's pair in three attentions (the
+encoder's, the decoder's causal self-attention and its cross-attention,
+whose K/V heads come from the rank's ``wk``/``wv`` columns applied to the
+whole encoder output: that output enters through :func:`copy_to`, since
+each rank's heads add to its gradient).  The vlm's projector keeps ``w1``
+whole and splits ``w2`` by output columns; the rank's image-token columns
+are gathered back (:func:`gather` with ``partial=False``) before the
+transformer's layers.
+
 The collectives run on ``torch.distributed`` on the tensor-parallel and
 the data-parallel process groups, beside the ABI, as XLA inserts its
 collectives beside PAX in the reference's ``gspmd`` mode.
@@ -132,19 +142,9 @@ class Part:
         return tuple(out)
 
 
-def _family(cfg):
-    """The module of ``cfg``'s family, one of ``model.SPLIT``, that
-    :func:`held_layout` and :meth:`TensorParallel.of` read: its
-    ``spec_lm``, ``full_shapes``, ``split_units``, ``segments``,
-    ``read_partly``, ``ATTENTION`` and ``SEQUENCE_PARALLEL``."""
-    from .model import SPLIT, SPLIT_FAMILIES
-    from .model import _family as family_of
-
-    fam = family_of(cfg)[0]
-    if fam not in SPLIT:
-        raise ValueError(f"the held layout splits the {', '.join(SPLIT_FAMILIES)} families, "
-                         f"not {cfg.family!r}")
-    return fam
+#: the prefixes of the stacked leaves (a leading layer axis, drawn a layer
+#: at a time): the layers of every family, the encoder's and the decoder's
+STACKS = ("layers.", "enc_layers.", "dec_layers.")
 
 
 @functools.lru_cache(maxsize=None)
@@ -155,7 +155,9 @@ def held_layout(cfg, part: Part) -> dict:
     divides the dimension (:func:`held_spec`), and each of the family's
     ``split_units`` (leaves that compute together) split over the model
     axis only where its heads or segments divide it."""
-    fam = _family(cfg)
+    from .model import _family
+
+    fam = _family(cfg)[0]
     specs = fam.spec_lm(cfg, fsdp=FSDP if part.fsdp_size > 1 else None, tp=TP)
     full = fam.full_shapes(cfg)
     out = {}
@@ -198,31 +200,40 @@ def put_block(model, name: str, whole, block) -> None:
 
 def hold(module, cfg, blocks: dict, device, part: Part) -> None:
     """Give ``module`` the parameters of ``blocks`` (a node's dotted path
-    -> its leaves' whole (shape, dtype), parents before children) as
-    :class:`~.common.ParamBlock` s holding ``part``'s block of each leaf
-    (:func:`held_layout`; a parent that holds no leaf of its own is an
-    empty module), and set ``part``, ``full_shapes`` (leaf name -> whole
-    shape), ``held`` (leaf name -> held spec, empty for the whole model)
-    and ``segments`` (the family's)."""
+    -> its leaves' whole (shape, dtype), parents before children; the path
+    ``""``: leaves of ``module`` itself) as :class:`~.common.ParamBlock` s
+    holding ``part``'s block of each leaf (:func:`held_layout`; a parent
+    that holds no leaf of its own is an empty block), and set ``part``,
+    ``full_shapes`` (leaf name -> whole shape), ``held`` (leaf name -> held
+    spec, empty for the whole model) and ``segments`` (the family's)."""
     from torch import nn
 
     from .common import ParamBlock
+    from .model import _family
+
+    def leaf_name(block: str, k: str) -> str:
+        return f"{block}.{k}" if block else k
 
     module.part = part
-    module.full_shapes = {f"{b}.{k}": shape for b, shapes in blocks.items()
+    module.full_shapes = {leaf_name(b, k): shape for b, shapes in blocks.items()
                           for k, (shape, _) in shapes.items()}
     module.held = held_layout(cfg, part) if part != Part() else {}
-    module.segments = _family(cfg).segments(cfg) if module.held else {}
+    module.segments = _family(cfg)[0].segments(cfg) if module.held else {}
     for name, shapes in blocks.items():
+        held = {k: (part.shape(shape, module.held.get(leaf_name(name, k), ())), dt)
+                for k, (shape, dt) in shapes.items()}
+        if not name:
+            for k, (shape, dt) in held.items():
+                module.register_parameter(k, nn.Parameter(torch.empty(shape, dtype=dt,
+                                                                      device=device)))
+            continue
         *path, leaf = name.split(".")
         parent = module
         for step in path:
             if not hasattr(parent, step):
-                parent.add_module(step, nn.Module())
+                parent.add_module(step, ParamBlock({}, device))
             parent = getattr(parent, step)
-        parent.add_module(leaf, ParamBlock(
-            {k: (part.shape(shape, module.held.get(f"{name}.{k}", ())), dt)
-             for k, (shape, dt) in shapes.items()}, device))
+        parent.add_module(leaf, ParamBlock(held, device))
 
 
 def draw_block(model, name: str) -> dict:
@@ -234,7 +245,7 @@ def draw_block(model, name: str) -> dict:
         return {}
     full = model.full_shapes[name]
     index = model.part.index(full, spec, model.segments.get(name, ()))
-    if name.startswith("layers."):  # per layer slice: drop the layer axis
+    if name.startswith(STACKS):  # per layer slice: drop the layer axis
         full, index = full[1:], index[1:]
     return {"full": full, "index": index}
 
@@ -368,18 +379,19 @@ def scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 @dataclasses.dataclass
 class TensorParallel:
     """One call's tensor-parallel and FSDP layout of a model that holds a
-    :class:`Part` (:meth:`of`): the dense, moe, ssm and hybrid families."""
+    :class:`Part` (:meth:`of`), of any family."""
 
     part: Part
     held: dict            # leaf name -> held spec
     tp_group: object
     fsdp_group: object
     sp: bool              # the residual stream holds this rank's slice of the sequence
-    #: the attention's query heads split (the dense and moe layers', the
-    #: hybrid's shared block's)
+    #: the attentions' query heads split (the family's ``ATTENTIONS``, which
+    #: all have the config's heads: the dense and moe layers', the hybrid's
+    #: shared block's, the encoder-decoder's three, the vlm's)
     q_split: bool
-    #: the dense MLP, the moe layer's shared experts or the hybrid's shared
-    #: MLP split by ``d_ff``
+    #: the family's MLPs (``FFNS``) or the moe layer's shared experts split
+    #: by ``d_ff``
     ffn_split: bool
     vocab_split: bool
     #: the moe layer's routed experts: ``"ep"`` (this rank's experts),
@@ -404,11 +416,13 @@ class TensorParallel:
         ``dist``'s groups for a call over ``seq`` positions (0: a cached
         call, which runs without sequence parallelism); None for a whole
         model."""
-        part = getattr(model, "part", Part())
+        part = model.part
         if part == Part():
             return None
         R = part.tp_size
-        fam = _family(cfg)
+        from .model import _family
+
+        fam = _family(cfg)[0]
         if not fam.SEQUENCE_PARALLEL and cfg.parallelism.sequence_parallel and R > 1:
             raise NotImplementedError(f"sequence parallelism splits the dense and moe "
                                       f"families' residual stream, not the {cfg.family} "
@@ -420,13 +434,12 @@ class TensorParallel:
                 part.fsdp_size > 1 and part.fsdp_size != dist.dp_size):
             raise ValueError(f"the model holds {part}; the dist's mesh is {dist.mesh.shape}")
         held = model.held
-        attn = fam.ATTENTION or ""
-        q_split = is_split(held.get(attn + "wq"))
-        kv_split = is_split(held.get(attn + "wk"))
+        attns = fam.ATTENTIONS
+        q_split = any(is_split(held.get(a + "wq")) for a in attns)
+        kv_split = any(is_split(held.get(a + "wk")) for a in attns)
         experts = None
         if cfg.moe is None:
-            ffn_split = is_split(held.get({"dense": "layers.mlp.wi",
-                                           "hybrid": "shared.mlp.wi"}.get(cfg.family)))
+            ffn_split = any(is_split(held.get(n)) for n in fam.FFNS)
         else:
             ffn_split = is_split(held.get("layers.moe.shared.wi"))
             if not is_split(held["layers.moe.experts.wi"]):
@@ -455,7 +468,7 @@ class TensorParallel:
             grad_sum = set()
             if q_split and not kv_split:
                 grad_sum |= {n for n in whole if n.split(".")[-1] in ("wk", "wv", "bk", "bv")
-                             and n.startswith(attn)}
+                             and n.startswith(attns)}
             if experts == "ffn":
                 grad_sum.add("layers.moe.router")
             if ffn_split and cfg.moe is not None:

@@ -19,7 +19,7 @@ cross-entropy plus that sum, as in the reference.  Every function takes the
 ``dist`` the tensor parallelism and the MoE block's expert parallelism run
 on.
 
-Tensor parallelism and FSDP (the dense and moe families): a model built
+Tensor parallelism and FSDP (the dense, moe and vlm families): a model built
 for a :class:`~.tensor_parallel.Part` of the mesh
 (``model_rank``/``model_axis``, ``fsdp_rank``/``fsdp_size``) holds its
 block of each leaf as ``tensor_parallel.held_layout`` places it (the reference's
@@ -88,6 +88,13 @@ class TransformerLM(nn.Module):
         if cfg.family not in self.FAMILIES:
             raise ValueError(f"{type(self).__name__} builds the {' and '.join(self.FAMILIES)} "
                              f"families, got {cfg.family!r}")
+        hold(self, cfg, self.blocks(cfg), device,
+             Part(model_rank, model_axis, fsdp_rank, fsdp_size))
+
+    @classmethod
+    def blocks(cls, cfg) -> dict:
+        """The parameter tree's nodes -> their leaves' whole (shape, dtype)
+        (``tensor_parallel.hold``)."""
         L, d = cfg.num_layers, cfg.d_model
         pdt = dtype_of(cfg.param_dtype)
         blocks = {"embed": embed_shapes(cfg, pdt),
@@ -100,7 +107,7 @@ class TransformerLM(nn.Module):
             blocks.update({f"layers.moe.{k}": v for k, v in children.items()})
         else:
             blocks["layers.mlp"] = mlp_shapes(d, cfg.d_ff, cfg.activation, pdt, (L,))
-        hold(self, cfg, blocks, device, Part(model_rank, model_axis, fsdp_rank, fsdp_size))
+        return blocks
 
 
 def full_shapes(cfg) -> dict:
@@ -119,7 +126,7 @@ def split_units(cfg, R: int) -> tuple:
         E_pad = m.padded_experts or m.num_experts
         if E_pad % R:
             raise ValueError(f"EP needs the model axis ({R}) to divide {E_pad} experts")
-    return attention_units(ATTENTION, cfg, R)
+    return attention_units(ATTENTIONS[0], cfg, R)
 
 
 def attention_units(prefix: str, cfg, R: int) -> tuple:
@@ -135,8 +142,10 @@ def segments(cfg) -> dict:
     return {}
 
 
-#: where the attention's leaves are (``TensorParallel.of`` reads their split)
-ATTENTION = "layers.attn."
+#: where the attention's leaves are and the MLP's ``wi`` (``TensorParallel.of``
+#: reads their split)
+ATTENTIONS = ("layers.attn.",)
+FFNS = ("layers.mlp.wi",)
 #: the residual stream splits along the sequence under ``sequence_parallel``
 SEQUENCE_PARALLEL = True
 
@@ -300,7 +309,7 @@ def stage_model(model: TransformerLM, cfg, stage: int, stages: int, device=None)
     norm, the vlm's projector) on ``device``."""
     if cfg.moe is not None:
         raise ValueError("the pipeline stages run the dense family")
-    if getattr(model, "part", Part()) != Part():
+    if model.part != Part():
         raise ValueError(f"the pipeline stages split a whole model, not one holding {model.part}")
     L = cfg.num_layers
     if L % stages:
@@ -395,11 +404,10 @@ def cache_specs(cfg) -> KVCache:
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, device=None,
                model_axis: int = 1) -> KVCache:
     """The contiguous cache, (L, batch, max_seq, kv_heads, head_dim) per
-    side; a dense or moe model on ``model_axis`` ranks whose K/V heads
+    side; a dense, moe or vlm model on ``model_axis`` ranks whose K/V heads
     split holds its ``kv_heads / model_axis`` of them."""
     heads = cfg.num_kv_heads
-    if cfg.family in TransformerLM.FAMILIES and model_axis > 1 and is_split(
-            held_layout(cfg, Part(0, model_axis))["layers.attn.wk"]):
+    if model_axis > 1 and is_split(held_layout(cfg, Part(0, model_axis))["layers.attn.wk"]):
         heads //= model_axis
     return init_kv_cache(cfg, batch, max_seq, dtype, resolve_device(device),
                          layers=cfg.num_layers, kv_heads=heads)
@@ -434,7 +442,7 @@ def prefill(model: TransformerLM, tokens: torch.Tensor, cfg, dist=None,
     B, S = tokens.shape
     par = TensorParallel.of(model, cfg, dist)
     cache = init_cache(cfg, B, max_seq or cfg.max_seq_len, device=tokens.device,
-                       model_axis=getattr(model, "part", Part()).tp_size)
+                       model_axis=model.part.tp_size)
     x = _run_cached(model, _embed(model, tokens, cfg, par), cache, 0,
                     _positions(0, S, B, tokens.device), cfg, dist, par)
     return _logits(model, x, cfg, par, last_only=True)[:, 0, :], cache, S
@@ -454,7 +462,7 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, dtype=torch.bfloat16
 
 def _run_paged(model: TransformerLM, tokens: torch.Tensor, pages: KVCache,
                block_tables: torch.Tensor, positions: torch.Tensor, cfg, dist) -> torch.Tensor:
-    if getattr(model, "part", Part()) != Part():
+    if model.part != Part():
         raise NotImplementedError("the paged path serves a whole model; a model holding "
                                   f"{model.part} decodes through decode_step")
     x = _trunk(model, _embed(model, tokens, cfg), cfg, lambda p, h, l: attention_paged(

@@ -27,9 +27,8 @@ process is one rank, so the code that the reference runs inside a
 rank's rows.  The step updates the parameter module in place (the
 reference returns new arrays) — that keeps one copy of the weights.
 
-At ``model_axis = R > 1`` the dense, moe, ssm and hybrid families train
-tensor-parallel: each rank holds its block of every leaf the model axis
-splits (``tensor_parallel.held_layout``; ``init_state`` builds it so) and
+At ``model_axis = R > 1`` every family trains tensor-parallel: each rank
+holds its block of every leaf the model axis splits (``tensor_parallel.held_layout``; ``init_state`` builds it so) and
 the layers compute in Megatron's layout (``models/tensor_parallel.py``),
 their collectives on ``torch.distributed`` beside the ABI.  Under expert
 parallelism each rank holds its ``E_pad / R`` experts of each layer and the
@@ -55,8 +54,8 @@ microbatched gradients, the per-leaf AdamW update, under
 ``use_rules(dist.rules)``.  In the reference XLA inserts its collectives
 beside PAX; here, at dp > 1, the gradients' and the loss's mean over the
 data axes runs through ``torch.distributed`` on the dp group directly, not
-through the ABI (that split is the mode's point).  A dense, moe, ssm or
-hybrid model that ``init_state`` builds at dp > 1 is sharded over
+through the ABI (that split is the mode's point).  A model that
+``init_state`` builds at dp > 1 is sharded over
 ``parallelism.fsdp_axes`` (FSDP): each rank holds its block of every leaf whose spec names the fsdp
 axes, and so do its AdamW moments; each layer's leaves are all-gathered
 just before the layer runs and its gradient reduce-scattered back
@@ -74,7 +73,7 @@ import torch.distributed as tdist
 from torch.profiler import record_function
 
 from ..core import PAX_SUM
-from ..models.model import SPLIT_FAMILIES, ModelApi, leaf_splits, param_leaves
+from ..models.model import ModelApi, leaf_splits, param_leaves
 from ..models.tensor_parallel import Part
 from ..optim import adamw
 from ..optim.adamw import AdamState, AdamWConfig, FlatAdamState
@@ -107,7 +106,7 @@ def init_state(api: ModelApi, seed: int, dist: DistContext, model=None) -> Train
     dp, buckets, wire dtype and compression — keeps the live plans; a
     layout change retires them and re-plans.  The weights are the block
     of the seed's draw this rank holds (:func:`model_part`): its
-    tensor-parallel and FSDP block of a dense, moe, ssm or hybrid model."""
+    tensor-parallel and FSDP block."""
     if model is None:
         model = api.init(seed, dist.device, **model_part(api, dist))
     _check_part(api, dist, model)
@@ -145,22 +144,17 @@ def _part(dist: DistContext, grad_sync: str) -> Part:
 
 def model_part(api: ModelApi, dist: DistContext) -> dict:
     """The ``api.init``/``from_jax_params`` keywords of what a rank of
-    ``dist`` holds: the dense, moe, ssm and hybrid families' :func:`_part`,
-    nothing for the other families."""
-    if api.cfg.family not in SPLIT_FAMILIES:
-        return {}
+    ``dist`` holds (:func:`_part`)."""
     p = _part(dist, api.cfg.parallelism.grad_sync)
     return {"model_rank": p.tp_rank, "model_axis": p.tp_size, "fsdp_rank": p.fsdp_rank,
             "fsdp_size": p.fsdp_size}
 
 
 def _check_part(api: ModelApi, dist: DistContext, model) -> None:
-    """A dense, moe, ssm or hybrid model holds the block ``dist`` gives it,
-    or the whole model (trained replicated) — except a moe model under
-    expert parallelism at ``model_axis > 1``, which must hold its block."""
-    held = getattr(model, "part", Part())
-    if api.cfg.family not in SPLIT_FAMILIES:
-        return
+    """The model holds the block ``dist`` gives it, or the whole model
+    (trained replicated) — except a moe model under expert parallelism at
+    ``model_axis > 1``, which must hold its block."""
+    held = model.part
     want = _part(dist, api.cfg.parallelism.grad_sync)
     m = api.cfg.moe
     whole_ok = not (m is not None and m.parallelism == "ep" and dist.tp_size > 1)

@@ -17,11 +17,13 @@ counting and its H100 roofline (``launch/hlo_analysis.py``), on the CPU.
   the dp axes (``state_specs(dp_axes=...)``);
 * likewise rwkv6-7b's and zamba2-2.7b's train state (the ABI ZeRO-1
   step, their time mix, channel mix, Mamba2 layers per segment, shared
-  block and vocabulary split over the model axis); their decode_32k cell
-  and a train cell cut to a few layers and 256 positions at ``pod1`` say
-  ``"tp": "split"`` and their argument bytes are the reference's
-  per-device parameters and decode state (``cache_specs``) or train
-  state;
+  block and vocabulary split over the model axis), and whisper-tiny's and
+  phi-3-vision-4.2b's (whisper's MLPs split, its 6 heads and vocabulary
+  whole; phi-3-vision's heads, ``d_ff``, vocabulary and projector ``w2``
+  split); their decode_32k cell and a train cell cut to a few layers and
+  256 positions at ``pod1`` say ``"tp": "split"`` and their argument bytes
+  are the reference's per-device parameters and decode state
+  (``cache_specs``; whisper's from ``encdec.init_cache``) or train state;
 * a smoke dense cell (qwen2-0.5b's smoke config, 2 x 32 tokens a rank)
   lowers on the fake backend at ``pod1``: positive roofline terms, and its
   collective bytes by op equal a count by hand from the step's plans;
@@ -95,6 +97,10 @@ print("RESULT " + json.dumps(out))
 SSM_ARCHS = ("rwkv6-7b", "zamba2-2.7b")
 SSM_TRAIN = {"rwkv6-7b": 2, "zamba2-2.7b": 6}
 SSM_TRAIN_SHAPE = (256, 64)     # (sequence, global batch): 4 rows a data rank
+#: the encdec and vlm families, in the same subprocesses: whisper-tiny cut to
+#: 1 decoder and 1 encoder layer, phi-3-vision-4.2b to 2 of 32
+MM_ARCHS = ("whisper-tiny", "phi-3-vision-4.2b")
+MM_TRAIN = {"whisper-tiny": 1, "phi-3-vision-4.2b": 2}
 
 _SSM_SCRIPT = """
 import dataclasses, json, sys
@@ -104,6 +110,8 @@ from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_production_mesh
 
 pod2, train = sys.argv[1] == "pod2", json.loads(sys.argv[2])
+cut = lambda cfg, layers: dataclasses.replace(cfg, num_layers=layers, **(
+    {"encdec": dataclasses.replace(cfg.encdec, encoder_layers=layers)} if cfg.encdec else {}))
 seq, batch = json.loads(sys.argv[3])
 out = {"shapes": {a: {k: list(v) for k, v in dryrun.state_shapes(a, pod2).items()}
                   for a in train}}
@@ -114,10 +122,19 @@ if not pod2:
         out.setdefault("decode", {})[a] = dryrun.lower(cfg, configs.SHAPES_BY_NAME["decode_32k"],
                                                        mesh)
         out.setdefault("train", {})[a] = dryrun.lower(
-            dataclasses.replace(cfg, num_layers=layers), ShapeConfig("cut", seq, batch, "train"),
+            cut(cfg, layers), ShapeConfig("cut", seq, batch, "train"),
             mesh)
 print("RESULT " + json.dumps(out))
 """
+
+
+def _cut(cfg, layers: int):
+    """``cfg`` cut to ``layers`` layers (an encoder-decoder's encoder too),
+    as ``_SSM_SCRIPT`` cuts its train cells."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, num_layers=layers, **(
+        {"encdec": dataclasses.replace(cfg.encdec, encoder_layers=layers)} if cfg.encdec else {}))
 
 
 def _run(mesh: str) -> dict:
@@ -136,10 +153,12 @@ def runs():
 
 @pytest.fixture(scope="module")
 def ssm_runs():
-    """The ssm and hybrid archs' state shapes at both meshes and their
-    cells at ``pod1``, the two meshes' subprocesses run together."""
+    """The ssm, hybrid, encdec and vlm archs' state shapes at both meshes
+    and their cells at ``pod1``, the two meshes' subprocesses run
+    together."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    procs = {m: subprocess.Popen([sys.executable, "-c", _SSM_SCRIPT, m, json.dumps(SSM_TRAIN),
+    procs = {m: subprocess.Popen([sys.executable, "-c", _SSM_SCRIPT, m,
+                                  json.dumps({**SSM_TRAIN, **MM_TRAIN}),
                                   json.dumps(SSM_TRAIN_SHAPE)], env=env,
                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for m in MESHES}
@@ -304,10 +323,22 @@ def test_ssm_and_hybrid_state_leaves_have_the_reference_per_device_shapes(arch, 
 
 def _cache_bytes(arch: str, rows: int, seq: int) -> int:
     """The bytes of the reference's decode state of ``rows`` sequences of
-    ``seq`` positions as rank 0 of ``pod1`` holds it (``cache_specs``)."""
+    ``seq`` positions as rank 0 of ``pod1`` holds it (``cache_specs``;
+    the encoder-decoder's from ``encdec.init_cache`` on its frames)."""
     sizes, names = MESHES["pod1"]
-    api = r_build(R_cfgs.get_config(arch))
-    shapes = jax.tree.leaves(jax.eval_shape(lambda: api.decode_init(rows, seq)))
+    cfg = R_cfgs.get_config(arch)
+    api = r_build(cfg)
+    if cfg.family == "encdec":
+        import jax.numpy as jnp
+        from repro.models import encdec as r_encdec
+
+        frames = jax.ShapeDtypeStruct((rows, cfg.encdec.encoder_frames, cfg.d_model),
+                                      jnp.bfloat16)
+        shapes = jax.tree.leaves(jax.eval_shape(
+            lambda p, f: r_encdec.init_cache(p, f, cfg, rows, seq),
+            jax.eval_shape(api.init, jax.random.PRNGKey(0)), frames))
+    else:
+        shapes = jax.tree.leaves(jax.eval_shape(lambda: api.decode_init(rows, seq)))
     specs = jax.tree.leaves(api.cache_specs(), is_leaf=lambda v: isinstance(v, P))
     return sum(math.prod(_shard_shape(s.shape, spec, sizes, names)) * s.dtype.itemsize
                for s, spec in zip(shapes, specs))
@@ -332,6 +363,56 @@ def test_ssm_and_hybrid_cells_hold_the_split_layout_and_its_bytes(arch, ssm_runs
     assert dec["memory"]["argument_bytes"] == params + _cache_bytes(
         arch, shape.global_batch, shape.seq_len)
     cut = dataclasses.replace(cfg, num_layers=SSM_TRAIN[arch])
+    assert train["memory"]["argument_bytes"] == sum(
+        math.prod(shape) * size for shape, size in _want_state(cut, "pod1").values())
+    assert train["collectives"]["count"]["all-reduce"] > 0
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", MM_ARCHS)
+def test_encdec_and_vlm_state_leaves_have_the_reference_per_device_shapes(arch, mesh,
+                                                                          ssm_runs):
+    """whisper-tiny's and phi-3-vision-4.2b's train state (the ABI ZeRO-1
+    step) as rank 0 of ``pod1``/``pod2`` holds it is the reference's, leaf
+    by leaf: whisper's MLPs split over the model axis (its 6 heads and
+    vocabulary of 51,865 do not divide 16), phi-3-vision's heads, ``d_ff``,
+    vocabulary and projector ``w2``."""
+    got = {k: tuple(v) for k, v in ssm_runs[mesh]["shapes"][arch].items()}
+    cfg = R_cfgs.get_config(arch)
+    want = {k: shape for k, (shape, _) in _want_state(cfg, mesh).items()}
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k] == want[k], (k, got[k], want[k])
+    if arch == "whisper-tiny":
+        for stack in ("enc_layers", "dec_layers"):
+            assert got[f"params.{stack}.mlp.wi"][2] == cfg.d_ff // 16
+            assert got[f"params.{stack}.attn.wq"][2] == cfg.d_model
+        assert got["params.dec_layers.cross.wk"][2] == cfg.d_model
+        assert got["params.embed.tok"][0] == cfg.vocab_size
+    else:
+        assert got["params.layers.attn.wq"][2] == cfg.d_model // 16
+        assert got["params.layers.mlp.wi"][2] == cfg.d_ff // 16
+        assert got["params.embed.tok"][0] == cfg.vocab_size // 16
+        assert got["params.projector.w2"] == (cfg.d_model, cfg.d_model // 16)
+
+
+@pytest.mark.parametrize("arch", MM_ARCHS)
+def test_encdec_and_vlm_cells_hold_the_split_layout_and_its_bytes(arch, ssm_runs):
+    """At ``pod1`` the decode_32k cell and a train cell (``MM_TRAIN``
+    layers, whisper's encoder too; 256 positions) hold the split layout
+    (``"tp": "split"``); the decode cell's argument bytes are the
+    reference's per-device parameters and decode state (whisper: the
+    self-attention cache and the cross K/V at all 6 heads; phi-3-vision: 2
+    of 32 K/V heads), the train cell's its per-device train state."""
+    dec, train = ssm_runs["pod1"]["decode"][arch], ssm_runs["pod1"]["train"][arch]
+    assert dec["tp"] == train["tp"] == "split" and dec["fsdp"] == "replicated"
+    cfg = R_cfgs.get_config(arch)
+    params = sum(math.prod(shape) * size for k, (shape, size) in
+                 _want_state(cfg, "pod1").items() if k.startswith("params."))
+    shape = R_cfgs.SHAPES_BY_NAME["decode_32k"]
+    assert dec["memory"]["argument_bytes"] == params + _cache_bytes(
+        arch, shape.global_batch, shape.seq_len)
+    cut = _cut(cfg, MM_TRAIN[arch])
     assert train["memory"]["argument_bytes"] == sum(
         math.prod(shape) * size for shape, size in _want_state(cut, "pod1").values())
     assert train["collectives"]["count"]["all-reduce"] > 0

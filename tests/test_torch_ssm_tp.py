@@ -76,8 +76,9 @@ import pytest
 import repro_torch.configs as T_cfgs
 from repro_torch.models import build_model
 from repro_torch.models.hybrid import HybridLM
+from repro_torch.models.model import _family
 from repro_torch.models.rwkv import RwkvLM
-from repro_torch.models.tensor_parallel import _family, put_block, take_block
+from repro_torch.models.tensor_parallel import put_block, take_block
 from repro_torch.optim.adamw import AdamWConfig as T_Adam
 
 from _torch_ranks import run_ranks
@@ -521,7 +522,7 @@ def test_held_layout_follows_the_reference_rules_at_the_production_axis(arch):
     held = held_layout(cfg, Part(0, 16))
     split = {n for n, spec in held.items() if TP in spec}
     assert split == SPLIT[arch] & set(held), sorted(split ^ SPLIT[arch])
-    assert not any(any(held[n]) for names in _family(cfg).read_partly(cfg).values()
+    assert not any(any(held[n]) for names in _family(cfg)[0].read_partly(cfg).values()
                    for n in names)
     rapi = r_build(R_cfgs.get_config(arch))
     for part, fsdp in ((Part(0, 16), None), (Part(0, 16, 0, 16), "data")):
